@@ -1,0 +1,17 @@
+from . import cuda_sweep, moments, numerics, ops, pipeline, segment, state
+from .state import Hist, HistMeta, from_host, make_hist, to_host
+
+__all__ = [
+    "Hist",
+    "HistMeta",
+    "from_host",
+    "make_hist",
+    "to_host",
+    "cuda_sweep",
+    "moments",
+    "numerics",
+    "ops",
+    "pipeline",
+    "segment",
+    "state",
+]

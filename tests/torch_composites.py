@@ -1,0 +1,137 @@
+"""Synthetic N_tot composites for the PyTorch port's tests and chip_smoke.py.
+
+numpy only: the machine with the GPU has neither JAX nor h5py, and the
+reference's .nc fixtures are not in the repository.  Each composite is the
+``to_host`` dict both packages load (``fhmcanalysis_tpu.core.state.make_hist``
+and ``fhmcanalysis_torch.core.state.from_host``):
+
+* lnPI(N) is a smooth two-basin surface (a vapor and a liquid peak with a
+  barrier between) spanning hundreds of log units;
+* op = arange(N): the order parameter is N_tot;
+* the moments tensor N_i^j N_k^m U^p is self-consistent: per-bin N_i and U
+  profiles with inflated higher powers, as tests/test_gc_n1.py's
+  make_n1_fixture builds them, for nspec 1 or 2 and max_order 2.
+
+``CELLS`` holds the three sweep cells (sizes of the JAX bench's workloads)
+with a mu_1 window that crosses coexistence: one-phase points at the low
+end, two-phase points at the high end, every point valid.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+MAX_ORDER = 2
+
+# name -> composite + sweep parameters.  B is the main-path batch of the
+# cell; tests and parity phases run a few points of the same window.
+CELLS = {
+    # the JAX bench headline's shape: reweight_thermo_points_per_sec
+    "n31": dict(N=31, nspec=2, smooth=1, max_phases=4, B=2_097_152, beta=1.0, mu0=(5.0, 0.0), seed=31),
+    # reweight_thermo_N573_points_per_sec: the square-well T=0.90 composite
+    "n573": dict(N=573, nspec=1, smooth=10, max_phases=4, B=524_288, beta=1.0 / 0.90, mu0=(0.0,), seed=573),
+    # coverage: the old NPAD-2048 ceiling of the TPU kernel
+    "n1400": dict(N=1400, nspec=2, smooth=2, max_phases=4, B=4096, beta=1.0, mu0=(5.0, 0.0), seed=1400),
+}
+
+# tilt of the reweighted surface across the window, in log units per unit
+# of N/(N-1): the low end removes the liquid peak (one phase), the high end
+# keeps both peaks (two phases)
+_SLOPE_LO, _SLOPE_HI = -1850.0, 350.0
+
+
+def _infl(a, b, p):
+    return 1.0 + 0.02 * (a * (a - 1) + b * (b - 1) + p * (p - 1)) + 0.001 * (a * b + b * p)
+
+
+def make_composite(N: int, nspec: int, beta: float, mu0, seed: int, max_order: int = MAX_ORDER, **_) -> dict:
+    """A two-phase N_tot composite as a ``to_host`` dict of numpy arrays."""
+    rng = np.random.default_rng(seed)
+    n = np.arange(N, dtype=np.float64)
+    t = n / (N - 1)
+    lnpi = 300.0 * np.exp(-(((t - 0.1) / 0.08) ** 2)) + 320.0 * np.exp(-(((t - 0.7) / 0.18) ** 2)) - 50.0 * t
+
+    c = rng.uniform(-0.05, 0.05, size=3)
+    x1 = 0.3 + 0.4 * t + c[0] * np.sin(6.0 * t) if nspec == 2 else np.ones(N)
+    n1 = x1 * n
+    n2 = n - n1
+    u = -n * (0.5 + (2.5 + c[1]) * t + c[2] * t**2)
+
+    mo1 = max_order + 1
+    mom = np.zeros((nspec, mo1, nspec, mo1, mo1, N))
+    for i in range(nspec):
+        for j in range(mo1):
+            for k in range(nspec):
+                for m in range(mo1):
+                    for p in range(mo1):
+                        a = (j if i == 0 else 0) + (m if k == 0 else 0)
+                        b = (j if i == 1 else 0) + (m if k == 1 else 0)
+                        mom[i, j, k, m, p] = n1**a * n2**b * u**p * _infl(a, b, p)
+    return {
+        "lnpi": lnpi,
+        "mom": mom,
+        "op": n,
+        "curr_mu": np.asarray(mu0, dtype=np.float64),
+        "curr_beta": float(beta),
+        "volume": float(N) * 1.25,
+    }
+
+
+def mu_window(N: int, beta: float, mu0, **_) -> tuple[float, float]:
+    """The mu_1 range of a cell's sweep (one phase -> two phases)."""
+    return mu0[0] + _SLOPE_LO / (N - 1) / beta, mu0[0] + _SLOPE_HI / (N - 1) / beta
+
+
+def cell(name: str, points: int | None = None):
+    """(composite dict, meta kwargs, mu grid) of a named cell; ``points``
+    overrides the cell's batch size."""
+    c = CELLS[name]
+    lo, hi = mu_window(**c)
+    mus = np.linspace(lo, hi, c["B"] if points is None else points)
+    meta = dict(nspec=c["nspec"], max_order=MAX_ORDER, smooth=c["smooth"], max_phases=c["max_phases"])
+    return make_composite(**c), meta, mus
+
+
+# The randomized lnPI structures of tests/test_pallas_sweep.py
+# (test_randomized_structures_parity), which bias toward endpoint
+# minima/maxima and near-edge peaks, the places segmentation went wrong.
+SURFACE_KINDS = ("edge_peaks", "min_at_end", "multi_well", "rough", "plateaus")
+
+
+def random_surface(kind: str, n: int, rng: np.random.Generator) -> np.ndarray:
+    x = np.linspace(0.0, 1.0, n)
+    if kind == "edge_peaks":  # peaks crowding the right edge (bin N-1 shared)
+        return 8 * np.exp(-((x - 0.8) ** 2) / 0.003) + 10 * np.exp(-((x - 0.97) ** 2) / 0.001) + rng.normal(size=n) * 0.1
+    if kind == "min_at_end":  # minimum exactly at N-1
+        return 9 * np.exp(-((x - 0.5) ** 2) / 0.01) - 5 * x + rng.normal(size=n) * 0.05
+    if kind == "multi_well":
+        k = int(rng.integers(2, 5))
+        return sum(a * np.exp(-((x - c) ** 2) / w) for c, w, a in zip(rng.random(k), 0.002 + 0.01 * rng.random(k), 4 + 12 * rng.random(k)))
+    if kind == "rough":
+        return rng.normal(size=n) * 3
+    if kind == "plateaus":  # exact integer ties
+        return rng.integers(-3, 4, size=n).astype(float)
+    raise ValueError(kind)
+
+
+def janus_surfaces(n: int) -> list:
+    """Multi-peak surfaces for the janus collect (3 and 4 peaks, big-last
+    and big-first, and a 2-peak no-op), from test_pallas_sweep.py."""
+    x = np.linspace(0.0, 1.0, n)
+    g = lambda c, w, a: a * np.exp(-((x - c) ** 2) / w)  # noqa: E731
+    return [
+        g(0.15, 0.004, 5) + g(0.45, 0.003, 4) + g(0.8, 0.006, 12),
+        g(0.1, 0.002, 6) + g(0.35, 0.002, 5) + g(0.6, 0.002, 7) + g(0.85, 0.003, 14),
+        g(0.2, 0.006, 15) + g(0.55, 0.002, 4) + g(0.85, 0.003, 5),
+        g(0.3, 0.005, 8) + g(0.75, 0.005, 9),
+    ]
+
+
+def worst_abs_diff(got, want, ok) -> float:
+    """max |got - want| over the slots where ``ok`` (broadcast over trailing
+    axes); each side is masked before subtracting, since fe is +inf on an
+    empty masked phase."""
+    got, want, ok = np.asarray(got), np.asarray(want), np.asarray(ok)
+    ok = ok.reshape(ok.shape + (1,) * (got.ndim - ok.ndim))
+    d = np.abs(np.where(ok, got, 0.0) - np.where(ok, want, 0.0))
+    return float(d.max()) if d.size else 0.0
