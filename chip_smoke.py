@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA GPU and check it.
+"""Drive the PyTorch port's paths on one CUDA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (each raises on failure, so any failure exits non-zero):
   1. device: require a CUDA device (no CPU fallback); print the card's
      name and power limit as nvidia-smi reports them;
-  2. build: compile the fused sweep kernel from csrc/ with nvcc;
-  3. parity: the kernel against its plain PyTorch version on the card, on
-     the three sweep cells and on randomized lnPI structures, props on/off,
-     collect None/"janus": segmentation equal, floats within 1e-10 abs;
-  4. main path: pipeline.mu_sweep_thermo(engine="auto") on the N=573 cell
-     (B=524,288) and the N=31 cell (B=2,097,152) with the launch counter
-     reset just before: every point valid, the sweep crosses from one
-     phase to two, a sample of points agrees with the plain version; then
-     kernel and plain version timed with CUDA events (warm, median of 3);
-  5. the last line: {"ok": true, "device": {...}}.
+  2. build: compile every kernel from csrc/ with nvcc, one nvcc per
+     source, all started together; print ptxas registers/stack/spills;
+  3. parity: each kernel against its plain PyTorch version on the card:
+     K1 (the mu sweep) on the three sweep cells and randomized lnPI
+     structures, K2 (the (mu, beta, dMu) sweep) over its coverage (nspec
+     1-2, orders 1-2, props on/off, collect None/"janus", used_ke,
+     first_order_mom) at <=4,096 points per case: segmentation equal,
+     floats within 1e-10 abs; and K2 at identity targets equal to K1 bit
+     for bit;
+  4. main paths, each with its launch counter reset just before and read
+     just after: pipeline.mu_sweep_thermo(engine="auto") on the N=573
+     (B=524,288) and N=31 (B=2,097,152) cells, and
+     pipeline.mu_beta_sweep_thermo(engine="auto") on mb31 at orders 1 and
+     2 (65,536 mu x 64 targets = 4,194,304 points): phases cross from one
+     to two, a sample agrees with the plain version; kernel, plain version
+     and "auto" timed with CUDA events (warm, median of 3);
+  5. a {"kernels": [...]} line with each kernel's launches, worst error,
+     times and bound, then the last line: {"ok": true, "device": {...}}.
 Imports neither JAX nor the JAX package; composites come from
 tests/torch_composites.py (numpy, seeded).
 """
@@ -28,12 +36,26 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 TOL = 1e-10  # the JAX package's kernel bar (tests/test_pallas_sweep.py)
 SEG = ("valid", "mask", "n_phases", "left", "right")
 PROPS = ("n_i", "x_i", "ntot", "u", "density")
 MAIN_CELLS = ("n573", "n31")
-REPLACES = "fhmcanalysis_tpu/core/pallas_sweep.py:758"  # _sweep_ds_pallas (pl.pallas_call at :773)
+MB_ORDERS = (1, 2)  # main-path cells mb31_o1, mb31_o2
+REPLACES = {
+    "sweep_thermo": "fhmcanalysis_tpu/core/pallas_sweep.py:758",  # _sweep_ds_pallas (pl.pallas_call at :773)
+    "mb_sweep_thermo": "fhmcanalysis_tpu/core/pallas_mb.py:482",  # _mb_ds_pallas (pl.pallas_call at :496)
+}
+# The least time of the card for a kernel's work: the larger of its bytes
+# (each input read once, each output written once) over HBM3's 3.35 TB/s
+# and its f64 operations over the FP64 vector peak, 34 TFLOP/s (H100 SXM
+# data sheet, 700 W).  A f64 exp counts as EXP_OPS operations: CUDA's
+# double exp is a range reduction, a degree-11 polynomial in fused
+# multiply-adds (2 operations each) and a scaling, about 26 in all.
+HBM_BYTES_PER_S = 3.35e12
+FP64_OPS_PER_S = 34e12
+EXP_OPS = 26
 
 
 def log(*a):
@@ -53,7 +75,8 @@ def compare(got, want, props, where):
     worst = {}
     for k in ("fe",) + (PROPS if props else ()):
         m = ok if got[k].dim() == 2 else ok[..., None]
-        d = (torch.where(m, got[k], 0.0) - torch.where(m, want[k], 0.0)).abs()
+        g, w = torch.where(m, got[k], 0.0), torch.where(m, want[k], 0.0)
+        d = torch.where(g == w, 0.0, (g - w).abs())  # fe is +inf on a real phase with no mass
         worst[k] = float(d.max()) if d.numel() else 0.0
         if not worst[k] <= TOL:
             raise AssertionError(f"{where}: {k} differs by {worst[k]:.3e} > {TOL}")
@@ -77,6 +100,29 @@ def cuda_ms(fn, reps=3):
     return statistics.median(times)
 
 
+def bound(inputs, outputs, ops):
+    """(bound_ms, bound_by) for a kernel call: bytes of every input and
+    output tensor once over the memory rate, against ops over the f64 peak."""
+    nbytes = sum(t.numel() * t.element_size() for t in list(inputs) + list(outputs) if t is not None)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP64_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def covered_bins(out):
+    """Bins summed by the tail over all points and phases of this run: the
+    per-phase max, exp and sums run over [left, right) of each real phase."""
+    return int(((out["right"] - out["left"]).clamp(min=0) * out["mask"]).sum())
+
+
+def tail_ops(out, B, N, smooth, x_ops, key_ops):
+    """f64 operations the tail needs for this run's data: x once per bin
+    (x_ops) and the 4*smooth stencil compares per bin and point; per
+    covered bin the phase max, the shift, one exp, the weight sum and the
+    key rows (key_ops: forming each key row and its multiply-add).  The
+    segmentation's integer logic (O(P^2) per point) is not counted."""
+    return B * N * (x_ops + 4 * smooth) + covered_bins(out) * (3 + EXP_OPS + key_ops)
+
+
 def main():
     import torch
 
@@ -89,7 +135,7 @@ def main():
 
     import torch_composites as TC
     from fhmcanalysis_torch import _build
-    from fhmcanalysis_torch.core import cuda_sweep, pipeline, segment, state
+    from fhmcanalysis_torch.core import cuda_mb, cuda_sweep, pipeline, segment, state
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True, timeout=60
@@ -100,14 +146,17 @@ def main():
     name = torch.cuda.get_device_name(0)
     log(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # ---- 2. build ----
+    # ---- 2. build: one nvcc per source, started together ----
     t0 = time.perf_counter()
-    cuda_sweep._lib()
-    info = _build.BUILD_INFO.get(cuda_sweep.NAME, {})
-    log(f"build: {cuda_sweep.NAME} ready in {time.perf_counter() - t0:.1f} s (nvcc {info.get('seconds', 0.0):.1f} s)")
-    for line in info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log("  ptxas:", line.strip())
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda f: f(), [cuda_sweep._lib, cuda_mb._lib]))
+    log(f"build: {cuda_sweep.NAME}, {cuda_mb.NAME} ready in {time.perf_counter() - t0:.1f} s")
+    for kname in (cuda_sweep.NAME, cuda_mb.NAME):
+        info = _build.BUILD_INFO.get(kname, {})
+        log(f"  {kname}: nvcc {info.get('seconds', 0.0):.1f} s")
+        for line in info.get("log", "").splitlines():
+            if "registers" in line or "spill" in line or "smem" in line or "stack" in line:
+                log("  ptxas:", line.strip())
 
     def hist(d):
         return state.from_host(d, device=dev)
@@ -120,10 +169,11 @@ def main():
 
     # ---- 3. kernel vs plain on the card ----
     worst: dict = {}
+    worst_mb: dict = {}
 
-    def note(w):
+    def note(w, into=worst):
         for k, v in w.items():
-            worst[k] = max(worst.get(k, 0.0), v)
+            into[k] = max(into.get(k, 0.0), v)
 
     for cname in TC.CELLS:
         d, mk, mus = TC.cell(cname, 4096)
@@ -144,9 +194,47 @@ def main():
     for i, y in enumerate(TC.janus_surfaces(1400)):
         got, want = both(hist(dict(d14, lnpi=10.0 * y)), state.HistMeta(**mk14), np.linspace(4.99, 5.01, 512), True, "janus")
         note(compare(got, want, True, f"janus surface {i}"))
-    log("parity: kernel vs plain, worst abs diff on valid masked slots:", json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
+    log("parity K1: kernel vs plain, worst abs diff on valid masked slots:", json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
 
-    # ---- 4. main path ----
+    # K2 over its coverage: 512 mu x 8 targets = 4,096 points per case
+    def mb_case(cname, used_ke=False):
+        d, mk, mus = TC.cell(cname, 512, max_order=3, used_ke=used_ke)
+        dref = d["curr_mu"][1:] - d["curr_mu"][0]
+        dmus = dref + np.linspace(-0.5, 0.5, 8)[:, None] if mk["nspec"] == 2 else np.zeros((1, 0))
+        return hist(d), state.HistMeta(**mk), mus, np.linspace(0.92, 1.08, 8), dmus
+
+    def mb_flat(o):
+        return {k: v.reshape((-1,) + v.shape[2:]) for k, v in o.items()}
+
+    n_cases = 0
+    for cname in TC.CELLS:
+        for used_ke in (False, True) if cname == "n31" else (False,):
+            h, meta, mus, betas, dmus = mb_case(cname, used_ke)
+            for order in (1, 2):
+                for props in (True, False):
+                    for collect in (None, "janus"):
+                        for fom in (False, True) if order == 2 and props else (False,):
+                            kw = dict(order=order, props=props, first_order_mom=fom, collect=collect)
+                            got = pipeline.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, engine="cuda", **kw)
+                            want = pipeline.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, engine="torch", **kw)
+                            torch.cuda.synchronize()
+                            note(compare(mb_flat(got), mb_flat(want), props, f"K2 {cname} ke={used_ke} {kw}"), worst_mb)
+                            n_cases += 1
+            # identity targets: K2 must return K1's output bit for bit
+            for order in (1, 2):
+                for props in (True, False):
+                    for collect in (None, "janus"):
+                        ref = (h.curr_mu[1:] - h.curr_mu[0]).cpu().numpy()[None]
+                        k2 = pipeline.mu_beta_sweep_thermo(h, meta, mus, h.curr_beta.reshape(1).cpu().numpy(), ref, order=order, props=props, collect=collect, engine="cuda")
+                        k1 = pipeline.mu_sweep_thermo(h, meta, mus, props=props, collect=collect, engine="cuda")
+                        torch.cuda.synchronize()
+                        for k in k1:
+                            if not torch.equal(k2[k][:, 0], k1[k]):
+                                raise AssertionError(f"K2 at identity targets differs from K1 in {k} ({cname} order={order} props={props} collect={collect})")
+    log(f"parity K2: {n_cases} cases vs plain, worst abs diff on valid masked slots:", json.dumps({k: float(f"{v:.3e}") for k, v in worst_mb.items()}))
+    log("parity K2: identity targets equal K1 bit for bit on every field")
+
+    # ---- 4. main paths ----
     runs = {}
     for cname in MAIN_CELLS:
         d, mk, mus_np = TC.cell(cname)
@@ -179,26 +267,87 @@ def main():
         p_ms = cuda_ms(lambda: pipeline.mu_sweep_thermo(h, meta, mus, props=True, engine="torch"))
         peak = torch.cuda.max_memory_allocated() / 2**30
         e_ms = cuda_ms(lambda: pipeline.mu_sweep_thermo(h, meta, mus, props=True))
-        runs[cname] = dict(B=B, N=h.nbins, launches=launches, kernel_ms=k_ms, plain_ms=p_ms, auto_ms=e_ms, phases=nph[1:3])
+        ops = tail_ops(out, B, h.nbins, meta.smooth, 2, 2 * (meta.nspec + 1))
+        b_ms, b_by = bound([h.lnpi, h.op, keys, h.volume, a], out.values(), ops)
+        runs[cname] = dict(B=B, N=h.nbins, launches=launches, kernel_ms=k_ms, plain_ms=p_ms, auto_ms=e_ms, phases=nph[1:3],
+                           bound_ms=b_ms, bound_by=b_by, ops=ops, covered_bins=covered_bins(out))
         log(
             f"main path {cname}: N={h.nbins} B={B} launches={launches} phases(1,2)={nph[1:3]} | "
             f"kernel {k_ms:.3f} ms = {B / k_ms * 1e3:.4g} points/s | mu_sweep_thermo auto {e_ms:.3f} ms = {B / e_ms * 1e3:.4g} points/s | "
-            f"plain {p_ms:.3f} ms = {B / p_ms * 1e3:.4g} points/s (peak {peak:.2f} GiB) | {smi}"
+            f"plain {p_ms:.3f} ms = {B / p_ms * 1e3:.4g} points/s (peak {peak:.2f} GiB) | bound {b_ms:.4f} ms by {b_by} ({ops:.4g} f64 ops) | {smi}"
         )
 
-    head = runs[MAIN_CELLS[0]]
-    kernels = [
-        {
-            "name": cuda_sweep.NAME,
+    mb_runs = {}
+    d, mk, mus_np, betas, dmus = TC.mb_grid()
+    h, meta = hist(d), state.HistMeta(**mk)
+    mus = torch.as_tensor(mus_np, device=dev)
+    M, A = mus.shape[0], betas.shape[0]
+    for order in MB_ORDERS:
+        cname = f"mb31_o{order}"
+        cuda_mb.mb_sweep_thermo.launches = 0
+        out = pipeline.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order, props=True)
+        torch.cuda.synchronize()
+        launches = cuda_mb.mb_sweep_thermo.launches
+        if launches < 1:
+            raise AssertionError(f"{cname}: the main path launched K2 {launches} times")
+        if out["fe"].shape != (M, A, meta.max_phases) or out["x_i"].shape != (M, A, meta.max_phases, meta.nspec):
+            raise AssertionError(f"{cname}: unexpected output shapes")
+        valid = out["valid"]
+        nph = torch.bincount(out["n_phases"][valid].long(), minlength=3).tolist()
+        if nph[1] == 0 or nph[2] == 0:
+            raise AssertionError(f"{cname}: phase counts over valid points {nph}: both one- and two-phase points must occur")
+        real = out["mask"] & valid[..., None]
+        if not bool(torch.isfinite(out["fe"][real]).all()) or not bool(torch.isfinite(out["n_i"][real]).all()):
+            raise AssertionError(f"{cname}: non-finite result on a real phase of a valid point")
+        share = float(valid.double().mean())
+        midx = torch.as_tensor(np.sort(np.random.default_rng(order).choice(M, 4096 // A, replace=False)), device=dev)
+        ref = pipeline.mu_beta_sweep_thermo(h, meta, mus[midx], betas, dmus, order=order, props=True, engine="torch")
+        note(compare(mb_flat({k: v[midx] for k, v in out.items()}), mb_flat(ref), True, f"{cname} main path sample"), worst_mb)
+
+        args = pipeline._mb_inputs(h, meta, mus, betas, dmus, order, True, False)
+        mu_t, a, xrows, krows, tg = args
+
+        def k2():
+            return cuda_mb.mb_sweep_thermo(h.lnpi, h.op, xrows, krows, h.volume, mu_t, a, tg, meta.nspec, meta.smooth, meta.max_phases, order, True)
+
+        k_ms = cuda_ms(k2)
+        torch.cuda.reset_peak_memory_stats()
+        p_ms = cuda_ms(lambda: pipeline.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order, props=True, engine="torch"))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        e_ms = cuda_ms(lambda: pipeline.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order, props=True))
+        B, S = M * A, meta.nspec
+        x_ops = 2 + 4 + 2 + (8 if order == 2 else 0)  # reweight, dB term, dd term, order-2 terms
+        key_ops = (S + 1) * (2 + 2 + 2 + (10 if order == 2 else 0))  # key' per row, then its multiply-add
+        ops = tail_ops(mb_flat(out), B, h.nbins, meta.smooth, x_ops, key_ops)
+        b_ms, b_by = bound([h.lnpi, h.op, xrows, krows, h.volume, mu_t, a, tg], out.values(), ops)
+        mb_runs[cname] = dict(M=M, A=A, B=B, N=h.nbins, order=order, launches=launches, kernel_ms=k_ms, plain_ms=p_ms, auto_ms=e_ms,
+                              phases=nph[1:3], valid_share=share, bound_ms=b_ms, bound_by=b_by, ops=ops, covered_bins=covered_bins(mb_flat(out)))
+        log(
+            f"main path {cname}: N={h.nbins} M={M} A={A} B={B} launches={launches} valid share {share:.6f} phases(1,2)={nph[1:3]} | "
+            f"kernel {k_ms:.3f} ms = {B / k_ms * 1e3:.4g} points/s | mu_beta_sweep_thermo auto {e_ms:.3f} ms = {B / e_ms * 1e3:.4g} points/s | "
+            f"plain {p_ms:.3f} ms = {B / p_ms * 1e3:.4g} points/s (peak {peak:.2f} GiB) | bound {b_ms:.4f} ms by {b_by} ({ops:.4g} f64 ops) | {smi}"
+        )
+
+    def entry(kname, source, cells, err):
+        head = cells[next(iter(cells))]
+        return {
+            "name": kname,
             "route": "cuda",
-            "source": "fhmcanalysis_torch/csrc/sweep_thermo.cu",
-            "replaces": REPLACES,
-            "launches": sum(r["launches"] for r in runs.values()),
-            "max_abs_err": max(worst.values()),
+            "source": source,
+            "replaces": REPLACES[kname],
+            "launches": sum(r["launches"] for r in cells.values()),
+            "max_abs_err": err,
             "ms": head["kernel_ms"],
             "plain_ms": head["plain_ms"],
-            "cells": runs,
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes segmentation + per-phase integration
+            "cells": cells,
         }
+
+    kernels = [
+        entry(cuda_sweep.NAME, "fhmcanalysis_torch/csrc/sweep_thermo.cu", runs, max(worst.values())),
+        entry(cuda_mb.NAME, "fhmcanalysis_torch/csrc/mb_sweep_thermo.cu", mb_runs, max(worst_mb.values())),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

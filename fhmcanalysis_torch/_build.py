@@ -1,9 +1,9 @@
 """Build the package's CUDA sources at first use and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
-``nvcc`` into ``_build/lib<name>_<hash>.so``, keyed by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads
-at once.  Nothing here includes PyTorch's headers, which keeps a build to
+``nvcc`` (with ``-I csrc``) into ``_build/lib<name>_<hash>.so``, keyed by a
+hash of the flags, the source and every shared header ``csrc/*.cuh``, so an
+edited source or header rebuilds and an unchanged one loads at once.  Nothing here includes PyTorch's headers, which keeps a build to
 seconds.  A failed build raises: there is no fallback.
 """
 
@@ -39,9 +39,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(src.read_bytes())
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
@@ -53,7 +54,7 @@ def load(name: str) -> ctypes.CDLL:
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")], capture_output=True, text=True)
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {name}.cu:\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, so)

@@ -1,4 +1,4 @@
-from . import cuda_sweep, moments, numerics, ops, pipeline, segment, state
+from . import cuda_mb, cuda_sweep, derivs, extrap, moments, numerics, ops, pipeline, segment, state
 from .state import Hist, HistMeta, from_host, make_hist, to_host
 
 __all__ = [
@@ -7,7 +7,10 @@ __all__ = [
     "from_host",
     "make_hist",
     "to_host",
+    "cuda_mb",
     "cuda_sweep",
+    "derivs",
+    "extrap",
     "moments",
     "numerics",
     "ops",

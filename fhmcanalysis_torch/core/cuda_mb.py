@@ -1,0 +1,150 @@
+"""The fused (mu_1, beta, dMu) extrapolating-sweep kernel K2 (CUDA, Hopper)
+and its wrapper.
+
+Replaces the TPU kernel ``fhmcanalysis_tpu/core/pallas_mb.py``
+(``_mb_ds_pallas``), which ran reweight -> grand-canonical averages ->
+Taylor apply -> thermo per point in double-single f32 pairs.  The port
+computes in native f64 and drops the per-point grand-canonical averages:
+they shift lnPI' by a constant the thermo tail cancels (pipeline.py says
+why).  So K2 is K1's tail (``csrc/thermo_tail.cuh``) fed a richer x'(i)
+and richer key rows, both recomputed from a few mu-independent rows; the
+source is ``csrc/mb_sweep_thermo.cu``, one warp per point, and its header
+says what bounds it.
+
+The plain version of this kernel is ``pipeline.mu_beta_sweep_body``;
+nothing on the CUDA path calls it.  ``pipeline.mu_beta_sweep_thermo``
+picks between the two by the tensors' device.
+
+Row layouts (built by ``pipeline._mb_rows`` / ``_mb_targets``):
+  xrows [R, N]     r1, mq (nspec 2), then at order 2: h00, h01, h11 (nspec 2)
+  krows [G, S+1, N] key, sgB, sgM (nspec 2), then at order 2 unless
+                    first_order_mom: sgB2, sgX, sgM2 (nspec 2)
+  tg    [A, T]     dB, dd (nspec 2), then at order 2: dB^2, 2 dB dd, dd^2
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import _build
+
+NAME = "mb_sweep_thermo"
+MAX_PHASES = 8  # the kernel's per-warp arrays; csrc/thermo_tail.cuh MAXP
+
+
+def n_xrows(S: int, order: int) -> int:
+    """Rows of xrows, and columns of tg: each x' row has its target scalar."""
+    return S + (0 if order < 2 else (1 if S == 1 else 3))
+
+
+def n_groups(S: int, order: int, first_order_mom: bool) -> int:
+    return 1 + S + (0 if order < 2 or first_order_mom else (1 if S == 1 else 3))
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared."""
+    lib = _build.load(NAME)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mb_sweep_thermo_launch.argtypes = [i, p] + [p] * 8 + [i] * 10 + [p] * 11
+    lib.mb_sweep_thermo_launch.restype = i
+    lib.mb_sweep_thermo_error_string.argtypes = [i]
+    lib.mb_sweep_thermo_error_string.restype = ctypes.c_char_p
+    lib.mb_sweep_thermo_max_phases.argtypes = []
+    lib.mb_sweep_thermo_max_phases.restype = i
+    if lib.mb_sweep_thermo_max_phases() != MAX_PHASES:
+        raise RuntimeError("thermo_tail.cuh MAXP disagrees with cuda_mb.MAX_PHASES")
+    return lib
+
+
+def mb_sweep_thermo(
+    lnpi, op, xrows, krows, volume, mu, a, tg, nspec: int, smooth: int, max_phases: int, order: int = 1,
+    props: bool = True, first_order_mom: bool = False, collect=None,
+) -> dict:
+    """Launch K2 for the M x A points (mu_m, target_t), b = m * A + t.
+
+    lnpi, op : f64[N]           composite surface and order parameter
+    xrows    : f64[R, N]        mu-independent lnPI' rows (module docstring)
+    krows    : f64[G, S+1, N]   key rows and their derivative rows, or None without props
+    volume   : f64[]            box volume
+    mu, a    : f64[M]           mu_1 per point and beta*(mu - mu0)
+    tg       : f64[A, T]        per-target scalars
+
+    Returns the mu_sweep_thermo dict with a flat leading axis M*A.  Runs on
+    ``torch.cuda.current_stream()`` and does not synchronise.
+    """
+    S = nspec
+    tensors = {"lnpi": lnpi, "op": op, "xrows": xrows, "volume": volume, "mu": mu, "a": a, "tg": tg}
+    if props:
+        tensors["krows"] = krows
+    for name, t in tensors.items():
+        if t is None or not t.is_cuda:
+            raise ValueError(f"mb_sweep_thermo: {name} is {'missing' if t is None else t.device}; the CUDA kernel needs CUDA tensors (engine='torch' runs the plain version)")
+        if t.dtype != torch.float64:
+            raise TypeError(f"mb_sweep_thermo: {name} must be float64, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"mb_sweep_thermo: {name} must be contiguous")
+        if t.device != lnpi.device:
+            raise ValueError(f"mb_sweep_thermo: {name} is on {t.device}, lnpi on {lnpi.device}")
+    if S not in (1, 2):
+        raise ValueError(f"mb_sweep_thermo: nspec must be 1 or 2, got {S}")
+    if order not in (1, 2):
+        raise ValueError(f"mb_sweep_thermo: the kernel implements orders 1-2, got {order}")
+    N = lnpi.shape[0] if lnpi.dim() == 1 else -1
+    if N < 1 or N >= 2**31 - 1 or op.shape != lnpi.shape or volume.numel() != 1:
+        raise ValueError("mb_sweep_thermo: need lnpi, op [N] with 1 <= N < 2**31-1 and a scalar volume")
+    if xrows.shape != (n_xrows(S, order), N):
+        raise ValueError(f"mb_sweep_thermo: xrows must be [{n_xrows(S, order)}, {N}], got {tuple(xrows.shape)}")
+    if props and krows.shape != (n_groups(S, order, first_order_mom), S + 1, N):
+        raise ValueError(f"mb_sweep_thermo: krows must be [{n_groups(S, order, first_order_mom)}, {S + 1}, {N}], got {tuple(krows.shape)}")
+    if mu.dim() != 1 or a.shape != mu.shape or tg.dim() != 2 or tg.shape[1] != n_xrows(S, order):
+        raise ValueError(f"mb_sweep_thermo: need mu, a [M] and tg [A, {n_xrows(S, order)}]")
+    if not 1 <= max_phases <= MAX_PHASES:
+        raise ValueError(f"mb_sweep_thermo: max_phases={max_phases} outside the kernel's 1..{MAX_PHASES}")
+    if smooth < 1:
+        raise ValueError("smooth must be >= 1 to find relative extrema (scipy argrelextrema rejects order 0 too)")
+    if collect not in (None, "janus"):
+        raise NotImplementedError(f"mb_sweep_thermo: the kernel implements collect None and 'janus', not {collect!r}")
+    M, A = mu.shape[0], tg.shape[0]
+    if M * A >= 2**31:
+        raise ValueError(f"mb_sweep_thermo: {M} x {A} points exceed the kernel's int32 grid")
+
+    B, P, dev = M * A, max_phases, lnpi.device
+    f64 = dict(dtype=torch.float64, device=dev)
+    out = {
+        "fe": torch.empty((B, P), **f64),
+        "mask": torch.empty((B, P), dtype=torch.bool, device=dev),
+        "left": torch.empty((B, P), dtype=torch.int32, device=dev),
+        "right": torch.empty((B, P), dtype=torch.int32, device=dev),
+        "n_phases": torch.empty((B,), dtype=torch.int32, device=dev),
+        "valid": torch.empty((B,), dtype=torch.bool, device=dev),
+    }
+    if props:
+        out.update(
+            n_i=torch.empty((B, P, S), **f64),
+            x_i=torch.empty((B, P, S), **f64),
+            ntot=torch.empty((B, P), **f64),
+            u=torch.empty((B, P), **f64),
+            density=torch.empty((B, P), **f64),
+        )
+    ptr = {k: v.data_ptr() for k, v in out.items()}
+    lib = _lib()
+    rc = lib.mb_sweep_thermo_launch(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream,
+        lnpi.data_ptr(), op.data_ptr(), xrows.data_ptr(), krows.data_ptr() if props else None,
+        volume.data_ptr(), mu.data_ptr(), a.data_ptr(), tg.data_ptr(),
+        M, A, N, S, P, smooth, order, int(props), int(first_order_mom and order >= 2), int(collect == "janus"),
+        ptr["fe"], ptr["left"], ptr["right"], ptr["mask"], ptr["n_phases"], ptr["valid"],
+        *(ptr.get(k) for k in ("n_i", "x_i", "ntot", "u", "density")),
+    )
+    if rc != 0:
+        raise RuntimeError(f"mb_sweep_thermo kernel launch failed: {lib.mb_sweep_thermo_error_string(rc).decode()} ({rc})")
+    mb_sweep_thermo.launches += 1
+    return out
+
+
+mb_sweep_thermo.launches = 0  # kernel launches this process; chip_smoke.py resets and reads it

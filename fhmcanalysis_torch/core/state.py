@@ -3,7 +3,8 @@
 The reference's ``histogram`` object is a dict of numpy arrays mutated in
 place (ntot/gc_hist.pyx:131-182).  Here, as in the JAX package, it is a
 frozen dataclass of float64 tensors (`Hist`) and every operation returns a
-new one.  All tensors of a `Hist` live on one explicit device.
+new one.  All tensors of a `Hist` live on one explicit device: the CUDA
+card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -73,8 +74,20 @@ class HistMeta:
         return (self.nspec, self.mo1, self.nspec, self.mo1, self.mo1, nbins)
 
 
+def _device(device) -> torch.device:
+    """``device`` as a torch.device; None means the CUDA card, and raises
+    where there is none rather than carrying on on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card by default; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
 def make_hist(lnpi, mom, op, curr_mu, curr_beta, volume, device=None) -> Hist:
-    """Build a Hist from host arrays/scalars as f64 tensors on ``device``."""
+    """Build a Hist from host arrays/scalars as f64 tensors on ``device``
+    (default: the CUDA card; pass ``device="cpu"`` for the CPU)."""
+    device = _device(device)
 
     def f64(v):
         if torch.is_tensor(v):
@@ -99,5 +112,5 @@ def to_host(h: Hist) -> dict:
 
 def from_host(d: dict, device=None) -> Hist:
     """Build a Hist from a ``to_host`` dict of either package, so both
-    packages compute from the same state."""
+    packages compute from the same state.  ``device`` as for make_hist."""
     return make_hist(d["lnpi"], d["mom"], d["op"], d["curr_mu"], d["curr_beta"], d["volume"], device=device)

@@ -1,5 +1,6 @@
-"""PyTorch port on the card: the fused sweep kernel against the plain
-version on the same card.  Imports no JAX, so it runs on the GPU machine:
+"""PyTorch port on the card: the fused sweep kernels (K1, the mu sweep; K2,
+the (mu, beta, dMu) sweep) against their plain versions on the same card.
+Imports no JAX, so it runs on the GPU machine:
 
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 
@@ -15,10 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+import fhmcanalysis_torch.core.cuda_mb as CM
 import fhmcanalysis_torch.core.cuda_sweep as CS
 import fhmcanalysis_torch.core.pipeline as TP
 import fhmcanalysis_torch.core.state as TS
-from torch_composites import SURFACE_KINDS, cell, janus_surfaces, random_surface, worst_abs_diff
+from torch_composites import SURFACE_KINDS, cell, janus_surfaces, mb_grid, random_surface, worst_abs_diff
 
 SEG = ("valid", "mask", "n_phases", "left", "right")
 PROPS = ("n_i", "x_i", "ntot", "u", "density")
@@ -83,3 +85,62 @@ def test_kernel_rejects_unsupported(cuda):
         TP.mu_sweep_thermo(h, TS.HistMeta(**dict(mk, max_phases=9)), mus)
     with pytest.raises(TypeError, match="float64"):
         CS.sweep_thermo(h.lnpi.float(), h.op, h.mom[:2, 1, 0, 0, 0], h.volume, torch.zeros(3, dtype=torch.float64, device=cuda), 1, 4)
+
+
+def _mb_inputs(cuda, name, used_ke=False, M=256, A=8):
+    d, mk, mus = cell(name, M, max_order=3, used_ke=used_ke)
+    dref = d["curr_mu"][1:] - d["curr_mu"][0]
+    dmus = dref + np.linspace(-0.5, 0.5, A)[:, None] if mk["nspec"] == 2 else np.zeros((1, 0))
+    return TS.from_host(d, device=cuda), TS.HistMeta(**mk), mus, np.linspace(0.92, 1.08, A), dmus
+
+
+def _mb_compare(h, meta, mus, betas, dmus, **kw):
+    n0 = CM.mb_sweep_thermo.launches
+    got = TP.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, engine="cuda", **kw)
+    want = TP.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, engine="torch", **kw)
+    torch.cuda.synchronize()
+    assert CM.mb_sweep_thermo.launches == n0 + 1
+    assert set(got) == set(want)
+    for k in SEG:
+        assert torch.equal(got[k], want[k]), k
+    ok = (want["mask"] & want["valid"][..., None]).cpu()
+    for k in ("fe",) + (PROPS if kw.get("props", True) else ()):
+        assert worst_abs_diff(got[k].cpu(), want[k].cpu(), ok) <= 1e-10, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("props", [True, False])
+@pytest.mark.parametrize("order,first_order_mom", [(1, False), (2, False), (2, True)])
+@pytest.mark.parametrize("name,used_ke", [("n31", False), ("n31", True), ("n573", False), ("n1400", False)])
+def test_mb_kernel_matches_plain(cuda, name, used_ke, order, first_order_mom, props, collect):
+    h, meta, mus, betas, dmus = _mb_inputs(cuda, name, used_ke)
+    _mb_compare(h, meta, mus, betas, dmus, order=order, props=props, first_order_mom=first_order_mom, collect=collect)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("props", [True, False])
+@pytest.mark.parametrize("name", ["n31", "n573", "n1400"])
+def test_mb_identity_targets_equal_k1(cuda, name, props, collect):
+    """At beta = beta_ref, dMu = dMu_ref K2 returns K1's output bit for bit."""
+    h, meta, mus, _, _ = _mb_inputs(cuda, name)
+    dref = (h.curr_mu[1:] - h.curr_mu[0]).cpu().numpy()[None]
+    k1 = TP.mu_sweep_thermo(h, meta, mus, props=props, collect=collect, engine="cuda")
+    for order in (1, 2):
+        k2 = TP.mu_beta_sweep_thermo(h, meta, mus, h.curr_beta.reshape(1).cpu().numpy(), dref, order=order, props=props, collect=collect, engine="cuda")
+        for k in k1:
+            assert torch.equal(k2[k][:, 0], k1[k]), (order, k)
+
+
+@pytest.mark.gpu
+def test_mb_main_path_through_k2(cuda):
+    """engine='auto' on CUDA tensors launches K2 once; it never runs the
+    plain version, and it raises for what K2 does not take."""
+    d, mk, mus, betas, dmus = mb_grid(M=512, A=16)
+    h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
+    n0 = CM.mb_sweep_thermo.launches
+    out = TP.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=2)
+    assert CM.mb_sweep_thermo.launches == n0 + 1 and out["fe"].is_cuda and out["fe"].shape == (512, 16, meta.max_phases)
+    with pytest.raises(ValueError, match="max_phases"):
+        TP.mu_beta_sweep_thermo(h, TS.HistMeta(**dict(mk, max_phases=9)), mus, betas, dmus)

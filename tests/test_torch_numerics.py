@@ -52,7 +52,7 @@ def test_normalize_and_reweight_lnpi():
 
 def _hists(name):
     d = make_composite(**CELLS[name])
-    return TS.from_host(d), JS.make_hist(**d)
+    return TS.from_host(d, device="cpu"), JS.make_hist(**d)
 
 
 @pytest.mark.parametrize("name", ["n31", "n1400"])
@@ -75,7 +75,7 @@ def test_normalize_op():
 def test_mix_equal_shape():
     d1 = make_composite(**CELLS["n31"])
     d2 = dict(d1, lnpi=d1["lnpi"][::-1].copy(), mom=d1["mom"] * 1.5)
-    got = TO.mix_equal_shape(TS.from_host(d1), TS.from_host(d2), 0.3, 0.9)
+    got = TO.mix_equal_shape(TS.from_host(d1, device="cpu"), TS.from_host(d2, device="cpu"), 0.3, 0.9)
     want = JO.mix_equal_shape(JS.make_hist(**d1), JS.make_hist(**d2), 0.3, 0.9)
     _same(got.lnpi, want.lnpi)
     # moments reach ~1e7 (N^4 rows); the mix is a per-element ratio, so

@@ -130,7 +130,7 @@ def test_janus_collect_multipeak(surface):
 def test_hist_level_thermo(complete):
     d, tm, jm = _composite(2)
     d = dict(d, lnpi=janus_surfaces(N)[3] * 20.0)
-    th, jh = TS.from_host(d), JS.make_hist(**d)
+    th, jh = TS.from_host(d, device="cpu"), JS.make_hist(**d)
     (th2, tp), (jh2, jp) = TSg.thermo(th, tm, complete=complete), JSg.thermo(jh, jm, complete=complete)
     _same(th2.lnpi, jh2.lnpi)
     _pt_same(tp, jp)

@@ -18,7 +18,7 @@ def test_to_host_from_host_roundtrip(name):
     """JAX to_host -> port from_host -> port to_host is the identity."""
     d = make_composite(**CELLS[name])
     jd = JS.to_host(JS.make_hist(**d))
-    h = TS.from_host(jd)
+    h = TS.from_host(jd, device="cpu")
     back = TS.to_host(h)
     assert back.keys() == jd.keys()
     for k, v in jd.items():
@@ -51,3 +51,16 @@ def test_hist_device_replace_nbins():
     assert torch.equal(h2.lnpi, h.lnpi * 2) and h2.mom is h.mom
     with pytest.raises(dataclasses.FrozenInstanceError):
         h.lnpi = h.op
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """With no device the port goes to CUDA; where there is none it raises
+    and names device='cpu' instead of carrying on on the CPU."""
+    d = make_composite(**CELLS["n31"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TS.from_host(d)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TS.make_hist(d["lnpi"], d["mom"], d["op"], d["curr_mu"], d["curr_beta"], d["volume"])
+    h = TS.from_host(d, device="cpu")
+    assert h.device == torch.device("cpu") and h.mom.device == h.device

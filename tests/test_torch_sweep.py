@@ -34,7 +34,7 @@ PROPS = ("n_i", "x_i", "ntot", "u", "density")
 
 def _inputs(name, points):
     d, mk, mus = cell(name, points)
-    return TS.from_host(d), TS.HistMeta(**mk), JS.make_hist(**d), JS.HistMeta(**mk), mus
+    return TS.from_host(d, device="cpu"), TS.HistMeta(**mk), JS.make_hist(**d), JS.HistMeta(**mk), mus
 
 
 def _check(got, want, props, tol, rel=()):

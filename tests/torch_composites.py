@@ -10,7 +10,8 @@ and ``fhmcanalysis_torch.core.state.from_host``):
 * op = arange(N): the order parameter is N_tot;
 * the moments tensor N_i^j N_k^m U^p is self-consistent: per-bin N_i and U
   profiles with inflated higher powers, as tests/test_gc_n1.py's
-  make_n1_fixture builds them, for nspec 1 or 2 and max_order 2.
+  make_n1_fixture builds them, for nspec 1 or 2 and max_order 2 (3 for
+  the extrapolating sweep).
 
 ``CELLS`` holds the three sweep cells (sizes of the JAX bench's workloads)
 with a mu_1 window that crosses coexistence: one-phase points at the low
@@ -82,14 +83,35 @@ def mu_window(N: int, beta: float, mu0, **_) -> tuple[float, float]:
     return mu0[0] + _SLOPE_LO / (N - 1) / beta, mu0[0] + _SLOPE_HI / (N - 1) / beta
 
 
-def cell(name: str, points: int | None = None):
+def cell(name: str, points: int | None = None, max_order: int = MAX_ORDER, used_ke: bool = False):
     """(composite dict, meta kwargs, mu grid) of a named cell; ``points``
-    overrides the cell's batch size."""
+    overrides the cell's batch size.  The (beta, dMu) extrapolating sweep
+    needs max_order 3 for its order-2 moment rows; moments up to power 2
+    are the same at any max_order."""
     c = CELLS[name]
     lo, hi = mu_window(**c)
     mus = np.linspace(lo, hi, c["B"] if points is None else points)
-    meta = dict(nspec=c["nspec"], max_order=MAX_ORDER, smooth=c["smooth"], max_phases=c["max_phases"])
-    return make_composite(**c), meta, mus
+    meta = dict(nspec=c["nspec"], max_order=max_order, used_ke=used_ke, smooth=c["smooth"], max_phases=c["max_phases"])
+    return make_composite(**dict(c, max_order=max_order)), meta, mus
+
+
+# The (mu_1, beta, dMu) extrapolating sweep's main-path grid: the JAX
+# bench's mu_beta_extrap_o{1,2}_points_per_sec shape (bench.py:913-916),
+# M mu_1 values over the cell's window times A (beta, dMu) targets paired
+# row by row, on the n31 composite at max_order 3.
+MB31 = dict(cell="n31", max_order=3, M=65_536, A=64, beta=(0.92, 1.08), dmu=(-5.5, -4.5))
+
+
+def mb_grid(M: int | None = None, A: int | None = None, **over):
+    """(composite dict, meta kwargs, mus [M], betas [A], dmus [A, 1]) of
+    the mb31 grid; M and A default to the main path's."""
+    g = dict(MB31, **over)
+    M = g["M"] if M is None else M
+    A = g["A"] if A is None else A
+    d, meta, mus = cell(g["cell"], M, max_order=g["max_order"], used_ke=g.get("used_ke", False))
+    betas = np.linspace(*g["beta"], A)
+    dmus = np.linspace(*g["dmu"], A)[:, None]
+    return d, meta, mus, betas, dmus
 
 
 # The randomized lnPI structures of tests/test_pallas_sweep.py
@@ -129,9 +151,11 @@ def janus_surfaces(n: int) -> list:
 
 def worst_abs_diff(got, want, ok) -> float:
     """max |got - want| over the slots where ``ok`` (broadcast over trailing
-    axes); each side is masked before subtracting, since fe is +inf on an
-    empty masked phase."""
+    axes); each side is masked before subtracting, and equal values (fe is
+    +inf on an empty masked phase on both sides) differ by 0."""
     got, want, ok = np.asarray(got), np.asarray(want), np.asarray(ok)
     ok = ok.reshape(ok.shape + (1,) * (got.ndim - ok.ndim))
-    d = np.abs(np.where(ok, got, 0.0) - np.where(ok, want, 0.0))
+    g, w = np.where(ok, got, 0.0), np.where(ok, want, 0.0)
+    with np.errstate(invalid="ignore"):
+        d = np.where(g == w, 0.0, np.abs(g - w))
     return float(d.max()) if d.size else 0.0
