@@ -13,15 +13,23 @@ Phases (each raises on failure, so any failure exits non-zero):
      structures, K2 (the (mu, beta, dMu) sweep) over its coverage (nspec
      1-2, orders 1-2, props on/off, collect None/"janus", used_ke,
      first_order_mom) at <=4,096 points per case: segmentation equal,
-     floats within 1e-10 abs; and K2 at identity targets equal to K1 bit
-     for bit;
+     floats within 1e-10 abs; K2 at identity targets equal to K1 bit for
+     bit; K3 (the isopleth cell) over its coverage (orders 1-2, collect
+     None/"janus", 2-3 sources, clamped rows, used_ke, max_phases 4/8,
+     N 31 and 1400, the fail-code surfaces) at <=4,096 cells per case:
+     valid and fail_code equal, floats within 1e-10 abs on ok cells;
   4. main paths, each with its launch counter reset just before and read
      just after: pipeline.mu_sweep_thermo(engine="auto") on the N=573
-     (B=524,288) and N=31 (B=2,097,152) cells, and
+     (B=524,288) and N=31 (B=2,097,152) cells;
      pipeline.mu_beta_sweep_thermo(engine="auto") on mb31 at orders 1 and
      2 (65,536 mu x 64 targets = 4,194,304 points): phases cross from one
-     to two, a sample agrees with the plain version; kernel, plain version
-     and "auto" timed with CUDA events (warm, median of 3);
+     to two, a sample agrees with the plain version; and
+     binary.isopleth.isopleth(...).make_grid(engine="auto") on iso31 at
+     orders 1 and 2 (301 dMu_2 x 834 mu_1 = 251,034 cells) and on iso1400
+     (128 x 128 cells at N=1400): most cells valid, one- and two-phase
+     surfaces, a sample agrees with the plain version.  Kernel, plain
+     version and "auto" (and make_grid) timed with CUDA events (warm,
+     median of 3);
   5. a {"kernels": [...]} line with each kernel's launches, worst error,
      times and bound, then the last line: {"ok": true, "device": {...}}.
 Imports neither JAX nor the JAX package; composites come from
@@ -43,10 +51,13 @@ SEG = ("valid", "mask", "n_phases", "left", "right")
 PROPS = ("n_i", "x_i", "ntot", "u", "density")
 MAIN_CELLS = ("n573", "n31")
 MB_ORDERS = (1, 2)  # main-path cells mb31_o1, mb31_o2
+ISO_CELLS = (("iso31_o1", "ISO31", 1), ("iso31_o2", "ISO31", 2), ("iso1400_o1", "ISO1400", 1))
 REPLACES = {
     "sweep_thermo": "fhmcanalysis_tpu/core/pallas_sweep.py:758",  # _sweep_ds_pallas (pl.pallas_call at :773)
     "mb_sweep_thermo": "fhmcanalysis_tpu/core/pallas_mb.py:482",  # _mb_ds_pallas (pl.pallas_call at :496)
+    "iso_grid": "fhmcanalysis_tpu/core/pallas_iso.py:563",  # _iso_ds_pallas (-> _launch :532, pl.pallas_call at :539)
 }
+CUTOFF = 10.0  # the isopleth class's is_safe / edge cutoff
 # The least time of the card for a kernel's work: the larger of its bytes
 # (each input read once, each output written once) over HBM3's 3.35 TB/s
 # and its f64 operations over the FP64 vector peak, 34 TFLOP/s (H100 SXM
@@ -123,6 +134,28 @@ def tail_ops(out, B, N, smooth, x_ops, key_ops):
     return B * N * (x_ops + 4 * smooth) + covered_bins(out) * (3 + EXP_OPS + key_ops)
 
 
+def compare_iso(got, want, where, min_ok=0.0):
+    """K3's (z, density, fe, ok, fail_code) against the plain version's:
+    ok and fail_code equal, floats within TOL on ok cells; returns the
+    worst abs difference per float field."""
+    import torch
+
+    for k, name in ((3, "ok"), (4, "fail_code")):
+        if not torch.equal(got[k], want[k]):
+            bad = (got[k] != want[k]).nonzero()[:5].tolist()
+            raise AssertionError(f"{where}: {name} differs at cells {bad}")
+    ok = want[3]
+    if float(ok.double().mean()) < min_ok:
+        raise AssertionError(f"{where}: only {float(ok.double().mean()):.3f} of the cells are valid; the comparison would be vacuous")
+    worst = {}
+    for k, name in ((0, "z"), (1, "density"), (2, "fe")):
+        d = (got[k] - want[k]).abs()[ok]
+        worst[name] = float(d.max()) if d.numel() else 0.0
+        if not worst[name] <= TOL:
+            raise AssertionError(f"{where}: {name} differs by {worst[name]:.3e} > {TOL}")
+    return worst
+
+
 def main():
     import torch
 
@@ -135,7 +168,10 @@ def main():
 
     import torch_composites as TC
     from fhmcanalysis_torch import _build
-    from fhmcanalysis_torch.core import cuda_mb, cuda_sweep, pipeline, segment, state
+    from fhmcanalysis_torch.binary import isopleth as iso_cls
+    from fhmcanalysis_torch.core import cuda_iso, cuda_mb, cuda_sweep, pipeline, segment, state
+
+    IB = sys.modules["fhmcanalysis_torch.binary.isopleth"]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True, timeout=60
@@ -148,10 +184,10 @@ def main():
 
     # ---- 2. build: one nvcc per source, started together ----
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda f: f(), [cuda_sweep._lib, cuda_mb._lib]))
-    log(f"build: {cuda_sweep.NAME}, {cuda_mb.NAME} ready in {time.perf_counter() - t0:.1f} s")
-    for kname in (cuda_sweep.NAME, cuda_mb.NAME):
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(lambda f: f(), [cuda_sweep._lib, cuda_mb._lib, cuda_iso._lib]))
+    log(f"build: {cuda_sweep.NAME}, {cuda_mb.NAME}, {cuda_iso.NAME} ready in {time.perf_counter() - t0:.1f} s")
+    for kname in (cuda_sweep.NAME, cuda_mb.NAME, cuda_iso.NAME):
         info = _build.BUILD_INFO.get(kname, {})
         log(f"  {kname}: nvcc {info.get('seconds', 0.0):.1f} s")
         for line in info.get("log", "").splitlines():
@@ -233,6 +269,50 @@ def main():
                                 raise AssertionError(f"K2 at identity targets differs from K1 in {k} ({cname} order={order} props={props} collect={collect})")
     log(f"parity K2: {n_cases} cases vs plain, worst abs diff on valid masked slots:", json.dumps({k: float(f"{v:.3e}") for k, v in worst_mb.items()}))
     log("parity K2: identity targets equal K1 bit for bit on every field")
+
+    # K3 over its coverage: <= 64 x 64 = 4,096 cells per case; dMu_2 rows
+    # reach past the sources on both sides, so the end rows are clamped
+    # to one source (L == R, weights [1, 1])
+    worst_iso: dict = {}
+
+    def iso_setup(name, order, beta, mu1_v, dmu2_v, dmu2s=TC.ISO_DMU2, used_ke=False, lnpi=None, smooth=None):
+        ds, mk = TC.iso_sources(name, dmu2s, 3, used_ke, lnpi, smooth)
+        iso = iso_cls([TC.port_histogram(d, mk, device=dev) for d in ds], beta, order=order)
+        lr, wts = iso._bracket(dmu2_v, 2.5)
+        return iso, [h._hist() for h in iso.data["histograms"]], mk, lr, wts
+
+    def iso_case(name, order, collect=None, beta=1.02, NX=64, NY=64, dmu2=(-5.3, -3.7), max_phases=8, min_ok=0.3, mu1=None, **kw):
+        """K3 against its plain version on one grid; kw go to iso_sources."""
+        mu1_v = np.linspace(*(mu1 or TC.mu_window(**TC.CELLS[name])), NX)
+        dmu2_v = np.linspace(*dmu2, NY)
+        iso, srcs, mk, lr, wts = iso_setup(name, order, beta, mu1_v, dmu2_v, **kw)
+        metas = [state.HistMeta(**dict(mk, max_phases=max_phases))] * len(srcs)
+        args = (srcs, metas, mu1_v, dmu2_v, lr, wts, beta, order, CUTOFF, collect)
+        got = IB.iso_grid(*args, engine="cuda")
+        want = IB.iso_grid(*args, engine="torch")
+        torch.cuda.synchronize()
+        note(compare_iso(got, want, f"K3 {name} order={order} collect={collect} P={max_phases} {kw}", min_ok), worst_iso)
+
+    x31 = np.linspace(0.0, 1.0, 31)
+    three_peak = 11.5 * np.exp(-((x31 - 0.15) ** 2) / 0.004) + 11.3 * np.exp(-((x31 - 0.45) ** 2) / 0.003) + 12 * np.exp(-((x31 - 0.8) ** 2) / 0.006)
+    ten_peak = 5.0 * np.sin(2 * np.pi * np.arange(31) / 3.1) - 0.01 * np.arange(31)
+    ten_peak[-1] = ten_peak.min() - 50.0
+    walk = np.cumsum(np.random.default_rng(7).standard_normal(31)) * 2.0
+    walk[-1] = walk.min() - 50.0
+    near5 = dict(beta=1.001, mu1=(4.9, 5.1), dmu2=(-4.9, -4.1))  # the fail-code tests' window
+    cases = [dict(order=o, collect=c, max_phases=p) for o in (1, 2) for c in (None, "janus") for p in (4, 8)]
+    for o in (1, 2):
+        cases += [
+            dict(order=o, dmu2s=(-5.0, -4.6, -4.2)),
+            dict(order=o, used_ke=True),
+            dict(order=o, collect="janus", lnpi=three_peak, **near5),
+            dict(name="n1400", order=o, beta=1.0, NX=64, NY=16),
+        ]
+    for lnpi, smooth in ((0.1 * np.arange(31.0), None), (ten_peak, None), (walk, 4)):  # codes 1, 3, 2
+        cases.append(dict(order=1, lnpi=lnpi, smooth=smooth, min_ok=0.0, **near5))
+    for kw in cases:
+        iso_case(**{"name": "n31", **kw})
+    log(f"parity K3: {len(cases)} cases vs plain, ok and fail_code equal, worst abs diff on ok cells:", json.dumps({k: float(f"{v:.3e}") for k, v in worst_iso.items()}))
 
     # ---- 4. main paths ----
     runs = {}
@@ -328,6 +408,85 @@ def main():
             f"plain {p_ms:.3f} ms = {B / p_ms * 1e3:.4g} points/s (peak {peak:.2f} GiB) | bound {b_ms:.4f} ms by {b_by} ({ops:.4g} f64 ops) | {smi}"
         )
 
+    iso_runs = {}
+    for cname, gname, order in ISO_CELLS:
+        g = getattr(TC, gname)
+        grid = TC.iso_grid_args(g)
+        mu1_v, dmu2_v = np.linspace(*grid[0], g["NX"]), np.linspace(*grid[1], g["NY"])
+        iso, srcs, mk, lr, wts = iso_setup(g["name"], order, g["beta"], mu1_v, dmu2_v)
+        cuda_iso.iso_grid.launches = 0
+        Z, (X, Y) = iso.make_grid(*grid)
+        torch.cuda.synchronize()
+        launches = cuda_iso.iso_grid.launches
+        if launches < 1:
+            raise AssertionError(f"{cname}: the main path launched K3 {launches} times")
+        NY, NX = g["NY"], g["NX"]
+        B = NX * NY
+        if Z.shape != (NY, NX) or not np.array_equal(X[0], mu1_v) or not np.allclose(Y[:, 0], dmu2_v, rtol=0, atol=1e-12):
+            raise AssertionError(f"{cname}: grid {Z.shape}, expected {(NY, NX)} cells over the planned axes")
+        valid = iso.data["valid"]
+        share = float(valid.mean())
+        if share <= 0.5 or not np.array_equal(iso.data["fail_code"] == 0, valid):
+            raise AssertionError(f"{cname}: valid share {share:.4f} (must exceed 0.5, and fail_code must be 0 exactly where valid)")
+        if not all(np.isfinite(iso.data[k][valid]).all() for k in ("Z", "density", "F.E./kT")):
+            raise AssertionError(f"{cname}: non-finite result on a valid cell")
+        # a 64 x 64 sample of rows and columns against the plain version
+        rng = np.random.default_rng(order)
+        rows = np.sort(rng.choice(NY, min(NY, 64), replace=False))
+        cols = np.sort(rng.choice(NX, min(NX, 64), replace=False))
+        metas = [state.HistMeta(**dict(mk, max_phases=8))] * len(srcs)
+        lr_s, wts_s = iso._bracket(dmu2_v[rows], 2.5)
+        want = IB.iso_grid(srcs, metas, mu1_v[cols], dmu2_v[rows], lr_s, wts_s, g["beta"], order, CUTOFF, engine="torch")
+        got = tuple(torch.as_tensor(iso.data[k][np.ix_(rows, cols)], device=dev) for k in ("Z", "density", "F.E./kT", "valid", "fail_code"))
+        note(compare_iso(got, want, f"{cname} main path sample"), worst_iso)
+        # one- and two-phase mixed surfaces among the sample's valid cells
+        pro_s = IB._iso_prologue(srcs, metas[0], mu1_v[cols], dmu2_v[rows], lr_s, wts_s, g["beta"], order, CUTOFF)
+        xm, _ = IB._iso_surfaces(pro_s, slice(None), order)
+        n_max = segment.relextrema(xm, mk["smooth"], 8).n_max[want[3].reshape(-1)]
+        nph = torch.bincount(n_max.long(), minlength=3).tolist()
+        if nph[1] == 0 or nph[2] == 0:
+            raise AssertionError(f"{cname}: phase counts over the sample's valid cells {nph}: both one- and two-phase surfaces must occur")
+
+        pro = IB._iso_prologue(srcs, metas[0], mu1_v, dmu2_v, lr, wts, g["beta"], order, CUTOFF)
+        kin = [pro[k] for k in ("lnpi", "op", "xrows", "krows", "a", "edge", "mu", "lr", "wts", "tg", "volume")]
+
+        def k3():
+            return cuda_iso.iso_grid(*kin, mk["smooth"], 8, order, CUTOFF)
+
+        args = (srcs, metas, mu1_v, dmu2_v, lr, wts, g["beta"], order, CUTOFF)
+        k_ms = cuda_ms(k3)
+        torch.cuda.reset_peak_memory_stats()
+        p_ms = cuda_ms(lambda: IB.iso_grid(*args, engine="torch"))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        e_ms = cuda_ms(lambda: IB.iso_grid(*args))
+        m_ms = cuda_ms(lambda: iso.make_grid(*grid))
+        host = []  # make_grid's host bracket (per-row bisect + weights), host clock
+        for _ in range(3):
+            t0 = time.perf_counter()
+            iso._bracket(dmu2_v, 2.5)
+            host.append((time.perf_counter() - t0) * 1e3)
+        br_ms = statistics.median(host)
+        # work of this run's data: the plain segmentation's covered bins
+        full_x, _ = IB._iso_surfaces(pro, slice(None), order)
+        ext = segment.relextrema(full_x, mk["smooth"], 8)
+        lefts, rights, pmask = segment.phase_bounds(ext, full_x.shape[-1], 8)
+        cov = {"left": lefts, "right": rights, "mask": pmask}
+        del full_x, ext
+        x_ops = 2 * (2 + 4 + 2 + (8 if order == 2 else 0)) + 4  # two sides' x' (as K2), then the mix: 2 products, a sum, a divide
+        key_ops = 3 * (2 * (4 + (10 if order == 2 else 0)) + 4 + 2)  # per key row: two sides' key', the mix, the multiply-add
+        N = srcs[0].nbins
+        ops = tail_ops(cov, B, N, mk["smooth"], x_ops, key_ops) + B * 2 * x_ops  # + the finish's two x_m reads
+        b_ms, b_by = bound(kin, k3(), ops)
+        iso_runs[cname] = dict(NX=NX, NY=NY, B=B, N=N, order=order, launches=launches, kernel_ms=k_ms, plain_ms=p_ms, auto_ms=e_ms,
+                               make_grid_ms=m_ms, bracket_host_ms=br_ms, valid_share=share, sample_phases=nph[1:3], bound_ms=b_ms, bound_by=b_by, ops=ops,
+                               covered_bins=covered_bins(cov))
+        log(
+            f"main path {cname}: N={N} NY={NY} NX={NX} cells={B} launches={launches} valid share {share:.6f} sample phases(1,2)={nph[1:3]} | "
+            f"kernel {k_ms:.3f} ms = {B / k_ms * 1e3:.4g} cells/s | iso_grid auto {e_ms:.3f} ms = {B / e_ms * 1e3:.4g} cells/s | "
+            f"make_grid {m_ms:.3f} ms = {B / m_ms * 1e3:.4g} cells/s (host bracket {br_ms:.3f} ms) | plain {p_ms:.3f} ms = {B / p_ms * 1e3:.4g} cells/s (peak {peak:.2f} GiB) | "
+            f"bound {b_ms:.4f} ms by {b_by} ({ops:.4g} f64 ops) | {smi}"
+        )
+
     def entry(kname, source, cells, err):
         head = cells[next(iter(cells))]
         return {
@@ -348,6 +507,7 @@ def main():
     kernels = [
         entry(cuda_sweep.NAME, "fhmcanalysis_torch/csrc/sweep_thermo.cu", runs, max(worst.values())),
         entry(cuda_mb.NAME, "fhmcanalysis_torch/csrc/mb_sweep_thermo.cu", mb_runs, max(worst_mb.values())),
+        entry(cuda_iso.NAME, "fhmcanalysis_torch/csrc/iso_grid.cu", iso_runs, max(worst_iso.values())),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -7,18 +7,23 @@ PyTorch on float64 tensors with the state-point axis written out where the
 JAX package used ``vmap``.
 
 What runs today: the mu_1 reweight + segment + per-phase thermo sweep
-(``core.pipeline.mu_sweep_thermo``) and the (mu_1, beta, dMu)
-extrapolating sweep (``core.pipeline.mu_beta_sweep_thermo``, over
-``core.derivs`` / ``core.extrap``), each with its fused kernel written in
-CUDA C++ for Hopper (``csrc/sweep_thermo.cu``, ``csrc/mb_sweep_thermo.cu``,
-sharing ``csrc/thermo_tail.cuh``; built at first use by ``_build.py``).
+(``core.pipeline.mu_sweep_thermo``), the (mu_1, beta, dMu) extrapolating
+sweep (``core.pipeline.mu_beta_sweep_thermo``, over ``core.derivs`` /
+``core.extrap``) and the binary isopleth surface
+(``binary.isopleth.isopleth(...).make_grid``), each with its fused kernel
+written in CUDA C++ for Hopper (``csrc/sweep_thermo.cu``,
+``csrc/mb_sweep_thermo.cu``, ``csrc/iso_grid.cu``, sharing
+``csrc/thermo_tail.cuh``; built at first use by ``_build.py``); and the
+host class shells ``histogram.ntot`` / ``histogram.n1`` with their netCDF
+reader and writer (``io``, which imports ``h5py`` only when a file is
+read or written).
 Tensors live on the CUDA card unless the caller passes ``device="cpu"``.
 Importing the package needs neither ``nvcc`` nor a GPU.
 """
 
 __version__ = "0.1.0"
 
-from . import core  # noqa: E402,F401
+from . import binary, core, histogram, io  # noqa: E402,F401
 from .core import derivs, extrap, moments, numerics, ops, pipeline, segment, state  # noqa: F401
 from .core.state import Hist, HistMeta, from_host, make_hist, to_host  # noqa: F401
 
@@ -28,6 +33,9 @@ __all__ = [
     "from_host",
     "make_hist",
     "to_host",
+    "binary",
+    "histogram",
+    "io",
     "derivs",
     "extrap",
     "moments",

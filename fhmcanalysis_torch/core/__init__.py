@@ -1,4 +1,4 @@
-from . import cuda_mb, cuda_sweep, derivs, extrap, moments, numerics, ops, pipeline, segment, state
+from . import cuda_iso, cuda_mb, cuda_sweep, derivs, extrap, moments, numerics, ops, pipeline, segment, state
 from .state import Hist, HistMeta, from_host, make_hist, to_host
 
 __all__ = [
@@ -7,6 +7,7 @@ __all__ = [
     "from_host",
     "make_hist",
     "to_host",
+    "cuda_iso",
     "cuda_mb",
     "cuda_sweep",
     "derivs",

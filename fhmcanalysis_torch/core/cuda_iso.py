@@ -1,0 +1,128 @@
+"""The fused binary isopleth cell kernel K3 (CUDA, Hopper) and its wrapper.
+
+Replaces the TPU kernel ``fhmcanalysis_tpu/core/pallas_iso.py``
+(``_iso_ds_pallas``), which selected the two bracketing sources per cell
+by one-hot sums, ran K2's whole per-lane body (grand-canonical averages
+included) on each, mixed them and ran the thermo tail in double-single f32
+pairs.  The port computes in native f64 and drops the averages (a constant
+over the bins that the mix keeps constant and the tail, ``is_safe`` and
+the edge flag cancel; ``binary/isopleth.py`` says why).  So K3 is K2's
+x'/key' former (``csrc/extrap_rows.cuh``) run for the left and the right
+source, the inverse-distance mix, and the tail K1 and K2 share
+(``csrc/thermo_tail.cuh``) with a sink that keeps the most stable phase;
+the source is ``csrc/iso_grid.cu``, one warp per cell, and its header says
+what bounds it.
+
+The plain version of this kernel is ``binary.isopleth.iso_grid_body``;
+nothing on the CUDA path calls it.  ``binary.isopleth.iso_grid`` picks
+between the two by the tensors' device.
+
+Layouts (built by ``binary.isopleth._iso_prologue``; W sources, nspec 2):
+  lnpi, op [W, N]        each source's surface and order parameter
+  xrows    [W, R, N]     pipeline._mb_rows x-rows (R = 2, or 5 at order 2)
+  krows    [W, G, 3, N]  its key-row groups (G = 3, or 6 at order 2)
+  a, edge  [W, NX]       beta_ref (mu_1 - mu_ref) and the edge flag per source and column
+  mu       [NX]          mu_1 per column
+  lr, wts  [NY, 2]       bracketing sources (int32, each in [0, W): the
+                         prologue checks it on the host, a check here
+                         would wait for the device) and weights per row
+  tg       [NY, 2, T]    target scalars per row and side (pipeline._mb_targets)
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import _build
+from .cuda_mb import n_groups, n_xrows
+
+NAME = "iso_grid"
+MAX_PHASES = 8  # the kernel's per-warp arrays; csrc/thermo_tail.cuh MAXP
+S = 2  # the isopleth class takes binary mixtures only
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared."""
+    lib = _build.load(NAME)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.iso_grid_launch.argtypes = [i, p] + [p] * 11 + [i] * 9 + [ctypes.c_double] + [p] * 5
+    lib.iso_grid_launch.restype = i
+    lib.iso_grid_error_string.argtypes = [i]
+    lib.iso_grid_error_string.restype = ctypes.c_char_p
+    lib.iso_grid_max_phases.argtypes = []
+    lib.iso_grid_max_phases.restype = i
+    if lib.iso_grid_max_phases() != MAX_PHASES:
+        raise RuntimeError("thermo_tail.cuh MAXP disagrees with cuda_iso.MAX_PHASES")
+    return lib
+
+
+def iso_grid(lnpi, op, xrows, krows, a, edge, mu, lr, wts, tg, volume, smooth: int, max_phases: int, order: int, cutoff: float, collect=None):
+    """Launch K3 for the NY x NX cells (mu[ix], row iy), b = iy * NX + ix.
+
+    Tensors as in the module docstring.  Returns (z, density, fe, ok,
+    fail_code), each [NY, NX] (f64, f64, f64, bool, int32).  Runs on
+    ``torch.cuda.current_stream()`` and does not synchronise.
+    """
+    tensors = {"lnpi": lnpi, "op": op, "xrows": xrows, "krows": krows, "a": a, "edge": edge, "mu": mu, "lr": lr, "wts": wts, "tg": tg, "volume": volume}
+    for name, t in tensors.items():
+        if t is None or not t.is_cuda:
+            raise ValueError(f"iso_grid: {name} is {'missing' if t is None else t.device}; the CUDA kernel needs CUDA tensors (engine='torch' runs the plain version)")
+        want = torch.bool if name == "edge" else torch.int32 if name == "lr" else torch.float64
+        if t.dtype != want:
+            raise TypeError(f"iso_grid: {name} must be {want}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"iso_grid: {name} must be contiguous")
+        if t.device != lnpi.device:
+            raise ValueError(f"iso_grid: {name} is on {t.device}, lnpi on {lnpi.device}")
+    if order not in (1, 2):
+        raise ValueError(f"iso_grid: the kernel implements orders 1-2, got {order}")
+    if lnpi.dim() != 2 or op.shape != lnpi.shape or volume.numel() != 1:
+        raise ValueError("iso_grid: need lnpi, op [W, N] and a scalar volume")
+    W, N = lnpi.shape
+    R = T = n_xrows(S, order)  # one target scalar per x-row
+    G = n_groups(S, order, False)
+    if not 1 <= N < 2**31 - 1 or W < 1:
+        raise ValueError(f"iso_grid: need 1 <= N < 2**31-1 and W >= 1, got W={W}, N={N}")
+    if xrows.shape != (W, R, N) or krows.shape != (W, G, S + 1, N):
+        raise ValueError(f"iso_grid: xrows must be [{W}, {R}, {N}] and krows [{W}, {G}, {S + 1}, {N}], got {tuple(xrows.shape)}, {tuple(krows.shape)}")
+    NX, NY = mu.shape[0] if mu.dim() == 1 else -1, lr.shape[0]
+    if NX < 0 or a.shape != (W, NX) or edge.shape != (W, NX):
+        raise ValueError(f"iso_grid: need mu [NX] and a, edge [{W}, NX]")
+    if lr.shape != (NY, 2) or wts.shape != (NY, 2) or tg.shape != (NY, 2, T):
+        raise ValueError(f"iso_grid: need lr, wts [NY, 2] and tg [NY, 2, {T}]")
+    if not 1 <= max_phases <= MAX_PHASES:
+        raise ValueError(f"iso_grid: max_phases={max_phases} outside the kernel's 1..{MAX_PHASES}")
+    if smooth < 1:
+        raise ValueError("smooth must be >= 1 to find relative extrema (scipy argrelextrema rejects order 0 too)")
+    if collect not in (None, "janus"):
+        raise NotImplementedError(f"iso_grid: the kernel implements collect None and 'janus', not {collect!r}")
+    if NX * NY >= 2**31:
+        raise ValueError(f"iso_grid: {NY} x {NX} cells exceed the kernel's int32 grid")
+
+    dev = lnpi.device
+    out = {
+        "z": torch.empty((NY, NX), dtype=torch.float64, device=dev),
+        "rho": torch.empty((NY, NX), dtype=torch.float64, device=dev),
+        "fe": torch.empty((NY, NX), dtype=torch.float64, device=dev),
+        "ok": torch.empty((NY, NX), dtype=torch.bool, device=dev),
+        "code": torch.empty((NY, NX), dtype=torch.int32, device=dev),
+    }
+    lib = _lib()
+    rc = lib.iso_grid_launch(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream,
+        *(t.data_ptr() for t in tensors.values()),
+        NX, NY, N, R, G, max_phases, smooth, order, int(collect == "janus"), float(cutoff),
+        *(t.data_ptr() for t in out.values()),
+    )
+    if rc != 0:
+        raise RuntimeError(f"iso_grid kernel launch failed: {lib.iso_grid_error_string(rc).decode()} ({rc})")
+    iso_grid.launches += 1
+    return out["z"], out["rho"], out["fe"], out["ok"], out["code"]
+
+
+iso_grid.launches = 0  # kernel launches this process; chip_smoke.py resets and reads it

@@ -11,7 +11,8 @@
 //   key'_k = key_k + dB sgB_k + dd sgM_k
 //            + [order 2, not first_order_mom] 0.5 ((dB^2 sgB2_k + 2 dB dd sgX_k) + dd^2 sgM2_k)
 //
-// (the dd terms at nspec 2 only), then the tail it shares with K1
+// (the dd terms at nspec 2 only; the former lives in extrap_rows.cuh,
+// shared with K3), then the tail it shares with K1 and K3
 // (thermo_tail.cuh).  The TPU kernel also formed the grand-canonical
 // averages <N_i>, <U> (and at order 2 seven more sums and the gc_dX_dB
 // algebra) per point with a second exp pass; they shift lnPI' by a
@@ -32,6 +33,7 @@
 // segmentation agrees bit for bit.  At identity targets every added term
 // is an exact zero and the kernel returns K1's output bit for bit.
 
+#include "extrap_rows.cuh"
 #include "thermo_tail.cuh"
 
 namespace {
@@ -52,8 +54,6 @@ struct Args {
   tail::Out out;
 };
 
-__device__ __forceinline__ double ld(const double* p, size_t i) { return __ldg(p + i); }
-
 __global__ void __launch_bounds__(32 * WARPS) mb_sweep_thermo_kernel(Args g) {
   __shared__ int s_mx[WARPS][MAXP];
   __shared__ int s_mn[WARPS][MAXP + 1];
@@ -62,49 +62,16 @@ __global__ void __launch_bounds__(32 * WARPS) mb_sweep_thermo_kernel(Args g) {
   const long long b = (long long)blockIdx.x * WARPS + warp;
   if (b >= (long long)g.M * g.A) return;  // uniform over the warp
 
-  const int N = g.N, S = g.S, T = g.order >= 2 ? (S == 2 ? 5 : 2) : S;
+  const int S = g.S;
   const long long m = b / g.A, t = b % g.A;
   const double mu = g.mu[m], a = g.a[m];
-  const double* tg = g.tg + t * T;
-  const double dB = tg[0];
-  const double dd = S == 2 ? tg[1] : 0.0;
-  const double dB2 = g.order >= 2 ? tg[S] : 0.0;
-  const double dBdd2 = g.order >= 2 && S == 2 ? tg[3] : 0.0;
-  const double dd2 = g.order >= 2 && S == 2 ? tg[4] : 0.0;
-  const bool o2 = g.order >= 2, two = S == 2;
-  const double* xr = g.xrows;
-  const size_t KN = (size_t)(S + 1) * N;  // one group of key rows
-
-  const auto xf = [&](int i) {
-    double x = __dadd_rn(ld(g.lnpi, i), __dmul_rn(a, ld(g.op, i)));
-    const double tr = __dadd_rn(ld(xr, i), __dmul_rn(mu, ld(g.op, i)));
-    x = __dadd_rn(x, __dmul_rn(dB, tr));
-    if (two) x = __dadd_rn(x, __dmul_rn(dd, ld(xr, (size_t)N + i)));
-    if (o2) {
-      double q = __dmul_rn(dB2, ld(xr, (size_t)S * N + i));
-      if (two) {
-        q = __dadd_rn(q, __dmul_rn(dBdd2, ld(xr, 3 * (size_t)N + i)));
-        q = __dadd_rn(q, __dmul_rn(dd2, ld(xr, 4 * (size_t)N + i)));
-      }
-      x = __dadd_rn(x, __dmul_rn(0.5, q));
-    }
-    return x;
-  };
-  const auto kf = [&](int k, int i) {
-    const size_t r = (size_t)k * N + i;
-    double v = __dadd_rn(ld(g.krows, r), __dmul_rn(dB, ld(g.krows, KN + r)));
-    if (two) v = __dadd_rn(v, __dmul_rn(dd, ld(g.krows, 2 * KN + r)));
-    if (g.khess) {
-      double q = __dmul_rn(dB2, ld(g.krows, (size_t)(1 + S) * KN + r));
-      if (two) {
-        q = __dadd_rn(q, __dmul_rn(dBdd2, ld(g.krows, 4 * KN + r)));
-        q = __dadd_rn(q, __dmul_rn(dd2, ld(g.krows, 5 * KN + r)));
-      }
-      v = __dadd_rn(v, __dmul_rn(0.5, q));
-    }
-    return v;
-  };
-  tail::thermo_point(xf, kf, b, lane, N, S, g.P, g.smooth, g.props, g.janus, g.volume, g.out, s_mx[warp], s_mn[warp]);
+  const tail::Targets tg = tail::targets(g.tg + t * tail::n_targets(S, g.order), S, g.order);
+  const bool two = S == 2, o2 = g.order >= 2;
+  const size_t N = g.N, KN = (size_t)(S + 1) * N;
+  const auto xf = [&](int i) { return tail::extrap_x(g.lnpi, g.op, g.xrows, N, two, o2, a, mu, tg, i); };
+  const auto kf = [&](int k, int i) { return tail::extrap_key(g.krows, N, KN, two, g.khess, tg, k, i); };
+  tail::OutSink sink{g.out, b, g.P, S, g.props, g.volume};
+  tail::thermo_point(xf, kf, lane, g.N, S, g.P, g.smooth, g.props, g.janus, sink, s_mx[warp], s_mn[warp]);
 }
 
 }  // namespace

@@ -55,7 +55,8 @@ __global__ void __launch_bounds__(32 * WARPS) sweep_thermo_kernel(Args g) {
   const double a = g.a[b];
   const auto xf = [&](int i) { return xval(g, a, i); };
   const auto kf = [&](int k, int i) { return __ldg(g.keys + (size_t)k * g.N + i); };
-  tail::thermo_point(xf, kf, b, lane, g.N, g.S, g.P, g.smooth, g.props, g.janus, g.volume, g.out, s_mx[warp], s_mn[warp]);
+  tail::OutSink sink{g.out, b, g.P, g.S, g.props, g.volume};
+  tail::thermo_point(xf, kf, lane, g.N, g.S, g.P, g.smooth, g.props, g.janus, sink, s_mx[warp], s_mn[warp]);
 }
 
 }  // namespace

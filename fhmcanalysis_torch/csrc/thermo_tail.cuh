@@ -18,6 +18,14 @@
 // caller must form x bit-identically to its plain version (__dmul_rn /
 // __dadd_rn, and the library built with -fmad=false).
 //
+// The caller also says where the results go: a sink whose phase(p, left,
+// right, mask, fe, acc) is called on lane 0 once per phase slot p =
+// 0..P-1, with acc = [sum w, sum w key_0 .. key_S] the phase's sums
+// (props only), and whose finish(n_max, valid, maxima) is called on lane 0
+// at the end with the final maxima list (after the janus collect).  K1 and
+// K2 pass OutSink, which writes the [B, P] output rows; K3 keeps only the
+// most stable phase.  phase_props is the arithmetic both use.
+//
 // The layout keeps every bin-parallel stage on the 32 lanes of the warp
 // (stencil, ballot compaction, arg-min gap scans, max and sum reductions)
 // and runs the short data-dependent repair logic, over at most 2P+1
@@ -49,6 +57,51 @@ struct Out {
   double* ntot;          // [B, P]
   double* u;             // [B, P]
   double* density;       // [B, P]
+};
+
+// <N_i> (S of them), N_tot and <U> of one phase from its sums acc (the
+// arithmetic of segment.thermo_key_core); a phase without mass divides by 1.
+__device__ __forceinline__ void phase_props(const double* acc, int S, double* ni, double& nt, double& u) {
+  const double den = acc[0] > 0.0 ? acc[0] : 1.0;
+  nt = 0.0;
+  for (int s = 0; s < S; ++s) {
+    ni[s] = acc[1 + s] / den;
+    nt = s == 0 ? ni[s] : nt + ni[s];
+  }
+  u = acc[1 + S] / den;
+}
+
+// The sink of K1 and K2: row b of every [B, ...] output.
+struct OutSink {
+  Out o;
+  long long b;
+  int P, S, props;
+  const double* volume;
+
+  __device__ __forceinline__ void phase(int p, int left, int right, bool mask, double fe, const double* acc) const {
+    const long long ob = b * P;
+    o.fe[ob + p] = fe;
+    o.left[ob + p] = left;
+    o.right[ob + p] = right;
+    o.mask[ob + p] = mask ? 1 : 0;
+    if (props) {
+      double ni[2], nt, u;
+      phase_props(acc, S, ni, nt, u);
+      const double nsafe = nt != 0.0 ? nt : 1.0;
+      for (int s = 0; s < S; ++s) {
+        o.n_i[(ob + p) * S + s] = ni[s];
+        o.x_i[(ob + p) * S + s] = ni[s] / nsafe;
+      }
+      o.u[ob + p] = u;
+      o.ntot[ob + p] = nt;
+      o.density[ob + p] = nt / *volume;
+    }
+  }
+
+  __device__ __forceinline__ void finish(int n_phases, bool valid, const int*) const {
+    o.n_phases[b] = n_phases;
+    o.valid[b] = valid ? 1 : 0;
+  }
 };
 
 __device__ __forceinline__ double warp_max(double v) {
@@ -112,11 +165,12 @@ __device__ void compact2(int N, int lane, Flags flags, int* mx, int nmx, int* mn
   __syncwarp();
 }
 
-// The whole tail for point b, run by all 32 lanes of one warp.  s_mx and
-// s_mn are this warp's shared scratch of MAXP and MAXP+1 ints.
-template <typename XF, typename KF>
-__device__ void thermo_point(const XF& xf, const KF& kf, long long b, int lane, int N, int S, int P, int smooth,
-                             int props, int janus, const double* volume, const Out& o, int* s_mx, int* s_mn) {
+// The whole tail for one point, run by all 32 lanes of one warp; results
+// go to `sink` (see the header).  s_mx and s_mn are this warp's shared
+// scratch of MAXP and MAXP+1 ints.
+template <typename XF, typename KF, typename Sink>
+__device__ void thermo_point(const XF& xf, const KF& kf, int lane, int N, int S, int P, int smooth, int props,
+                             int janus, Sink& sink, int* s_mx, int* s_mn) {
   const int last = N - 1;
 
   // ---- stencil flags + compaction (segment.stencil_flags) ----
@@ -315,7 +369,6 @@ __device__ void thermo_point(const XF& xf, const KF& kf, long long b, int lane, 
   const double xlast = xf(last);
   const double x0 = xf(0);
   const int K = props ? S + 2 : 1;
-  const long long ob = b * P;
   for (int p = 0; p < P; ++p) {
     double acc[4] = {0.0, 0.0, 0.0, 0.0};
     if (msk[p]) {
@@ -347,33 +400,10 @@ __device__ void thermo_point(const XF& xf, const KF& kf, long long b, int lane, 
       const double wsum = acc[0];
       const bool pos = wsum > 0.0;
       const double fe = x0 - mpf[p] - log(pos ? wsum : 1.0);
-      o.fe[ob + p] = (msk[p] && pos) ? fe : (msk[p] ? INFINITY : 0.0);
-      o.left[ob + p] = lo[p];
-      o.right[ob + p] = hi[p];
-      o.mask[ob + p] = msk[p] ? 1 : 0;
-      if (props) {
-        const double den = pos ? wsum : 1.0;
-        double ni[2];
-        double nt = 0.0;
-        for (int s = 0; s < S; ++s) {
-          ni[s] = acc[1 + s] / den;
-          nt = s == 0 ? ni[s] : nt + ni[s];
-        }
-        const double nsafe = nt != 0.0 ? nt : 1.0;
-        for (int s = 0; s < S; ++s) {
-          o.n_i[(ob + p) * S + s] = ni[s];
-          o.x_i[(ob + p) * S + s] = ni[s] / nsafe;
-        }
-        o.u[ob + p] = acc[1 + S] / den;
-        o.ntot[ob + p] = nt;
-        o.density[ob + p] = nt / *volume;
-      }
+      sink.phase(p, lo[p], hi[p], msk[p], (msk[p] && pos) ? fe : (msk[p] ? INFINITY : 0.0), acc);
     }
   }
-  if (lane == 0) {
-    o.n_phases[b] = enmax;
-    o.valid[b] = valid ? 1 : 0;
-  }
+  if (lane == 0) sink.finish(enmax, valid, emx);
 }
 
 }  // namespace tail

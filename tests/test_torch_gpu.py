@@ -1,26 +1,34 @@
-"""PyTorch port on the card: the fused sweep kernels (K1, the mu sweep; K2,
-the (mu, beta, dMu) sweep) against their plain versions on the same card.
+"""PyTorch port on the card: the fused kernels (K1, the mu sweep; K2, the
+(mu, beta, dMu) sweep; K3, the isopleth cell) against their plain versions
+on the same card.
 Imports no JAX, so it runs on the GPU machine:
 
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 
 (--noconftest: tests/conftest.py imports JAX, which that machine lacks.)
 
-Segmentation fields must be equal; fe and the properties agree to 1e-10
-absolute on valid masked slots (the JAX package's own kernel bar,
-tests/test_pallas_sweep.py): the kernel sums in another order and uses
-the card's f64 exp/log.
+Segmentation fields (for K3: ok and fail_code) must be equal; fe and the
+properties agree to 1e-10 absolute on valid masked slots (the JAX
+package's own kernel bar, tests/test_pallas_sweep.py): the kernel sums in
+another order and uses the card's f64 exp/log.
 """
+
+import sys
+
 
 import numpy as np
 import pytest
 import torch
 
+import fhmcanalysis_torch.core.cuda_iso as CI
 import fhmcanalysis_torch.core.cuda_mb as CM
 import fhmcanalysis_torch.core.cuda_sweep as CS
 import fhmcanalysis_torch.core.pipeline as TP
 import fhmcanalysis_torch.core.state as TS
-from torch_composites import SURFACE_KINDS, cell, janus_surfaces, mb_grid, random_surface, worst_abs_diff
+from fhmcanalysis_torch.binary import isopleth
+from torch_composites import CELLS, ISO31, SURFACE_KINDS, cell, iso_grid_args, iso_sources, janus_surfaces, mb_grid, mu_window, port_histogram, random_surface, worst_abs_diff
+
+IB = sys.modules["fhmcanalysis_torch.binary.isopleth"]
 
 SEG = ("valid", "mask", "n_phases", "left", "right")
 PROPS = ("n_i", "x_i", "ntot", "u", "density")
@@ -144,3 +152,105 @@ def test_mb_main_path_through_k2(cuda):
     assert CM.mb_sweep_thermo.launches == n0 + 1 and out["fe"].is_cuda and out["fe"].shape == (512, 16, meta.max_phases)
     with pytest.raises(ValueError, match="max_phases"):
         TP.mu_beta_sweep_thermo(h, TS.HistMeta(**dict(mk, max_phases=9)), mus, betas, dmus)
+
+
+def _iso(cuda, name, order, beta, mu1_v, dmu2_v, **kw):
+    ds, mk = iso_sources(name, **kw)
+    iso = isopleth([port_histogram(d, mk, device=cuda) for d in ds], beta, order=order)
+    lr, wts = iso._bracket(dmu2_v, 2.5)
+    return iso, [h._hist() for h in iso.data["histograms"]], mk, lr, wts
+
+
+def _iso_equal(got, want, min_ok=0.3):
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+    ok = want[3].cpu()
+    assert float(ok.double().mean()) >= min_ok, "grid mostly invalid: the comparison would be vacuous"
+    for k in range(3):
+        assert worst_abs_diff(got[k].cpu(), want[k].cpu(), ok) <= 1e-10, k
+
+
+_X31 = np.linspace(0.0, 1.0, 31)
+_THREE_PEAK = 11.5 * np.exp(-((_X31 - 0.15) ** 2) / 0.004) + 11.3 * np.exp(-((_X31 - 0.45) ** 2) / 0.003) + 12 * np.exp(-((_X31 - 0.8) ** 2) / 0.006)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_phases", [4, 8])
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize(
+    "name,kw",
+    [
+        ("n31", {}),
+        ("n31", {"dmu2s": (-5.0, -4.6, -4.2)}),
+        ("n31", {"used_ke": True}),
+        ("n31", {"lnpi": _THREE_PEAK}),
+        ("n1400", {}),
+    ],
+)
+def test_iso_kernel_matches_plain(cuda, name, kw, order, collect, max_phases):
+    """K3 vs its plain version; the dMu_2 rows reach past the sources, so
+    the end rows are clamped to one source (L == R)."""
+    three = "lnpi" in kw
+    beta = 1.001 if three else (1.0 if name == "n1400" else 1.02)
+    mu1_v = np.linspace(*((4.9, 5.1) if three else mu_window(**CELLS[name])), 64)
+    dmu2_v = np.linspace(-4.9, -4.1, 16) if three else np.linspace(-5.3, -3.7, 32)
+    iso, srcs, mk, lr, wts = _iso(cuda, name, order, beta, mu1_v, dmu2_v, **kw)
+    metas = [TS.HistMeta(**dict(mk, max_phases=max_phases))] * len(srcs)
+    args = (srcs, metas, mu1_v, dmu2_v, lr, wts, beta, order, 10.0, collect)
+    n0 = CI.iso_grid.launches
+    got = IB.iso_grid(*args, engine="cuda")
+    want = IB.iso_grid(*args, engine="torch")
+    torch.cuda.synchronize()
+    assert CI.iso_grid.launches == n0 + 1
+    _iso_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", [1, 2])
+def test_make_grid_cuda_matches_torch(cuda, order):
+    """make_grid(engine="cuda") against engine="torch" on the same
+    histograms; "auto" on CUDA histograms launches K3 once."""
+    grid = iso_grid_args(ISO31, NX=96, NY=24)
+    mu1_v, dmu2_v = np.linspace(*grid[0], 96), np.linspace(*grid[1], 24)
+    iso, _, _, _, _ = _iso(cuda, "n31", order, 1.02, mu1_v, dmu2_v)
+    out = {}
+    for engine in ("cuda", "torch", "auto"):
+        n0 = CI.iso_grid.launches
+        iso.make_grid(*grid, engine=engine)
+        assert CI.iso_grid.launches == n0 + (engine != "torch")
+        out[engine] = {k: iso.data[k] for k in ("Z", "density", "F.E./kT", "valid", "fail_code")}
+    for k in ("valid", "fail_code"):
+        assert np.array_equal(out["cuda"][k], out["torch"][k]) and np.array_equal(out["auto"][k], out["cuda"][k]), k
+    ok = out["torch"]["valid"]
+    assert ok.mean() > 0.5
+    for k in ("Z", "density", "F.E./kT"):
+        assert worst_abs_diff(out["cuda"][k], out["torch"][k], ok) <= 1e-10, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", [1, 2])
+def test_iso_kernel_sources_with_their_own_op(cuda, order):
+    """Each source keeps its own order parameter in K3 (source 1's op
+    skips one value past its middle)."""
+    ds, mk = iso_sources()
+    hs = [port_histogram(d, mk, device=cuda) for d in ds]
+    hs[1].data["ntot"] = hs[1].data["ntot"] + (hs[1].data["ntot"] >= 15)
+    iso = isopleth(hs, 1.02, order=order)
+    mu1_v, dmu2_v = np.linspace(*mu_window(**CELLS["n31"]), 64), np.linspace(-5.3, -3.7, 32)
+    lr, wts = iso._bracket(dmu2_v, 2.5)
+    srcs = [h._hist() for h in iso.data["histograms"]]
+    assert not torch.equal(srcs[0].op, srcs[1].op)
+    args = (srcs, [TS.HistMeta(**dict(mk, max_phases=8))] * 2, mu1_v, dmu2_v, lr, wts, 1.02, order, 10.0)
+    got, want = IB.iso_grid(*args, engine="cuda"), IB.iso_grid(*args, engine="torch")
+    torch.cuda.synchronize()
+    _iso_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_iso_kernel_rejects_unsupported(cuda):
+    mu1_v, dmu2_v = np.linspace(-50, 10, 8), np.linspace(-4.9, -4.1, 4)
+    iso, srcs, mk, lr, wts = _iso(cuda, "n31", 1, 1.02, mu1_v, dmu2_v)
+    with pytest.raises(ValueError, match="max_phases"):
+        IB.iso_grid(srcs, [TS.HistMeta(**dict(mk, max_phases=9))] * 2, mu1_v, dmu2_v, lr, wts, 1.02, 1, 10.0)
+    with pytest.raises(KeyError):
+        IB.iso_grid(srcs, [TS.HistMeta(**mk)] * 2, mu1_v, dmu2_v, lr, wts, 1.02, 1, 10.0, collect="nope")

@@ -15,7 +15,10 @@ and ``fhmcanalysis_torch.core.state.from_host``):
 
 ``CELLS`` holds the three sweep cells (sizes of the JAX bench's workloads)
 with a mu_1 window that crosses coexistence: one-phase points at the low
-end, two-phase points at the high end, every point valid.
+end, two-phase points at the high end, every point valid.  ``iso_sources``
+and ``ISO31`` / ``ISO1400`` build the isopleth sources and grids from the
+same composites, and ``port_histogram`` the port's histogram class from a
+dict without a file.
 """
 
 from __future__ import annotations
@@ -112,6 +115,78 @@ def mb_grid(M: int | None = None, A: int | None = None, **over):
     betas = np.linspace(*g["beta"], A)
     dmus = np.linspace(*g["dmu"], A)[:, None]
     return d, meta, mus, betas, dmus
+
+
+def composite_raw(d: dict, nspec: int, max_order: int, history: str = "synthetic composite") -> dict:
+    """A ``to_host`` dict as the ``read_composite`` dict of a file holding
+    it (op stored as int64, as the file schema stores it)."""
+    return {
+        "history": history,
+        "volume": float(d["volume"]),
+        "nspec": int(nspec),
+        "max_order": int(max_order),
+        "lnpi": np.array(d["lnpi"], dtype=np.float64),
+        "op": np.asarray(d["op"]).astype(np.int64),
+        "mom": np.array(d["mom"], dtype=np.float64),
+    }
+
+
+def port_histogram(d: dict, meta: dict, device=None, history: str = "synthetic composite"):
+    """The port's N_tot ``histogram`` built from a ``to_host`` dict without
+    a file (the machine with the card has no h5py), through the class's
+    own load path (``histogram.from_composite`` -> ``_take``); reference
+    conditions are the dict's curr_beta / curr_mu."""
+    from fhmcanalysis_torch.histogram.ntot import histogram
+
+    raw = composite_raw(d, meta["nspec"], meta["max_order"], history)
+    return histogram.from_composite(raw, d["curr_beta"], d["curr_mu"], smooth=meta["smooth"], ke=meta["used_ke"], device=device)
+
+
+# The isopleth sources: one composite at several reference dMu_2 (mu_2 -
+# mu_1), each with a small deterministic tilt of lnPI (TILT * j * N/(N-1)
+# for source j) so that the inverse-distance mix of two sources is not the
+# same surface twice.  dMu_2 -5 and -4 bracket the main-path rows.
+ISO_DMU2 = (-5.0, -4.0)
+TILT = 0.5
+
+
+def iso_sources(name: str = "n31", dmu2s=ISO_DMU2, max_order: int = 3, used_ke: bool = False, lnpi=None, smooth=None):
+    """([to_host dict per source], meta kwargs) of the isopleth sources
+    built from a named cell's composite; ``lnpi`` replaces the composite's
+    surface (before the tilt), ``smooth`` the cell's."""
+    d, meta, _ = cell(name, 1, max_order=max_order, used_ke=used_ke)
+    if smooth is not None:
+        meta = dict(meta, smooth=smooth)
+    N = len(d["lnpi"])
+    t = np.arange(N, dtype=np.float64) / (N - 1)
+    base = d["lnpi"] if lnpi is None else np.asarray(lnpi, dtype=np.float64)
+    mu1 = d["curr_mu"][0]
+    out = [dict(d, lnpi=base + TILT * j * t, curr_mu=np.array([mu1, mu1 + dm])) for j, dm in enumerate(dmu2s)]
+    return out, meta
+
+
+# The isopleth main-path grid: the JAX bench's isopleth grid shape
+# (bench.py:942-975), 301 dMu_2 rows x 834 mu_1 columns = 251,034 cells on
+# the n31 sources above, beta_target 1.02, m = 2.5.  The mu_1 window is
+# the n31 sweep cell's (one phase at the low end, two at the high end).
+# ISO1400 is the secondary timing at N=1400: 128 x 128 cells, beta_target
+# = beta_ref (at 1400 bins any real beta step tilts the tail by hundreds of
+# log units and every cell turns edge-unsafe).
+ISO31 = dict(name="n31", NX=834, NY=301, dmu2=(-4.95, -4.05), beta=1.02)
+ISO1400 = dict(name="n1400", NX=128, NY=128, dmu2=(-4.95, -4.05), beta=1.0)
+
+
+def iso_grid_args(g: dict, NX: int | None = None, NY: int | None = None):
+    """(mu1_bounds, dmu2_bounds, delta) for isopleth.make_grid giving
+    exactly NY x NX cells (each delta widened by 1e-9 relative so that
+    make_grid's ceil cannot add a row or column)."""
+    NX = g["NX"] if NX is None else NX
+    NY = g["NY"] if NY is None else NY
+    c = CELLS[g["name"]]
+    mu1 = mu_window(**c)
+    d0 = (mu1[1] - mu1[0]) / (NX - 1) * (1 + 1e-9)
+    d1 = (g["dmu2"][1] - g["dmu2"][0]) / (NY - 1) * (1 + 1e-9)
+    return mu1, g["dmu2"], (d0, d1)
 
 
 # The randomized lnPI structures of tests/test_pallas_sweep.py
