@@ -396,8 +396,9 @@ def main():
         peak = torch.cuda.max_memory_allocated() / 2**30
         e_ms = cuda_ms(lambda: pipeline.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order, props=True))
         B, S = M * A, meta.nspec
-        x_ops = 2 + 4 + 2 + (8 if order == 2 else 0)  # reweight, dB term, dd term, order-2 terms
-        key_ops = (S + 1) * (2 + 2 + 2 + (10 if order == 2 else 0))  # key' per row, then its multiply-add
+        # as extrap_rows.cuh forms them: reweight, dB term, dd term, order-2 terms (3 products, 2 sums, the half)
+        x_ops = 2 + 4 + 2 + (7 if order == 2 else 0)
+        key_ops = (S + 1) * (2 + 2 + 2 + (7 if order == 2 else 0))  # key' per row (dB, dd, order-2 terms), then its multiply-add
         ops = tail_ops(mb_flat(out), B, h.nbins, meta.smooth, x_ops, key_ops)
         b_ms, b_by = bound([h.lnpi, h.op, xrows, krows, h.volume, mu_t, a, tg], out.values(), ops)
         mb_runs[cname] = dict(M=M, A=A, B=B, N=h.nbins, order=order, launches=launches, kernel_ms=k_ms, plain_ms=p_ms, auto_ms=e_ms,
@@ -472,10 +473,10 @@ def main():
         lefts, rights, pmask = segment.phase_bounds(ext, full_x.shape[-1], 8)
         cov = {"left": lefts, "right": rights, "mask": pmask}
         del full_x, ext
-        x_ops = 2 * (2 + 4 + 2 + (8 if order == 2 else 0)) + 4  # two sides' x' (as K2), then the mix: 2 products, a sum, a divide
-        key_ops = 3 * (2 * (4 + (10 if order == 2 else 0)) + 4 + 2)  # per key row: two sides' key', the mix, the multiply-add
+        x_ops = 2 * (2 + 4 + 2 + (7 if order == 2 else 0)) + 4  # two sides' x' (as K2), then the mix: 2 products, a sum, a divide
+        key_ops = 3 * (2 * (4 + (7 if order == 2 else 0)) + 4 + 2)  # per key row: two sides' key', the mix, the multiply-add
         N = srcs[0].nbins
-        ops = tail_ops(cov, B, N, mk["smooth"], x_ops, key_ops) + B * 2 * x_ops  # + the finish's two x_m reads
+        ops = tail_ops(cov, B, N, mk["smooth"], x_ops, key_ops)
         b_ms, b_by = bound(kin, k3(), ops)
         iso_runs[cname] = dict(NX=NX, NY=NY, B=B, N=N, order=order, launches=launches, kernel_ms=k_ms, plain_ms=p_ms, auto_ms=e_ms,
                                make_grid_ms=m_ms, bracket_host_ms=br_ms, valid_share=share, sample_phases=nph[1:3], bound_ms=b_ms, bound_by=b_by, ops=ops,

@@ -15,7 +15,7 @@
 // pipeline._mb_rows: xrows [R, N] and krows [G, S+1, N].  The rows are
 // passed on every call rather than held in a struct, so K2 hands over its
 // kernel parameters as they are: a struct holding copies of them raised
-// K2 from 80 to 127 registers and cost it ~20% (PERF.md).  Every
+// K2's registers and slowed it (PERF.md).  Every
 // product and sum is rounded on its own (__dmul_rn / __dadd_rn, and the
 // libraries are built with -fmad=false) in exactly the association of the
 // plain versions (pipeline._mb_chunk, binary.isopleth._iso_surfaces), so

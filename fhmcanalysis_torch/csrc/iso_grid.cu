@@ -69,7 +69,7 @@ struct Args {
   int* code;                  // [NY, NX]
 };
 
-// Keeps what the finish needs: the stable phase and the final maxima.
+// Keeps what the finish needs: the stable phase and the last maximum.
 struct IsoSink {
   int P;
   const double* volume;
@@ -90,10 +90,10 @@ struct IsoSink {
     }
   }
 
-  __device__ __forceinline__ void finish(int nm, bool v, const int* maxima) {
+  __device__ __forceinline__ void finish(int nm, bool v, int lm) {
     n_max = nm;
     valid = v;
-    last_max = tail::take(maxima, P, nm - 1);
+    last_max = lm;
   }
 };
 

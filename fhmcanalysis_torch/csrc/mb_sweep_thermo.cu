@@ -54,7 +54,9 @@ struct Args {
   tail::Out out;
 };
 
-__global__ void __launch_bounds__(32 * WARPS) mb_sweep_thermo_kernel(Args g) {
+// At least 3 blocks per SM (at most 85 registers): without the bound ptxas
+// picks fewer registers and spills (PERF.md).
+__global__ void __launch_bounds__(32 * WARPS, 3) mb_sweep_thermo_kernel(Args g) {
   __shared__ int s_mx[WARPS][MAXP];
   __shared__ int s_mn[WARPS][MAXP + 1];
   const int warp = threadIdx.x >> 5;

@@ -21,8 +21,9 @@
 // The caller also says where the results go: a sink whose phase(p, left,
 // right, mask, fe, acc) is called on lane 0 once per phase slot p =
 // 0..P-1, with acc = [sum w, sum w key_0 .. key_S] the phase's sums
-// (props only), and whose finish(n_max, valid, maxima) is called on lane 0
-// at the end with the final maxima list (after the janus collect).  K1 and
+// (props only), and whose finish(n_max, valid, last_max) is called on lane 0
+// at the end with the final count and last index of the maxima (after the
+// janus collect).  K1 and
 // K2 pass OutSink, which writes the [B, P] output rows; K3 keeps only the
 // most stable phase.  phase_props is the arithmetic both use.
 //
@@ -71,9 +72,11 @@ __device__ __forceinline__ void phase_props(const double* acc, int S, double* ni
   u = acc[1 + S] / den;
 }
 
-// The sink of K1 and K2: row b of every [B, ...] output.
+// The sink of K1 and K2: row b of every [B, ...] output.  It refers to the
+// kernel's Out rather than copying it, so the pointers stay in parameter
+// space and out of the register file.
 struct OutSink {
-  Out o;
+  const Out& o;
   long long b;
   int P, S, props;
   const double* volume;
@@ -98,7 +101,7 @@ struct OutSink {
     }
   }
 
-  __device__ __forceinline__ void finish(int n_phases, bool valid, const int*) const {
+  __device__ __forceinline__ void finish(int n_phases, bool valid, int) const {
     o.n_phases[b] = n_phases;
     o.valid[b] = valid ? 1 : 0;
   }
@@ -403,7 +406,7 @@ __device__ void thermo_point(const XF& xf, const KF& kf, int lane, int N, int S,
       sink.phase(p, lo[p], hi[p], msk[p], (msk[p] && pos) ? fe : (msk[p] ? INFINITY : 0.0), acc);
     }
   }
-  if (lane == 0) sink.finish(enmax, valid, emx);
+  if (lane == 0) sink.finish(enmax, valid, take(emx, P, enmax - 1));
 }
 
 }  // namespace tail
