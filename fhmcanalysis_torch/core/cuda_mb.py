@@ -8,8 +8,8 @@ computes in native f64 and drops the per-point grand-canonical averages:
 they shift lnPI' by a constant the thermo tail cancels (pipeline.py says
 why).  So K2 is K1's tail (``csrc/thermo_tail.cuh``) fed a richer x'(i)
 and richer key rows, both recomputed from a few mu-independent rows; the
-source is ``csrc/mb_sweep_thermo.cu``, one warp per point, and its header
-says what bounds it.
+source is ``csrc/mb_sweep_thermo.cu``, G lanes per point with K1's rule
+(``cuda_sweep.lanes_per_point``), and its header says what bounds it.
 
 The plain version of this kernel is ``pipeline.mu_beta_sweep_body``;
 nothing on the CUDA path calls it.  ``pipeline.mu_beta_sweep_thermo``
@@ -30,9 +30,10 @@ import functools
 import torch
 
 from .. import _build
+from .cuda_sweep import check_lanes, lanes_per_point, sm_count
 
 NAME = "mb_sweep_thermo"
-MAX_PHASES = 8  # the kernel's per-warp arrays; csrc/thermo_tail.cuh MAXP
+MAX_PHASES = 8  # the kernel's per-point arrays; csrc/thermo_tail.cuh MAXP
 
 
 def n_xrows(S: int, order: int) -> int:
@@ -49,7 +50,7 @@ def _lib() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load(NAME)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mb_sweep_thermo_launch.argtypes = [i, p] + [p] * 8 + [i] * 10 + [p] * 11
+    lib.mb_sweep_thermo_launch.argtypes = [i, p, i] + [p] * 8 + [i] * 10 + [p] * 11
     lib.mb_sweep_thermo_launch.restype = i
     lib.mb_sweep_thermo_error_string.argtypes = [i]
     lib.mb_sweep_thermo_error_string.restype = ctypes.c_char_p
@@ -62,7 +63,7 @@ def _lib() -> ctypes.CDLL:
 
 def mb_sweep_thermo(
     lnpi, op, xrows, krows, volume, mu, a, tg, nspec: int, smooth: int, max_phases: int, order: int = 1,
-    props: bool = True, first_order_mom: bool = False, collect=None,
+    props: bool = True, first_order_mom: bool = False, collect=None, *, _lanes=None,
 ) -> dict:
     """Launch K2 for the M x A points (mu_m, target_t), b = m * A + t.
 
@@ -75,7 +76,12 @@ def mb_sweep_thermo(
 
     Returns the mu_sweep_thermo dict with a flat leading axis M*A.  Runs on
     ``torch.cuda.current_stream()`` and does not synchronise.
+
+    _lanes forces G, the lanes per point (tests and chip_smoke.py); by
+    default ``lanes_per_point`` picks it, as for K1.
     """
+    if _lanes is not None:
+        check_lanes(_lanes)
     S = nspec
     tensors = {"lnpi": lnpi, "op": op, "xrows": xrows, "volume": volume, "mu": mu, "a": a, "tg": tg}
     if props:
@@ -113,6 +119,8 @@ def mb_sweep_thermo(
         raise ValueError(f"mb_sweep_thermo: {M} x {A} points exceed the kernel's int32 grid")
 
     B, P, dev = M * A, max_phases, lnpi.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    G = lanes_per_point(N, B, sm_count(index)) if _lanes is None else _lanes
     f64 = dict(dtype=torch.float64, device=dev)
     out = {
         "fe": torch.empty((B, P), **f64),
@@ -133,8 +141,7 @@ def mb_sweep_thermo(
     ptr = {k: v.data_ptr() for k, v in out.items()}
     lib = _lib()
     rc = lib.mb_sweep_thermo_launch(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        index, torch.cuda.current_stream(dev).cuda_stream, G,
         lnpi.data_ptr(), op.data_ptr(), xrows.data_ptr(), krows.data_ptr() if props else None,
         volume.data_ptr(), mu.data_ptr(), a.data_ptr(), tg.data_ptr(),
         M, A, N, S, P, smooth, order, int(props), int(first_order_mom and order >= 2), int(collect == "janus"),

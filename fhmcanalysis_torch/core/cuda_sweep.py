@@ -3,10 +3,12 @@
 Replaces the TPU kernel ``fhmcanalysis_tpu/core/pallas_sweep.py``
 (``_sweep_ds_pallas``), which ran the sweep in double-single f32 pairs
 because the TPU has no f64.  The port computes in native f64: the kernel
-source is ``csrc/sweep_thermo.cu``, one warp per state point.  On the card
-it is bound by f64 ``exp`` (one per bin and point) and the serial
-segmentation logic, not by bytes: the composite's rows are a few KB shared
-by every point.  The source's header says how the layout answers that.
+source is ``csrc/sweep_thermo.cu``, G lanes per state point, with G
+picked by ``lanes_per_point`` from N and the point count (K2 uses the
+same rule).  On the card it is bound by f64 ``exp`` (one per bin and
+point) and the serial segmentation logic, not by bytes: the composite's
+rows are a few KB shared by every point.  The source's header says how the
+layout answers that.
 
 The plain version of this kernel is ``segment.py`` + ``pipeline._point_thermo``;
 nothing on the CUDA path calls it.  ``pipeline.mu_sweep_thermo`` picks
@@ -23,7 +25,42 @@ import torch
 from .. import _build
 
 NAME = "sweep_thermo"
-MAX_PHASES = 8  # the kernel's per-warp arrays; csrc/sweep_thermo.cu MAXP
+MAX_PHASES = 8  # the kernel's per-point arrays; csrc/thermo_tail.cuh MAXP
+LANES = (1, 32)  # the layouts the kernels build (csrc/thermo_tail.cuh is a template on any power of two dividing 32)
+# G = 1 from min(N, G1_PER_SM_CAP) points per SM up: fitted on one H100 SXM
+# (132 SMs) to the layout lines chip_smoke.py prints (PERF.md)
+G1_PER_SM_CAP = 384
+
+
+def lanes_per_point(N: int, B: int, n_sm: int) -> int:
+    """G, the lanes of a warp that K1 and K2 give one state point, for B
+    points of N bins on a card of n_sm SMs.
+
+    G = 1 (a point per lane, its bins walked serially, 32 points to a warp
+    instruction) runs the per-point segmentation logic once instead of on
+    32 lanes, so it has the higher throughput at every N; but one lane
+    walks all N bins, so a point takes ~N/32 times longer than at G = 32
+    (one point per warp), and G = 1 wins only once the card holds enough
+    points to hide that.  On one H100 the two crossed near N points per
+    SM at small N and near 384 per SM from N ~ 400 up; chip_smoke.py
+    times both layouts at half and twice the switch.  K1 and K2 share
+    this rule so that K2 at identity targets (A = 1, so K1's B) returns
+    K1's output bit for bit: the sums' order depends on G.
+    """
+    return 1 if B >= n_sm * min(N, G1_PER_SM_CAP) else 32
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def check_lanes(G) -> int:
+    """G itself, or ValueError for a layout the kernels do not build."""
+    if isinstance(G, bool) or not isinstance(G, int) or G not in LANES:
+        raise ValueError(f"_lanes={G!r}: lanes per point must be a power of two dividing 32 that the kernels build, one of {LANES}")
+    return G
 
 
 @functools.lru_cache(maxsize=None)
@@ -31,7 +68,7 @@ def _lib() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load(NAME)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.sweep_thermo_launch.argtypes = [i, p, p, p, p, p, p] + [i] * 7 + [p] * 11
+    lib.sweep_thermo_launch.argtypes = [i, p, i, p, p, p, p, p] + [i] * 7 + [p] * 11
     lib.sweep_thermo_launch.restype = i
     lib.sweep_thermo_error_string.argtypes = [i]
     lib.sweep_thermo_error_string.restype = ctypes.c_char_p
@@ -42,7 +79,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def sweep_thermo(lnpi, op, keys, volume, a, smooth: int, max_phases: int, props: bool = True, collect=None) -> dict:
+def sweep_thermo(lnpi, op, keys, volume, a, smooth: int, max_phases: int, props: bool = True, collect=None, *, _lanes=None) -> dict:
     """Launch the fused sweep kernel for B state points.
 
     lnpi, op : f64[N]        composite surface and order parameter
@@ -53,7 +90,12 @@ def sweep_thermo(lnpi, op, keys, volume, a, smooth: int, max_phases: int, props:
     Returns the ``mu_sweep_thermo`` dict (fe, mask, left, right, n_phases,
     valid, and with props n_i, x_i [B,P,S], ntot, u, density [B,P]).  Runs
     on ``torch.cuda.current_stream()`` and does not synchronise.
+
+    _lanes forces G, the lanes per point (tests and chip_smoke.py); by
+    default ``lanes_per_point`` picks it.
     """
+    if _lanes is not None:
+        check_lanes(_lanes)
     tensors = {"lnpi": lnpi, "op": op, "keys": keys, "volume": volume, "a": a}
     for name, t in tensors.items():
         if not t.is_cuda:
@@ -80,6 +122,8 @@ def sweep_thermo(lnpi, op, keys, volume, a, smooth: int, max_phases: int, props:
         raise NotImplementedError(f"sweep_thermo: the kernel implements collect None and 'janus', not {collect!r}")
 
     B, P, dev = a.shape[0], max_phases, lnpi.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    G = lanes_per_point(N, B, sm_count(index)) if _lanes is None else _lanes
     f64 = dict(dtype=torch.float64, device=dev)
     out = {
         "fe": torch.empty((B, P), **f64),
@@ -100,8 +144,9 @@ def sweep_thermo(lnpi, op, keys, volume, a, smooth: int, max_phases: int, props:
     ptr = {k: v.data_ptr() for k, v in out.items()}
     lib = _lib()
     rc = lib.sweep_thermo_launch(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        index,
         torch.cuda.current_stream(dev).cuda_stream,
+        G,
         lnpi.data_ptr(),
         op.data_ptr(),
         keys.data_ptr(),

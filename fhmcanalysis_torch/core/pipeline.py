@@ -62,14 +62,16 @@ def mu_sweep_body(h: Hist, meta: HistMeta, mu_grid, props: bool = True, collect=
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
-def _check_engine(engine: str, collect):
+def _check_engine(engine: str, collect, lanes=None):
     if engine not in ("auto", "torch", "cuda"):
         raise ValueError(f"engine must be 'auto', 'torch' or 'cuda', got {engine!r}")
     if collect is not None and collect not in COLLECT_TRANSFORMS:
         raise KeyError(collect)
+    if lanes is not None:
+        cuda_sweep.check_lanes(lanes)
 
 
-def mu_sweep_thermo(h: Hist, meta: HistMeta, mu_grid, props: bool = True, collect=None, engine: str = "auto") -> dict:
+def mu_sweep_thermo(h: Hist, meta: HistMeta, mu_grid, props: bool = True, collect=None, engine: str = "auto", *, _lanes=None) -> dict:
     """Reweight + thermo over a 1-D grid of mu_1 values.
 
     Returns a dict of tensors with leading axis len(mu_grid): per-phase
@@ -82,15 +84,17 @@ def mu_sweep_thermo(h: Hist, meta: HistMeta, mu_grid, props: bool = True, collec
     kernel (cuda_sweep), CPU runs the plain version.  "torch" forces the
     plain version on either device; "cuda" forces the kernel and raises
     for CPU tensors.  A kernel failure raises; nothing falls back.
+    _lanes forces the kernel's lanes per point (cuda_sweep.lanes_per_point
+    picks it otherwise); tests and chip_smoke.py use it.
     """
-    _check_engine(engine, collect)
+    _check_engine(engine, collect, _lanes)
     if engine == "torch" or (engine == "auto" and h.device.type != "cuda"):
         return mu_sweep_body(h, meta, mu_grid, props, collect)
     mu = torch.as_tensor(mu_grid, dtype=torch.float64, device=h.device)
     keys = key_rows(h.mom, meta).contiguous()
     return cuda_sweep.sweep_thermo(
         h.lnpi.contiguous(), h.op.contiguous(), keys, h.volume, _reweight_coeff(h, mu).contiguous(),
-        meta.smooth, meta.max_phases, props, collect,
+        meta.smooth, meta.max_phases, props, collect, _lanes=_lanes,
     )
 
 
@@ -266,6 +270,8 @@ def mu_beta_sweep_thermo(
     first_order_mom: bool = False,
     collect=None,
     engine: str = "auto",
+    *,
+    _lanes=None,
 ) -> dict:
     """Full (mu_1, beta, dMu) product sweep: reweight -> joint Taylor
     extrapolation -> thermo.
@@ -279,14 +285,15 @@ def mu_beta_sweep_thermo(
     (cuda_mb) and raises for what it does not cover, CPU runs the plain
     version.  "torch" forces the plain version on either device; "cuda"
     forces the kernel and raises for CPU tensors.  Nothing falls back.
+    _lanes forces K2's lanes per point, as for mu_sweep_thermo.
     """
-    _check_engine(engine, collect)
+    _check_engine(engine, collect, _lanes)
     if engine == "torch" or (engine == "auto" and h.device.type != "cuda"):
         return mu_beta_sweep_body(h, meta, mu_grid, beta_grid, dmu_grid, order, props, first_order_mom, collect)
     mu, a, xrows, krows, tg = _mb_inputs(h, meta, mu_grid, beta_grid, dmu_grid, order, props, first_order_mom)
     flat = cuda_mb.mb_sweep_thermo(
         h.lnpi.contiguous(), h.op.contiguous(), xrows, krows, h.volume, mu, a, tg,
-        meta.nspec, meta.smooth, meta.max_phases, order, props, first_order_mom, collect,
+        meta.nspec, meta.smooth, meta.max_phases, order, props, first_order_mom, collect, _lanes=_lanes,
     )
     return _mb_shape(flat, mu.shape[0], tg.shape[0])
 

@@ -20,11 +20,17 @@
 // libraries are built with -fmad=false) in exactly the association of the
 // plain versions (pipeline._mb_chunk, binary.isopleth._iso_surfaces), so
 // segmentation of x' agrees with them bit for bit.
+//
+// NC: the rows are in global memory and read through the read-only cache
+// (__ldg); K2 at G < 32 passes NC = false with rows it may have staged in
+// shared memory (mb_sweep_thermo.cu), read with plain loads (tail::ld).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "thermo_tail.cuh"
 
 namespace tail {
 
@@ -41,20 +47,19 @@ __device__ __forceinline__ Targets targets(const double* tg, int S, int order) {
   return Targets{tg[0], two ? tg[1] : 0.0, o2 ? tg[S] : 0.0, o2 && two ? tg[3] : 0.0, o2 && two ? tg[4] : 0.0};
 }
 
-__device__ __forceinline__ double ld(const double* p, size_t i) { return __ldg(p + i); }
-
 // x'(i) of one source: lnpi, op [N], xr [R, N]; two: nspec 2; o2: order 2.
+template <bool NC = true>
 __device__ __forceinline__ double extrap_x(const double* lnpi, const double* op, const double* xr, size_t N, bool two,
                                            bool o2, double a, double mu, const Targets& t, int i) {
-  double v = __dadd_rn(ld(lnpi, i), __dmul_rn(a, ld(op, i)));
-  const double tr = __dadd_rn(ld(xr, i), __dmul_rn(mu, ld(op, i)));
+  double v = __dadd_rn(ld<NC>(lnpi, i), __dmul_rn(a, ld<NC>(op, i)));
+  const double tr = __dadd_rn(ld<NC>(xr, i), __dmul_rn(mu, ld<NC>(op, i)));
   v = __dadd_rn(v, __dmul_rn(t.dB, tr));
-  if (two) v = __dadd_rn(v, __dmul_rn(t.dd, ld(xr, N + i)));
+  if (two) v = __dadd_rn(v, __dmul_rn(t.dd, ld<NC>(xr, N + i)));
   if (o2) {
-    double q = __dmul_rn(t.dB2, ld(xr, (two ? 2 : 1) * N + i));
+    double q = __dmul_rn(t.dB2, ld<NC>(xr, (two ? 2 : 1) * N + i));
     if (two) {
-      q = __dadd_rn(q, __dmul_rn(t.dBdd2, ld(xr, 3 * N + i)));
-      q = __dadd_rn(q, __dmul_rn(t.dd2, ld(xr, 4 * N + i)));
+      q = __dadd_rn(q, __dmul_rn(t.dBdd2, ld<NC>(xr, 3 * N + i)));
+      q = __dadd_rn(q, __dmul_rn(t.dd2, ld<NC>(xr, 4 * N + i)));
     }
     v = __dadd_rn(v, __dmul_rn(0.5, q));
   }
@@ -63,16 +68,17 @@ __device__ __forceinline__ double extrap_x(const double* lnpi, const double* op,
 
 // key'_k(i) of one source: kr [G, S+1, N], KN = (S+1) N; khess: the
 // order-2 key-row terms are applied.
+template <bool NC = true>
 __device__ __forceinline__ double extrap_key(const double* kr, size_t N, size_t KN, bool two, bool khess,
                                              const Targets& t, int k, int i) {
   const size_t r = (size_t)k * N + i;
-  double v = __dadd_rn(ld(kr, r), __dmul_rn(t.dB, ld(kr, KN + r)));
-  if (two) v = __dadd_rn(v, __dmul_rn(t.dd, ld(kr, 2 * KN + r)));
+  double v = __dadd_rn(ld<NC>(kr, r), __dmul_rn(t.dB, ld<NC>(kr, KN + r)));
+  if (two) v = __dadd_rn(v, __dmul_rn(t.dd, ld<NC>(kr, 2 * KN + r)));
   if (khess) {
-    double q = __dmul_rn(t.dB2, ld(kr, (two ? 3 : 2) * KN + r));
+    double q = __dmul_rn(t.dB2, ld<NC>(kr, (two ? 3 : 2) * KN + r));
     if (two) {
-      q = __dadd_rn(q, __dmul_rn(t.dBdd2, ld(kr, 4 * KN + r)));
-      q = __dadd_rn(q, __dmul_rn(t.dd2, ld(kr, 5 * KN + r)));
+      q = __dadd_rn(q, __dmul_rn(t.dBdd2, ld<NC>(kr, 4 * KN + r)));
+      q = __dadd_rn(q, __dmul_rn(t.dd2, ld<NC>(kr, 5 * KN + r)));
     }
     v = __dadd_rn(v, __dmul_rn(0.5, q));
   }

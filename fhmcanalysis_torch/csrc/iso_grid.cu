@@ -4,7 +4,8 @@
 // (_iso_ds_pallas -> _launch -> _kernel -> iso_block_lanes -> _iso_finish).
 // What it computes is the float64 semantics of the plain version,
 // fhmcanalysis_torch/binary/isopleth.py iso_grid_body, for one cell
-// (mu_1[ix], dMu_2[iy]), b = iy * NX + ix, per warp:
+// (mu_1[ix], dMu_2[iy]), b = iy * NX + ix, per warp (the tail's layout
+// G = 32 at every N):
 //
 //   for each side s in {L, R}: source j = lr[iy, s], and x'_s, key'_s as
 //     K2 forms them (extrap_rows.cuh) from source j's rows, a[j, ix],
@@ -131,7 +132,7 @@ __global__ void __launch_bounds__(32 * WARPS) iso_grid_kernel(Args g) {
   };
 
   IsoSink sink{g.P, g.volume, INFINITY, 0.0, 0.0, 0.0, 0, 0, false};
-  tail::thermo_point(xf, kf, lane, N, S, g.P, g.smooth, 1, g.janus, sink, s_mx[warp], s_mn[warp]);
+  tail::thermo_point(xf, kf, tail::group_of<32>(threadIdx.x), N, S, g.P, g.smooth, 1, g.janus, sink, s_mx[warp], s_mn[warp], 1);
 
   if (lane == 0) {
     const int lm = min(max(sink.last_max, 0), N - 1);

@@ -4,7 +4,7 @@
 // (_mb_ds_pallas -> _kernel -> mb_block_lanes -> extrap_source_lanes ->
 // thermo_lanes).  What it computes is the float64 semantics of the plain
 // version, fhmcanalysis_torch/core/pipeline.py mu_beta_sweep_body, for one
-// point (mu_m, beta_t, dMu_t), b = m * A + t, per warp:
+// point (mu_m, beta_t, dMu_t), b = m * A + t, per group of G lanes:
 //
 //   x'(i)  = lnpi + a_m op + dB (r1 + mu_m op) + dd m1
 //            + [order 2] 0.5 ((dB^2 h00 + 2 dB dd h01) + dd^2 h11)
@@ -21,12 +21,16 @@
 //
 // What bounds it on the card: the same as K1 -- float64 exp (one per bin
 // and point) and the serial segmentation logic.  The rows (up to 7 for x',
-// up to 18 for the key rows) are a few KB shared by every point and stay in
-// L1/L2; a point's output is ~300 bytes at P=4 with props, which at the
-// main path's 4.2M points is the larger floor (PERF.md).  x' and key' are
-// recomputed from those rows wherever the tail reads them rather than
-// staged, which keeps the kernel free of shared-memory limits in N, at the
-// price of ~10 f64 operations per read.
+// up to 18 for the key rows) are a few KB shared by every point; a point's
+// output is ~300 bytes at P=4 with props, which at the main path's 4.2M
+// points is the larger floor (PERF.md).  x' and key' are recomputed from
+// those rows wherever the tail reads them rather than staged per point,
+// which keeps the kernel free of shared-memory limits in N, at the price
+// of ~10 f64 operations per read.  The layout is K1's: a template on G,
+// the lanes per point, with G picked by the same rule
+// (cuda_sweep.lanes_per_point); G = 32 reads the rows through the
+// read-only cache, G = 1 stages them in shared memory where they fit
+// (about 6 KB at N = 31), which took 6-14% off mb31 (PERF.md).
 //
 // Rounding: x' is formed with __dmul_rn/__dadd_rn in exactly the plain
 // version's association (and the library is built with -fmad=false), so
@@ -39,7 +43,7 @@
 namespace {
 
 using tail::MAXP;
-using tail::WARPS;
+using tail::THREADS;
 
 struct Args {
   const double* lnpi;    // [N]
@@ -54,15 +58,47 @@ struct Args {
   tail::Out out;
 };
 
-// At least 3 blocks per SM (at most 85 registers): without the bound ptxas
-// picks fewer registers and spills (PERF.md).
-__global__ void __launch_bounds__(32 * WARPS, 3) mb_sweep_thermo_kernel(Args g) {
-  __shared__ int s_mx[WARPS][MAXP];
-  __shared__ int s_mn[WARPS][MAXP + 1];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long b = (long long)blockIdx.x * WARPS + warp;
-  if (b >= (long long)g.M * g.A) return;  // uniform over the warp
+// Rows of xrows and, with props, of krows (cuda_mb.n_xrows, n_groups).
+__host__ __device__ __forceinline__ int x_rows(const Args& g) { return tail::n_targets(g.S, g.order); }
+__host__ __device__ __forceinline__ int k_rows(const Args& g) {
+  return g.props ? (1 + g.S + (g.khess ? (g.S == 1 ? 1 : 3) : 0)) * (g.S + 1) : 0;
+}
+
+// Bytes of the rows a block may stage in shared memory: lnpi, op, xrows, krows.
+__host__ __device__ __forceinline__ size_t row_bytes(const Args& g) {
+  return (size_t)(2 + x_rows(g) + k_rows(g)) * g.N * sizeof(double);
+}
+
+// At least 3 blocks per SM (at most 85 registers) at both G: at G = 32
+// without the bound ptxas picks fewer registers and spills; at G = 1 it
+// takes 93 registers (2 blocks per SM) and runs 13-15% slower at mb31_o1,
+// while 4 blocks (64 registers) spill (PERF.md).
+template <int G>
+__global__ void __launch_bounds__(THREADS, 3) mb_sweep_thermo_kernel(Args g) {
+  constexpr int PTS = THREADS / G;  // points per block
+  constexpr bool NC = G == 32;      // rows read through the read-only cache
+  __shared__ int s_mx[MAXP * PTS];
+  __shared__ int s_mn[(MAXP + 1) * PTS];
+  const int pt = threadIdx.x / G;
+  const long long b = (long long)blockIdx.x * PTS + pt;
+  const double *lnpi = g.lnpi, *op = g.op, *xrows = g.xrows, *krows = g.krows;
+  if constexpr (G < 32) {
+    // the rows, staged in shared memory by the whole block where they fit
+    extern __shared__ double s_rows[];
+    if (tail::stages_rows<G>(row_bytes(g))) {
+      const int N = g.N, XN = x_rows(g) * N;
+      tail::stage(s_rows, lnpi, N);
+      tail::stage(s_rows + N, op, N);
+      tail::stage(s_rows + 2 * N, xrows, XN);
+      tail::stage(s_rows + 2 * N + XN, krows, k_rows(g) * N);
+      __syncthreads();
+      lnpi = s_rows;
+      op = s_rows + N;
+      xrows = s_rows + 2 * N;
+      krows = s_rows + 2 * N + XN;
+    }
+  }
+  if (b >= (long long)g.M * g.A) return;  // G = 32: the warp; else the group, whose collectives name only its lanes
 
   const int S = g.S;
   const long long m = b / g.A, t = b % g.A;
@@ -70,10 +106,24 @@ __global__ void __launch_bounds__(32 * WARPS, 3) mb_sweep_thermo_kernel(Args g) 
   const tail::Targets tg = tail::targets(g.tg + t * tail::n_targets(S, g.order), S, g.order);
   const bool two = S == 2, o2 = g.order >= 2;
   const size_t N = g.N, KN = (size_t)(S + 1) * N;
-  const auto xf = [&](int i) { return tail::extrap_x(g.lnpi, g.op, g.xrows, N, two, o2, a, mu, tg, i); };
-  const auto kf = [&](int k, int i) { return tail::extrap_key(g.krows, N, KN, two, g.khess, tg, k, i); };
+  const auto xf = [&](int i) { return tail::extrap_x<NC>(lnpi, op, xrows, N, two, o2, a, mu, tg, i); };
+  const auto kf = [&](int k, int i) { return tail::extrap_key<NC>(krows, N, KN, two, g.khess, tg, k, i); };
   tail::OutSink sink{g.out, b, g.P, S, g.props, g.volume};
-  tail::thermo_point(xf, kf, lane, g.N, S, g.P, g.smooth, g.props, g.janus, sink, s_mx[warp], s_mn[warp]);
+  // G = 32: a point's slots are contiguous; else points interleave in the
+  // slots, so a group's reads of slot j are one row
+  constexpr int pitch = G == 32 ? 1 : PTS;
+  int* mx = G == 32 ? s_mx + pt * MAXP : s_mx + pt;
+  int* mn = G == 32 ? s_mn + pt * (MAXP + 1) : s_mn + pt;
+  tail::thermo_point(xf, kf, tail::group_of<G>(threadIdx.x), g.N, S, g.P, g.smooth, g.props, g.janus, sink, mx, mn, pitch);
+}
+
+template <int G>
+cudaError_t launch(const Args& g, cudaStream_t stream) {
+  constexpr int PTS = THREADS / G;
+  const long long B = (long long)g.M * g.A;
+  const unsigned blocks = (unsigned)((B + PTS - 1) / PTS);
+  mb_sweep_thermo_kernel<G><<<blocks, THREADS, tail::stages_rows<G>(row_bytes(g)) ? row_bytes(g) : 0, stream>>>(g);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -84,11 +134,13 @@ int mb_sweep_thermo_max_phases() { return MAXP; }
 
 const char* mb_sweep_thermo_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 on
-// success).  Does not synchronise.  All pointers are device pointers
-// (krows may be null without props); the caller has checked shapes,
-// dtypes and bounds.  khess: the order-2 key-row terms are applied.
-int mb_sweep_thermo_launch(int device, void* stream, const double* lnpi, const double* op, const double* xrows,
+// Launches the kernel at G lanes per point on `stream` and returns
+// cudaGetLastError() (0 on success; cudaErrorInvalidValue for a G the
+// library does not build: 1 and 32 only, cuda_sweep.LANES).  Does not
+// synchronise.  All pointers are device pointers (krows may be null
+// without props); the caller has checked shapes, dtypes and bounds.
+// khess: the order-2 key-row terms are applied.
+int mb_sweep_thermo_launch(int device, void* stream, int G, const double* lnpi, const double* op, const double* xrows,
                            const double* krows, const double* volume, const double* mu, const double* a,
                            const double* tg, int M, int A, int N, int S, int P, int smooth, int order, int props,
                            int first_order_mom, int janus, double* fe, int* left, int* right, unsigned char* mask,
@@ -99,11 +151,14 @@ int mb_sweep_thermo_launch(int device, void* stream, const double* lnpi, const d
   const long long B = (long long)M * A;
   if (B <= 0) return 0;
   const int khess = order >= 2 && !first_order_mom;
-  Args g{lnpi, op, xrows, krows, volume, mu, a, tg, M, A, N, S, P, smooth, order, props, khess, janus,
-         {fe, left, right, mask, n_phases, valid, n_i, x_i, ntot, u, density}};
-  const unsigned blocks = (unsigned)((B + WARPS - 1) / WARPS);
-  mb_sweep_thermo_kernel<<<blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(g);
-  return (int)cudaGetLastError();
+  const Args g{lnpi, op, xrows, krows, volume, mu, a, tg, M, A, N, S, P, smooth, order, props, khess, janus,
+               {fe, left, right, mask, n_phases, valid, n_i, x_i, ntot, u, density}};
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (G) {
+    case 1: return (int)launch<1>(g, st);
+    case 32: return (int)launch<32>(g, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -4,7 +4,7 @@
 // (_sweep_ds_pallas -> _kernel -> sweep_block_lanes -> thermo_lanes).  What
 // it computes is the float64 semantics of the plain version,
 // fhmcanalysis_torch/core/segment.py + pipeline._point_thermo, for one
-// state point per warp:
+// state point per group of G lanes:
 //
 //   x = lnpi + a * op                      (a = beta * (mu - mu0), from torch)
 //   then the shared segmentation + integration tail (thermo_tail.cuh):
@@ -14,10 +14,16 @@
 // What bounds it on the card: float64 exp (one per covered bin and point,
 // n573) or the ~300 bytes of outputs per point (n31), and in practice the
 // serial segmentation logic -- lnpi, op and the key rows are a few KB
-// shared by every point and stay in L1/L2.  The tail's header says how the
-// warp layout answers that; x is recomputed from global memory where it is
-// needed rather than staged, which keeps the kernel free of shared-memory
-// limits in N.
+// shared by every point and stay in L1/L2.  The kernel is a template on G,
+// the lanes per point (thermo_tail.cuh): G = 32 is one point per warp; G =
+// 1 runs the segmentation logic once per point instead of on 32 lanes, and
+// the wrapper picks it for sweeps large enough to fill the card at one
+// lane per point (cuda_sweep.lanes_per_point).  G = 32 reads the rows
+// through the read-only cache; at G = 1 the block first stages them in
+// shared memory where they fit, so each read of a bin is a shared-memory
+// broadcast, which took 4% off n31 and 9% off n573 against __ldg reads
+// (PERF.md).  x itself is recomputed wherever it is needed rather than
+// staged per point, which keeps the kernel free of shared-memory limits in N.
 //
 // Rounding: x is formed with __dmul_rn/__dadd_rn (and the library is built
 // with -fmad=false) so that it is bit-identical to torch's
@@ -28,7 +34,7 @@
 namespace {
 
 using tail::MAXP;
-using tail::WARPS;
+using tail::THREADS;
 
 struct Args {
   const double* lnpi;
@@ -40,23 +46,50 @@ struct Args {
   tail::Out out;
 };
 
-__device__ __forceinline__ double xval(const Args& g, double a, int i) {
-  return __dadd_rn(__ldg(g.lnpi + i), __dmul_rn(a, __ldg(g.op + i)));
+// Bytes of the rows a block may stage in shared memory: lnpi, op, keys.
+__host__ __device__ __forceinline__ size_t row_bytes(const Args& g) { return (size_t)(g.S + 3) * g.N * sizeof(double); }
+
+template <int G>
+__global__ void __launch_bounds__(THREADS) sweep_thermo_kernel(Args g) {
+  constexpr int PTS = THREADS / G;  // points per block
+  constexpr bool NC = G == 32;      // rows read through the read-only cache
+  __shared__ int s_mx[MAXP * PTS];
+  __shared__ int s_mn[(MAXP + 1) * PTS];
+  const int pt = threadIdx.x / G;
+  const long long b = (long long)blockIdx.x * PTS + pt;
+  const double *lnpi = g.lnpi, *op = g.op, *keys = g.keys;
+  if constexpr (G < 32) {
+    // the rows, staged in shared memory by the whole block where they fit
+    extern __shared__ double s_rows[];
+    if (tail::stages_rows<G>(row_bytes(g))) {
+      tail::stage(s_rows, lnpi, g.N);
+      tail::stage(s_rows + g.N, op, g.N);
+      tail::stage(s_rows + 2 * g.N, keys, (g.S + 1) * g.N);
+      __syncthreads();
+      lnpi = s_rows;
+      op = s_rows + g.N;
+      keys = s_rows + 2 * g.N;
+    }
+  }
+  if (b >= g.B) return;  // G = 32: the warp; else the group, whose collectives name only its lanes
+  const double a = g.a[b];
+  tail::OutSink sink{g.out, b, g.P, g.S, g.props, g.volume};
+  const auto xf = [&](int i) { return __dadd_rn(tail::ld<NC>(lnpi, i), __dmul_rn(a, tail::ld<NC>(op, i))); };
+  const auto kf = [&](int k, int i) { return tail::ld<NC>(keys, (size_t)k * g.N + i); };
+  // G = 32: a point's slots are contiguous; else points interleave in the
+  // slots, so a group's reads of slot j are one row
+  constexpr int pitch = G == 32 ? 1 : PTS;
+  int* mx = G == 32 ? s_mx + pt * MAXP : s_mx + pt;
+  int* mn = G == 32 ? s_mn + pt * (MAXP + 1) : s_mn + pt;
+  tail::thermo_point(xf, kf, tail::group_of<G>(threadIdx.x), g.N, g.S, g.P, g.smooth, g.props, g.janus, sink, mx, mn, pitch);
 }
 
-__global__ void __launch_bounds__(32 * WARPS) sweep_thermo_kernel(Args g) {
-  __shared__ int s_mx[WARPS][MAXP];
-  __shared__ int s_mn[WARPS][MAXP + 1];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long b = (long long)blockIdx.x * WARPS + warp;
-  if (b >= g.B) return;  // uniform over the warp
-
-  const double a = g.a[b];
-  const auto xf = [&](int i) { return xval(g, a, i); };
-  const auto kf = [&](int k, int i) { return __ldg(g.keys + (size_t)k * g.N + i); };
-  tail::OutSink sink{g.out, b, g.P, g.S, g.props, g.volume};
-  tail::thermo_point(xf, kf, lane, g.N, g.S, g.P, g.smooth, g.props, g.janus, sink, s_mx[warp], s_mn[warp]);
+template <int G>
+cudaError_t launch(const Args& g, cudaStream_t stream) {
+  constexpr int PTS = THREADS / G;
+  const unsigned blocks = (unsigned)(((long long)g.B + PTS - 1) / PTS);
+  sweep_thermo_kernel<G><<<blocks, THREADS, tail::stages_rows<G>(row_bytes(g)) ? row_bytes(g) : 0, stream>>>(g);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -67,21 +100,26 @@ int sweep_thermo_max_phases() { return MAXP; }
 
 const char* sweep_thermo_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 on
-// success).  Does not synchronise.  All pointers are device pointers; the
-// caller has checked shapes, dtypes and bounds.
-int sweep_thermo_launch(int device, void* stream, const double* lnpi, const double* op, const double* keys,
+// Launches the kernel at G lanes per point on `stream` and returns
+// cudaGetLastError() (0 on success; cudaErrorInvalidValue for a G the
+// library does not build: 1 and 32 only, cuda_sweep.LANES).  Does not
+// synchronise.  All pointers are device pointers; the caller has checked
+// shapes, dtypes and bounds.
+int sweep_thermo_launch(int device, void* stream, int G, const double* lnpi, const double* op, const double* keys,
                         const double* volume, const double* a, int B, int N, int S, int P, int smooth, int props,
                         int janus, double* fe, int* left, int* right, unsigned char* mask, int* n_phases,
                         unsigned char* valid, double* n_i, double* x_i, double* ntot, double* u, double* density) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0) return 0;
-  Args g{lnpi, op, keys, volume, a, B, N, S, P, smooth, props, janus,
-         {fe, left, right, mask, n_phases, valid, n_i, x_i, ntot, u, density}};
-  const unsigned blocks = (unsigned)((B + WARPS - 1) / WARPS);
-  sweep_thermo_kernel<<<blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(g);
-  return (int)cudaGetLastError();
+  const Args g{lnpi, op, keys, volume, a, B, N, S, P, smooth, props, janus,
+               {fe, left, right, mask, n_phases, valid, n_i, x_i, ntot, u, density}};
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (G) {
+    case 1: return (int)launch<1>(g, st);
+    case 32: return (int)launch<32>(g, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -3,7 +3,7 @@
 // The counterpart of the TPU kernels' shared stage
 // fhmcanalysis_tpu/core/pallas_sweep.py thermo_lanes: given one state
 // point's reweighted (and possibly extrapolated) surface x(i) and its key
-// moment rows key_k(i), one warp computes
+// moment rows key_k(i), one group of G lanes computes
 //
 //   smooth-window extrema flags, compacted to the first P maxima / P+1 minima
 //   endpoint rules, over-smoothing repair, alternation checks, janus collect
@@ -13,37 +13,102 @@
 // with the float64 semantics of the plain version, fhmcanalysis_torch/core/
 // segment.py.  The caller says how x and the key rows are read: `xf(i)`
 // returns x at bin i and `kf(k, i)` key row k (0..S) at bin i, both
-// recomputed wherever they are needed rather than staged, so the tail has no
-// shared-memory limit in N.  Segmentation compares x values exactly, so a
-// caller must form x bit-identically to its plain version (__dmul_rn /
-// __dadd_rn, and the library built with -fmad=false).
+// recomputed wherever they are needed rather than staged per point, so the
+// tail has no shared-memory limit in N.  Segmentation compares x values
+// exactly, so a caller must form x bit-identically to its plain version
+// (__dmul_rn / __dadd_rn, and the library built with -fmad=false).
 //
 // The caller also says where the results go: a sink whose phase(p, left,
-// right, mask, fe, acc) is called on lane 0 once per phase slot p =
-// 0..P-1, with acc = [sum w, sum w key_0 .. key_S] the phase's sums
-// (props only), and whose finish(n_max, valid, last_max) is called on lane 0
-// at the end with the final count and last index of the maxima (after the
-// janus collect).  K1 and
-// K2 pass OutSink, which writes the [B, P] output rows; K3 keeps only the
-// most stable phase.  phase_props is the arithmetic both use.
+// right, mask, fe, acc) is called on the group's first lane once per
+// phase slot p = 0..P-1, with acc = [sum w, sum w key_0 .. key_S] the
+// phase's sums (props only), and whose finish(n_max, valid, last_max) is
+// called there at the end with the final count and last index of the
+// maxima (after the janus collect).  K1 and K2 pass OutSink, which writes
+// the [B, P] output rows; K3 keeps only the most stable phase.
+// phase_props is the arithmetic both use.
 //
-// The layout keeps every bin-parallel stage on the 32 lanes of the warp
-// (stencil, ballot compaction, arg-min gap scans, max and sum reductions)
-// and runs the short data-dependent repair logic, over at most 2P+1
-// indices, redundantly on every lane, so no lane waits for a broadcast.
+// The layout is a template on G, the lanes per point: a power of two that
+// divides 32, so a warp holds 32/G points and a block of THREADS threads
+// THREADS/G.  A point's G lanes split every bin-parallel stage (stencil,
+// ballot compaction, arg-min gap scans, max and sum reductions) and run
+// the short data-dependent repair logic, over at most 2P+1 indices, each
+// on its own copy, so no lane waits for a broadcast.  Every collective
+// names the group's lanes only (Group::mask, shuffle width G), so groups of
+// one warp run apart: trip counts differ between points, and a group past
+// the end of the grid may leave early.  K1 and K2 build G = 1 and G = 32,
+// K3 only G = 32.  G = 32 is one point per warp: it runs the scalar logic
+// on 32 lanes for one point, and is the layout for sweeps too small to
+// fill the card otherwise; G = 1 (the TPU kernel's layout: one point per
+// lane, the bins walked serially) runs it once per point with 32 points
+// sharing each warp instruction.  The sums over a phase are a G-lane tree over
+// lane-strided partial sums, so floats depend on G in the last bits;
+// segmentation compares x values only and does not.  The per-point index
+// arrays stay in local memory at every G: unrolling their loops so that
+// they live in registers took K2 at G = 1 from 93 to 180 registers and
+// made it 40% slower (PERF.md).
+//
+// Tensor cores do not apply: the per-phase sums are masked, shifted dot
+// products of length <= N, and no product of matrices exists for wgmma or
+// f64 DMMA.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace tail {
 
 constexpr int MAXP = 8;            // largest max_phases the tail holds
 constexpr int BIG = 2147483647;    // padding sentinel of the index lists
-constexpr int WARPS = 8;           // state points per block
+constexpr int THREADS = 256;       // threads per block, every layout
+constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
+
+// One point's lanes: G consecutive lanes of a warp.
+template <int G>
+struct Group {
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0, "G must be a power of two dividing 32");
+  int lane;       // 0..G-1 within the group
+  int base;       // the group's first lane in the warp
+  unsigned mask;  // the group's lanes in the warp
+};
+
+template <int G>
+__device__ __forceinline__ Group<G> group_of(int tid) {
+  const int base = tid & 31 & ~(G - 1);
+  return Group<G>{tid & (G - 1), base, (FULL >> (32 - G)) << base};
+}
+
+// Shared-memory bytes of the per-point index slots of a block of THREADS/G
+// points (MAXP maxima and MAXP+1 minima each).
+template <int G>
+constexpr int slot_bytes() {
+  return (2 * MAXP + 1) * (int)sizeof(int) * (THREADS / G);
+}
+
+// Whether a block of THREADS/G points stages `rows` bytes of mu-independent
+// rows in shared memory: at G < 32, where they fit beside the index slots
+// in the 48 KB a block gets without opting in.  At G = 1 every lane of a
+// warp then reads the same bin at the same step, a shared-memory broadcast.
+template <int G>
+__host__ __device__ __forceinline__ bool stages_rows(size_t rows) {
+  return G < 32 && rows + slot_bytes<G>() <= 48 * 1024;
+}
+
+// The block's copy of n doubles from global into shared memory.
+__device__ __forceinline__ void stage(double* dst, const double* src, int n) {
+  for (int k = threadIdx.x; k < n; k += THREADS) dst[k] = src[k];
+}
+
+// A row read: through the read-only cache (NC: the rows in global memory)
+// or a plain load (rows a block may have staged in shared memory).
+template <bool NC>
+__device__ __forceinline__ double ld(const double* p, size_t i) {
+  if constexpr (NC) return __ldg(p + i);
+  else return p[i];
+}
 
 // Where one point's results go: row b of every [B, ...] output.
 struct Out {
@@ -107,19 +172,35 @@ struct OutSink {
   }
 };
 
-__device__ __forceinline__ double warp_max(double v) {
-  for (int o = 16; o; o >>= 1) v = fmax(v, __shfl_xor_sync(FULL, v, o));
+template <int G>
+__device__ __forceinline__ double grp_max(double v, unsigned m) {
+  for (int o = G / 2; o; o >>= 1) v = fmax(v, __shfl_xor_sync(m, v, o, G));
   return v;
 }
 
-__device__ __forceinline__ double warp_min(double v) {
-  for (int o = 16; o; o >>= 1) v = fmin(v, __shfl_xor_sync(FULL, v, o));
+template <int G>
+__device__ __forceinline__ double grp_min(double v, unsigned m) {
+  for (int o = G / 2; o; o >>= 1) v = fmin(v, __shfl_xor_sync(m, v, o, G));
   return v;
 }
 
-__device__ __forceinline__ double warp_sum(double v) {
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+template <int G>
+__device__ __forceinline__ double grp_sum(double v, unsigned m) {
+  for (int o = G / 2; o; o >>= 1) v += __shfl_xor_sync(m, v, o, G);
   return v;
+}
+
+// The group's ballot, in its own bits 0..G-1.
+template <int G>
+__device__ __forceinline__ unsigned grp_ballot(const Group<G>& g, bool p) {
+  if constexpr (G == 1) return p ? 1u : 0u;
+  else if constexpr (G == 32) return __ballot_sync(FULL, p);
+  else return (__ballot_sync(g.mask, p) >> g.base) & (FULL >> (32 - G));
+}
+
+template <int G>
+__device__ __forceinline__ void grp_sync(const Group<G>& g) {
+  if constexpr (G > 1) __syncwarp(g.mask);
 }
 
 __device__ __forceinline__ int take(const int* arr, int size, int i) {
@@ -136,49 +217,54 @@ __device__ __forceinline__ void append_at(int* arr, int size, int& cnt, int val)
   ++cnt;
 }
 
-// Warp compaction of two flag sets over bins [0, N): the first `nmx`
-// (resp. `nmn`) flagged indices in ascending order into shared memory,
-// BIG-padded, and the full counts (segment._compress_indices).
-template <typename Flags>
-__device__ void compact2(int N, int lane, Flags flags, int* mx, int nmx, int* mn, int nmn, int& cmx, int& cmn) {
+// Group compaction of two flag sets over bins [0, N): the first `nmx`
+// (resp. `nmn`) flagged indices in ascending order into shared memory at
+// slots 0, pitch, 2 pitch, ..., BIG-padded, and the full counts
+// (segment._compress_indices).
+template <int G, typename Flags>
+__device__ void compact2(int N, const Group<G>& grp, Flags flags, int* mx, int nmx, int* mn, int nmn, int pitch, int& cmx,
+                         int& cmn) {
   cmx = 0;
   cmn = 0;
+  const int lane = grp.lane;
   const unsigned below = (1u << lane) - 1u;
-  for (int base = 0; base < N; base += 32) {
+  for (int base = 0; base < N; base += G) {
     const int i = base + lane;
     bool is_max = false, is_min = false;
     if (i < N) flags(i, is_max, is_min);
-    const unsigned bmx = __ballot_sync(FULL, is_max);
-    const unsigned bmn = __ballot_sync(FULL, is_min);
+    const unsigned bmx = grp_ballot(grp, is_max);
+    const unsigned bmn = grp_ballot(grp, is_min);
     if (is_max) {
       const int r = cmx + __popc(bmx & below);
-      if (r < nmx) mx[r] = i;
+      if (r < nmx) mx[r * pitch] = i;
     }
     if (is_min) {
       const int r = cmn + __popc(bmn & below);
-      if (r < nmn) mn[r] = i;
+      if (r < nmn) mn[r * pitch] = i;
     }
     cmx += __popc(bmx);
     cmn += __popc(bmn);
   }
-  for (int r = lane; r < nmx; r += 32)
-    if (r >= cmx) mx[r] = BIG;
-  for (int r = lane; r < nmn; r += 32)
-    if (r >= cmn) mn[r] = BIG;
-  __syncwarp();
+  for (int r = lane; r < nmx; r += G)
+    if (r >= cmx) mx[r * pitch] = BIG;
+  for (int r = lane; r < nmn; r += G)
+    if (r >= cmn) mn[r * pitch] = BIG;
+  grp_sync(grp);
 }
 
-// The whole tail for one point, run by all 32 lanes of one warp; results
-// go to `sink` (see the header).  s_mx and s_mn are this warp's shared
-// scratch of MAXP and MAXP+1 ints.
-template <typename XF, typename KF, typename Sink>
-__device__ void thermo_point(const XF& xf, const KF& kf, int lane, int N, int S, int P, int smooth, int props,
-                             int janus, Sink& sink, int* s_mx, int* s_mn) {
+// The whole tail for one point, run by the G lanes of `grp`; results go
+// to `sink` (see the header), from the group's first lane.  s_mx and s_mn
+// are the point's shared slots of MAXP and MAXP+1 ints, `pitch` apart.
+template <int G, typename XF, typename KF, typename Sink>
+__device__ void thermo_point(const XF& xf, const KF& kf, const Group<G>& grp, int N, int S, int P, int smooth, int props,
+                             int janus, Sink& sink, int* s_mx, int* s_mn, int pitch) {
+  const int lane = grp.lane;
+  const unsigned gm = grp.mask;
   const int last = N - 1;
 
   // ---- stencil flags + compaction (segment.stencil_flags) ----
   int n_max0, n_min0;
-  compact2(N, lane, [&](int i, bool& is_max, bool& is_min) {
+  compact2(N, grp, [&](int i, bool& is_max, bool& is_min) {
     const double xi = xf(i);
     bool mx = true, mn = true;
     for (int k = 1; k <= smooth && (mx || mn); ++k) {
@@ -189,7 +275,7 @@ __device__ void thermo_point(const XF& xf, const KF& kf, int lane, int N, int S,
     }
     is_max = mx;
     is_min = mn;
-  }, s_mx, P, s_mn, P + 1, n_max0, n_min0);
+  }, s_mx, P, s_mn, P + 1, pitch, n_max0, n_min0);
 
   const bool has_max = n_max0 > 0, has_min = n_min0 > 0;
   const bool none_case = !has_max && !has_min;
@@ -200,23 +286,23 @@ __device__ void thermo_point(const XF& xf, const KF& kf, int lane, int N, int S,
     // straight-line fallback (gc_hist.pyx:382-386): every bin equal to the
     // global max / min, first-P truncated with the full count
     double gmx = -INFINITY, gmn = INFINITY;
-    for (int i = lane; i < N; i += 32) {
+    for (int i = lane; i < N; i += G) {
       const double xi = xf(i);
       gmx = fmax(gmx, xi);
       gmn = fmin(gmn, xi);
     }
-    gmx = warp_max(gmx);
-    gmn = warp_min(gmn);
-    compact2(N, lane, [&](int i, bool& is_max, bool& is_min) {
+    gmx = grp_max<G>(gmx, gm);
+    gmn = grp_min<G>(gmn, gm);
+    compact2(N, grp, [&](int i, bool& is_max, bool& is_min) {
       const double xi = xf(i);
       is_max = xi == gmx;
       is_min = xi == gmn;
-    }, s_mx, P, s_mn, P + 1, n_max0, n_min0);
+    }, s_mx, P, s_mn, P + 1, pitch, n_max0, n_min0);
   }
 
   int mx0[MAXP], mn0[MAXP + 1];
-  for (int j = 0; j < P; ++j) mx0[j] = s_mx[j];
-  for (int j = 0; j <= P; ++j) mn0[j] = s_mn[j];
+  for (int j = 0; j < P; ++j) mx0[j] = s_mx[j * pitch];
+  for (int j = 0; j <= P; ++j) mn0[j] = s_mn[j * pitch];
 
   // ---- over-smoothing repair gaps (gc_hist.pyx:352-381): first arg-max
   // (max-only: arg-min of -x is the minimum) of the non-found kind between
@@ -232,16 +318,16 @@ __device__ void thermo_point(const XF& xf, const KF& kf, int lane, int N, int S,
       double bv = INFINITY;
       int bi = BIG;
       // anchors are bins or BIG: clamp before adding the lane offset
-      for (int i = min(anchor[q], N) + lane; i < hi; i += 32) {
+      for (int i = min(anchor[q], N) + lane; i < hi; i += G) {
         const double v = sgn * xf(i);
         if (v < bv) {
           bv = v;
           bi = i;
         }
       }
-      for (int off = 16; off; off >>= 1) {
-        const double ov = __shfl_xor_sync(FULL, bv, off);
-        const int oi = __shfl_xor_sync(FULL, bi, off);
+      for (int off = G / 2; off; off >>= 1) {
+        const double ov = __shfl_xor_sync(gm, bv, off, G);
+        const int oi = __shfl_xor_sync(gm, bi, off, G);
         if (ov < bv || (ov == bv && oi < bi)) {
           bv = ov;
           bi = oi;
@@ -251,7 +337,7 @@ __device__ void thermo_point(const XF& xf, const KF& kf, int lane, int N, int S,
     }
   }
 
-  // ---- scalar segmentation logic, identical on every lane ----
+  // ---- scalar segmentation logic, identical on every lane of the group ----
   // both-found endpoint rules (gc_hist.pyx:333-351)
   int bmx[MAXP], bmn[MAXP + 1];
   int bnmax = n_max0, bnmin = n_min0;
@@ -362,8 +448,8 @@ __device__ void thermo_point(const XF& xf, const KF& kf, int lane, int N, int S,
     double m = -INFINITY;
     if (msk[p]) {
       const int e = min(hi[p], N);
-      for (int i = min(max(lo[p], 0), N) + lane; i < e; i += 32) m = fmax(m, xf(i));
-      m = warp_max(m);
+      for (int i = min(max(lo[p], 0), N) + lane; i < e; i += G) m = fmax(m, xf(i));
+      m = grp_max<G>(m, gm);
     }
     mpf[p] = isfinite(m) ? m : 0.0;
   }
@@ -375,12 +461,23 @@ __device__ void thermo_point(const XF& xf, const KF& kf, int lane, int N, int S,
   for (int p = 0; p < P; ++p) {
     double acc[4] = {0.0, 0.0, 0.0, 0.0};
     if (msk[p]) {
+      const int b0 = min(max(lo[p], 0), N);
       const int e = min(hi[p], last);  // bin N-1 is added per phase below
-      for (int i = min(max(lo[p], 0), N) + lane; i < e; i += 32) {
-        // a bin takes the largest shift of the phases that cover it
-        double sh = -INFINITY;
+      // At G < 32 a phase that shares no bin of [b0, e) with another
+      // masked phase takes its own shift in every bin (the usual case),
+      // which keeps the per-point arrays out of the loop below.
+      bool shared = G == 32;
+      if constexpr (G < 32)
         for (int q = 0; q < P; ++q)
-          if (msk[q] && lo[q] <= i && i < hi[q]) sh = fmax(sh, mpf[q]);
+          shared = shared || (q != p && msk[q] && max(lo[q], b0) < min(hi[q], e));
+      for (int i = b0 + lane; i < e; i += G) {
+        // a bin takes the largest shift of the phases that cover it
+        double sh = mpf[p];
+        if (shared) {
+          sh = -INFINITY;
+          for (int q = 0; q < P; ++q)
+            if (msk[q] && lo[q] <= i && i < hi[q]) sh = fmax(sh, mpf[q]);
+        }
         const double w = exp(xf(i) - sh);
         acc[0] += w;
 #pragma unroll
@@ -389,7 +486,7 @@ __device__ void thermo_point(const XF& xf, const KF& kf, int lane, int N, int S,
       }
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        if (k < K) acc[k] = warp_sum(acc[k]);
+        if (k < K) acc[k] = grp_sum<G>(acc[k], gm);
     }
     // bin N-1 with this phase's own shift (the endpoint-overlap rule)
     const bool in_last = msk[p] && lo[p] <= last && last < hi[p];

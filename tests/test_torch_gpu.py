@@ -10,7 +10,9 @@ Imports no JAX, so it runs on the GPU machine:
 Segmentation fields (for K3: ok and fail_code) must be equal; fe and the
 properties agree to 1e-10 absolute on valid masked slots (the JAX
 package's own kernel bar, tests/test_pallas_sweep.py): the kernel sums in
-another order and uses the card's f64 exp/log.
+another order and uses the card's f64 exp/log.  K1 and K2 are checked at
+the G (lanes per point) their rule picks and forced to every G they build:
+the layout changes only the order of the sums.
 """
 
 import sys
@@ -26,12 +28,13 @@ import fhmcanalysis_torch.core.cuda_sweep as CS
 import fhmcanalysis_torch.core.pipeline as TP
 import fhmcanalysis_torch.core.state as TS
 from fhmcanalysis_torch.binary import isopleth
-from torch_composites import CELLS, ISO31, SURFACE_KINDS, cell, iso_grid_args, iso_sources, janus_surfaces, mb_grid, mu_window, port_histogram, random_surface, worst_abs_diff
+from torch_composites import CELLS, ISO31, SURFACE_KINDS, cell, iso_grid_args, iso_sources, janus_surfaces, mb_grid, mu_window, port_histogram, random_surface, shuffled_mu_grid, worst_abs_diff
 
 IB = sys.modules["fhmcanalysis_torch.binary.isopleth"]
 
 SEG = ("valid", "mask", "n_phases", "left", "right")
 PROPS = ("n_i", "x_i", "ntot", "u", "density")
+LANES = (None,) + CS.LANES  # the rule's pick, then every G forced
 
 
 @pytest.fixture
@@ -42,17 +45,18 @@ def cuda():
 
 
 def _compare(h, meta, mus, props, collect):
-    n0 = CS.sweep_thermo.launches
-    got = TP.mu_sweep_thermo(h, meta, mus, props=props, collect=collect, engine="cuda")
     want = TP.mu_sweep_thermo(h, meta, mus, props=props, collect=collect, engine="torch")
-    torch.cuda.synchronize()
-    assert CS.sweep_thermo.launches == n0 + 1
-    assert set(got) == set(want)
-    for k in SEG:
-        assert torch.equal(got[k], want[k]), k
     ok = (want["mask"] & want["valid"][:, None]).cpu()
-    for k in ("fe",) + (PROPS if props else ()):
-        assert worst_abs_diff(got[k].cpu(), want[k].cpu(), ok) <= 1e-10, k
+    for G in LANES:
+        n0 = CS.sweep_thermo.launches
+        got = TP.mu_sweep_thermo(h, meta, mus, props=props, collect=collect, engine="cuda", _lanes=G)
+        torch.cuda.synchronize()
+        assert CS.sweep_thermo.launches == n0 + 1
+        assert set(got) == set(want)
+        for k in SEG:
+            assert torch.equal(got[k], want[k]), (G, k)
+        for k in ("fe",) + (PROPS if props else ()):
+            assert worst_abs_diff(got[k].cpu(), want[k].cpu(), ok) <= 1e-10, (G, k)
 
 
 @pytest.mark.gpu
@@ -75,6 +79,15 @@ def test_kernel_matches_plain_structures(cuda, kind, smooth, max_phases):
     for _ in range(4):
         h = TS.from_host(dict(d, lnpi=random_surface(kind, 31, rng)), device=cuda)
         _compare(h, meta, np.linspace(4.85, 5.15, 64), True, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_phases", [1, 8])
+@pytest.mark.parametrize("name", ["n573", "n1400"])
+def test_kernel_phase_slots_large_n(cuda, name, max_phases):
+    """P = 1 and 8 at large N, where the rule keeps one warp per point."""
+    d, mk, mus = cell(name, 512)
+    _compare(TS.from_host(d, device=cuda), TS.HistMeta(**dict(mk, max_phases=max_phases)), mus, True, None)
 
 
 @pytest.mark.gpu
@@ -103,17 +116,18 @@ def _mb_inputs(cuda, name, used_ke=False, M=256, A=8):
 
 
 def _mb_compare(h, meta, mus, betas, dmus, **kw):
-    n0 = CM.mb_sweep_thermo.launches
-    got = TP.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, engine="cuda", **kw)
     want = TP.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, engine="torch", **kw)
-    torch.cuda.synchronize()
-    assert CM.mb_sweep_thermo.launches == n0 + 1
-    assert set(got) == set(want)
-    for k in SEG:
-        assert torch.equal(got[k], want[k]), k
     ok = (want["mask"] & want["valid"][..., None]).cpu()
-    for k in ("fe",) + (PROPS if kw.get("props", True) else ()):
-        assert worst_abs_diff(got[k].cpu(), want[k].cpu(), ok) <= 1e-10, k
+    for G in LANES:
+        n0 = CM.mb_sweep_thermo.launches
+        got = TP.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, engine="cuda", _lanes=G, **kw)
+        torch.cuda.synchronize()
+        assert CM.mb_sweep_thermo.launches == n0 + 1
+        assert set(got) == set(want)
+        for k in SEG:
+            assert torch.equal(got[k], want[k]), (G, k)
+        for k in ("fe",) + (PROPS if kw.get("props", True) else ()):
+            assert worst_abs_diff(got[k].cpu(), want[k].cpu(), ok) <= 1e-10, (G, k)
 
 
 @pytest.mark.gpu
@@ -131,14 +145,16 @@ def test_mb_kernel_matches_plain(cuda, name, used_ke, order, first_order_mom, pr
 @pytest.mark.parametrize("props", [True, False])
 @pytest.mark.parametrize("name", ["n31", "n573", "n1400"])
 def test_mb_identity_targets_equal_k1(cuda, name, props, collect):
-    """At beta = beta_ref, dMu = dMu_ref K2 returns K1's output bit for bit."""
+    """At beta = beta_ref, dMu = dMu_ref K2 returns K1's output bit for bit,
+    at the rule's G and at every G forced on both."""
     h, meta, mus, _, _ = _mb_inputs(cuda, name)
     dref = (h.curr_mu[1:] - h.curr_mu[0]).cpu().numpy()[None]
-    k1 = TP.mu_sweep_thermo(h, meta, mus, props=props, collect=collect, engine="cuda")
-    for order in (1, 2):
-        k2 = TP.mu_beta_sweep_thermo(h, meta, mus, h.curr_beta.reshape(1).cpu().numpy(), dref, order=order, props=props, collect=collect, engine="cuda")
-        for k in k1:
-            assert torch.equal(k2[k][:, 0], k1[k]), (order, k)
+    for G in LANES:
+        k1 = TP.mu_sweep_thermo(h, meta, mus, props=props, collect=collect, engine="cuda", _lanes=G)
+        for order in (1, 2):
+            k2 = TP.mu_beta_sweep_thermo(h, meta, mus, h.curr_beta.reshape(1).cpu().numpy(), dref, order=order, props=props, collect=collect, engine="cuda", _lanes=G)
+            for k in k1:
+                assert torch.equal(k2[k][:, 0], k1[k]), (G, order, k)
 
 
 @pytest.mark.gpu
@@ -152,6 +168,57 @@ def test_mb_main_path_through_k2(cuda):
     assert CM.mb_sweep_thermo.launches == n0 + 1 and out["fe"].is_cuda and out["fe"].shape == (512, 16, meta.max_phases)
     with pytest.raises(ValueError, match="max_phases"):
         TP.mu_beta_sweep_thermo(h, TS.HistMeta(**dict(mk, max_phases=9)), mus, betas, dmus)
+
+
+def _surface(name):
+    d, mk, _ = cell("n31", max_order=3)
+    return (dict(d, lnpi=-d["lnpi"]) if name == "negated" else d), mk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("props", [True, False])
+@pytest.mark.parametrize("surface", ["n31", "negated"])
+def test_kernel_shuffled_grid(cuda, surface, props, collect):
+    """K1 on the shuffled mu grid: every warp mixes segmentation cases
+    (tests/test_torch_layout.py checks that), and 1,003 points leave a
+    partial block and a partial warp at every G."""
+    d, mk = _surface(surface)
+    _compare(TS.from_host(d, device=cuda), TS.HistMeta(**mk), shuffled_mu_grid(1003, seed=3), props, collect)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("order,first_order_mom", [(1, False), (2, False), (2, True)])
+@pytest.mark.parametrize("surface", ["n31", "negated"])
+def test_mb_kernel_shuffled_grid(cuda, surface, order, first_order_mom, collect):
+    """K2 on the shuffled mu grid, 167 mu x 3 targets = 501 points."""
+    d, mk = _surface(surface)
+    h = TS.from_host(d, device=cuda)
+    dmus = (d["curr_mu"][1:] - d["curr_mu"][0]) + np.array([[-0.3], [0.0], [0.4]])
+    _mb_compare(h, TS.HistMeta(**mk), shuffled_mu_grid(167, seed=4), np.array([0.95, 1.0, 1.05]), dmus, order=order, first_order_mom=first_order_mom, collect=collect)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 7, 33, 255, 257, 1000])
+def test_kernel_partial_blocks(cuda, B):
+    """Point counts that fill no block and no warp whole, at every G."""
+    d, mk, mus = cell("n31", B)
+    _compare(TS.from_host(d, device=cuda), TS.HistMeta(**mk), mus, True, None)
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_invalid_lanes(cuda):
+    """A forced G the kernels do not build raises before any launch."""
+    d, mk, mus = cell("n31", 8, max_order=3)
+    h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
+    n1, n2 = CS.sweep_thermo.launches, CM.mb_sweep_thermo.launches
+    for G in (0, 3, 4, 64):
+        with pytest.raises(ValueError, match="lanes per point"):
+            TP.mu_sweep_thermo(h, meta, mus, _lanes=G)
+        with pytest.raises(ValueError, match="lanes per point"):
+            TP.mu_beta_sweep_thermo(h, meta, mus, [1.0], [[-5.0]], _lanes=G)
+    assert (CS.sweep_thermo.launches, CM.mb_sweep_thermo.launches) == (n1, n2)
 
 
 def _iso(cuda, name, order, beta, mu1_v, dmu2_v, **kw):

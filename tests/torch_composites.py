@@ -224,6 +224,27 @@ def janus_surfaces(n: int) -> list:
     ]
 
 
+# The shuffled mu grid: mu_1 over a window wide enough that the n31
+# composite passes through none / max-only / both-found with one, two and
+# three phases, and its negation (lnpi -> -lnpi) through none / min-only /
+# both-found.  Every 32 consecutive points -- one warp when a lane holds a
+# point -- take one value from each of 32 equal slices of the window, in a
+# seeded random order, so no warp sees one segmentation case only.
+SHUFFLE_WINDOW = (-150.0, 150.0)
+
+
+def shuffled_mu_grid(points: int, seed: int = 0, window=SHUFFLE_WINDOW) -> np.ndarray:
+    """``points`` mu_1 values, stratified over ``window`` per group of 32
+    (the last group may be partial) and shuffled within each group."""
+    rng = np.random.default_rng(seed)
+    lo, hi = window
+    out = np.empty(points)
+    for start in range(0, points, 32):
+        n = min(32, points - start)
+        out[start : start + n] = rng.permutation(lo + (hi - lo) * (np.arange(n) + rng.random(n)) / n)
+    return out
+
+
 def worst_abs_diff(got, want, ok) -> float:
     """max |got - want| over the slots where ``ok`` (broadcast over trailing
     axes); each side is masked before subtracting, and equal values (fe is
