@@ -10,8 +10,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      name and power limit as nvidia-smi reports them;
   2. build: compile every kernel from csrc/ with nvcc, one nvcc per
      source, all started together; print ptxas registers/stack/spills per
-     kernel instantiation (K1 and K2 are templates on G, the lanes per
-     point; K3 has one layout);
+     kernel instantiation (each kernel is a template on G, the lanes per
+     point or cell);
   3. parity: each kernel against its plain PyTorch version on the card:
      K1 (the mu sweep) on the three sweep cells and randomized lnPI
      structures, K2 (the (mu, beta, dMu) sweep) over its coverage (nspec
@@ -23,8 +23,10 @@ Phases (each raises on failure, so any failure exits non-zero):
      within 1e-10 abs; K2 at identity targets equal to K1 bit for bit at
      every G; K3 (the isopleth cell) over its coverage (orders 1-2,
      collect None/"janus", 2-3 sources, clamped rows, used_ke, max_phases
-     4/8, N 31 and 1400, the fail-code surfaces) at <=4,096 cells per
-     case: valid and fail_code equal, floats within 1e-10 abs on ok cells;
+     4/8, N 31 and 1400, the fail-code surfaces, a narrow grid over five
+     sources, a partial last block) at <=4,096 cells per case, at the G
+     its rule picks and forced to every G: valid and fail_code equal,
+     floats within 1e-10 abs on ok cells;
   4. main paths, each with its launch counter reset just before and read
      just after: pipeline.mu_sweep_thermo(engine="auto") on the N=573
      (B=524,288) and N=31 (B=2,097,152) cells;
@@ -41,9 +43,12 @@ Phases (each raises on failure, so any failure exits non-zero):
      573, 1400 (smooth 1) and on the n573 (smooth 10) and n1400 (smooth
      2) cells, each at half and twice the point count where
      cuda_sweep.lanes_per_point switches layout and at 262,144 points (the
-     n1400 cell also at its own 4,096), and K2's on n31 at half and twice
-     that count and on mb31 at both orders -- the measurement behind the
-     rule; then one torch.profiler window over three mb31_o2 "auto" calls:
+     n1400 cell also at its own 4,096), K2's on n31 at half and twice
+     that count and on mb31 at both orders, and K3's on the iso31 sources
+     (orders 1 and 2) and the iso1400 ones at half and twice the cell
+     count where cuda_iso.lanes_per_cell switches (cuda_iso.g1_switch)
+     and at the main-path grid -- the measurement behind the rules; then one torch.profiler
+     window over three mb31_o2 "auto" calls:
      K2's share of device time and the idle share of the window;
   6. a {"kernels": [...]} line with each kernel's launches, worst error,
      times and bound, then the last line: {"ok": true, "device": {...}}.
@@ -51,8 +56,10 @@ Phases (each raises on failure, so any failure exits non-zero):
 --dump PATH runs only phases 1-2 and the main paths of K1, K2 and K3 (a
 strided sample of the sweeps' points, every isopleth cell) and K3's parity
 cases, through entry points every tree of the port has had since K3, and
-saves the kernels' outputs; run it from a copy of this file placed at the
-root of another tree to dump that tree's kernels.  --compare A B prints,
+saves the kernels' outputs, K3's also forced to G = 32 (" G=32" keys; a
+tree whose K3 has no other layout runs it there by default); run it from
+a copy of this file, with tests/torch_composites.py, placed in another
+tree to dump that tree's kernels.  --compare A B prints,
 per output, whether segmentation is equal, whether every field is
 bit-identical, and the worst float difference.
 Imports neither JAX nor the JAX package; composites come from
@@ -62,6 +69,7 @@ tests/torch_composites.py (numpy, seeded).
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import re
@@ -278,7 +286,7 @@ class Ctx:
         return g, iso, grid, srcs, mk, lr, wts, mu1_v, dmu2_v
 
 
-def k3_cases(np):
+def k3_cases(np, TC):
     """K3's parity cases: dMu_2 rows reach past the sources on both sides,
     so the end rows are clamped to one source (L == R, weights [1, 1])."""
     x31 = np.linspace(0.0, 1.0, 31)
@@ -298,6 +306,10 @@ def k3_cases(np):
         ]
     for lnpi, smooth in ((0.1 * np.arange(31.0), None), (ten_peak, None), (walk, 4)):  # codes 1, 3, 2
         cases.append(dict(order=1, lnpi=lnpi, smooth=smooth, min_ok=0.0, **near5))
+    # the shape grids: five sources on 12 columns, and a partial last block
+    for g, dmu2s in ((TC.ISO_NARROW, TC.ISO_FIVE_DMU2), (TC.ISO_PARTIAL, TC.ISO_DMU2)):
+        for o in (1, 2):
+            cases.append(dict(name=g["name"], order=o, beta=g["beta"], NX=g["NX"], NY=g["NY"], dmu2=g["dmu2"], dmu2s=dmu2s))
     return cases
 
 
@@ -308,6 +320,13 @@ def dump(path):
     C.build()
     torch, np, TC, pipeline = C.torch, C.np, C.TC, C.pipeline
     out = {}
+    iso_names = ("z", "density", "fe", "ok", "fail_code")
+    k3_lanes = "_lanes" in inspect.signature(C.IB.iso_grid).parameters
+
+    def k3_g32(args):
+        """K3 at G = 32: forced, or the only layout of a tree without _lanes."""
+        got = C.IB.iso_grid(*args, engine="cuda", **({"_lanes": 32} if k3_lanes else {}))
+        return dict(zip(iso_names, (t.cpu() for t in got)))
 
     def sample(o, lead):
         """o's tensors with `lead` leading axes flattened, every k-th point."""
@@ -326,13 +345,17 @@ def dump(path):
         o = pipeline.mu_beta_sweep_thermo(h, meta, torch.as_tensor(mus, device=C.dev), betas, dmus, order=order, props=True)
         out[f"K2 mb31_o{order}"] = sample(o, 2)
     for cname, gname, order in ISO_CELLS:
-        g, iso, grid, *_ = C.iso_main(gname, order)
+        g, iso, grid, srcs, mk, lr, wts, mu1_v, dmu2_v = C.iso_main(gname, order)
         iso.make_grid(*grid)
         out[f"K3 {cname}"] = {k: torch.as_tensor(np.asarray(iso.data[k])) for k in ("Z", "density", "F.E./kT", "valid", "fail_code")}
-    for i, kw in enumerate(k3_cases(np)):
+        metas = [C.state.HistMeta(**dict(mk, max_phases=8))] * len(srcs)
+        out[f"K3 {cname} G=32"] = k3_g32((srcs, metas, mu1_v, dmu2_v, lr, wts, g["beta"], order, CUTOFF))
+    for i, kw in enumerate(k3_cases(np, TC)):
         kw.pop("min_ok", None)
-        got = C.IB.iso_grid(*C.iso_args(**kw), engine="cuda")
-        out[f"K3 case {i}"] = dict(zip(("z", "density", "fe", "ok", "fail_code"), (t.cpu() for t in got)))
+        args = C.iso_args(**kw)
+        got = C.IB.iso_grid(*args, engine="cuda")
+        out[f"K3 case {i}"] = dict(zip(iso_names, (t.cpu() for t in got)))
+        out[f"K3 case {i} G=32"] = k3_g32(args)
     torch.cuda.synchronize()
     torch.save(out, path)
     log(f"dump: {len(out)} outputs to {path}")
@@ -482,17 +505,23 @@ def run():
     log(f"parity K2: identity targets equal K1 bit for bit on every field at the rule's G and G in {LANES}")
     log("parity K1+K2 by forced G, worst abs diff over every float field:", json.dumps({G: float(f"{v:.3e}") for G, v in worst_lanes.items()}))
 
-    # K3 over its coverage: <= 64 x 64 = 4,096 cells per case
+    # K3 over its coverage: <= 64 x 64 = 4,096 cells per case, at the rule's G and at every G
     worst_iso: dict = {}
-    cases = k3_cases(np)
+    worst_iso_lanes = {G: 0.0 for G in LANES}
+    cases = k3_cases(np, TC)
     for kw in cases:
         min_ok = kw.pop("min_ok", 0.3)
         args = C.iso_args(**kw)
-        got = IB.iso_grid(*args, engine="cuda")
         want = IB.iso_grid(*args, engine="torch")
-        torch.cuda.synchronize()
-        note(compare_iso(got, want, f"K3 {kw}", min_ok), worst_iso)
-    log(f"parity K3: {len(cases)} cases vs plain, ok and fail_code equal, worst abs diff on ok cells:", json.dumps({k: float(f"{v:.3e}") for k, v in worst_iso.items()}))
+        for G in (None,) + LANES:
+            got = IB.iso_grid(*args, engine="cuda", _lanes=G)
+            torch.cuda.synchronize()
+            w = compare_iso(got, want, f"K3 {kw} G={G}", min_ok)
+            note(w, worst_iso)
+            if G is not None:
+                worst_iso_lanes[G] = max([worst_iso_lanes[G], *w.values()])
+    log(f"parity K3: {len(cases)} cases vs plain (rule's G and G in {LANES}), ok and fail_code equal, worst abs diff on ok cells:",
+        json.dumps({k: float(f"{v:.3e}") for k, v in worst_iso.items()}), "| by forced G:", json.dumps({G: float(f"{v:.3e}") for G, v in worst_iso_lanes.items()}))
 
     # ---- 4. main paths ----
     runs = {}
@@ -632,6 +661,9 @@ def run():
             return cuda_iso.iso_grid(*kin, mk["smooth"], 8, order, CUTOFF)
 
         args = (srcs, metas, mu1_v, dmu2_v, lr, wts, g["beta"], order, CUTOFF)
+        N = srcs[0].nbins
+        lanes = cuda_iso.lanes_per_cell(N, B, n_sm)
+        staged = cuda_iso.staged_sources(lanes, len(srcs), NX, NY, N, order)
         k_ms = cuda_ms(k3)
         torch.cuda.reset_peak_memory_stats()
         p_ms = cuda_ms(lambda: IB.iso_grid(*args, engine="torch"))
@@ -652,30 +684,29 @@ def run():
         del full_x, ext
         x_ops = 2 * (2 + 4 + 2 + (7 if order == 2 else 0)) + 4  # two sides' x' (as K2), then the mix: 2 products, a sum, a divide
         key_ops = 3 * (2 * (4 + (7 if order == 2 else 0)) + 4 + 2)  # per key row: two sides' key', the mix, the multiply-add
-        N = srcs[0].nbins
         ops = tail_ops(cov, B, N, mk["smooth"], x_ops, key_ops)
         b_ms, b_by = bound(kin, k3(), ops)
-        iso_runs[cname] = dict(NX=NX, NY=NY, B=B, N=N, order=order, launches=launches, kernel_ms=k_ms, plain_ms=p_ms, auto_ms=e_ms,
+        iso_runs[cname] = dict(NX=NX, NY=NY, B=B, N=N, order=order, lanes=lanes, staged_sources=staged, launches=launches, kernel_ms=k_ms, plain_ms=p_ms, auto_ms=e_ms,
                                make_grid_ms=m_ms, bracket_host_ms=br_ms, valid_share=share, sample_phases=nph[1:3], bound_ms=b_ms, bound_by=b_by, ops=ops,
                                covered_bins=covered_bins(cov))
         log(
-            f"main path {cname}: N={N} NY={NY} NX={NX} cells={B} launches={launches} valid share {share:.6f} sample phases(1,2)={nph[1:3]} | "
+            f"main path {cname}: N={N} NY={NY} NX={NX} cells={B} G={lanes} staged sources {staged} launches={launches} valid share {share:.6f} sample phases(1,2)={nph[1:3]} | "
             f"kernel {k_ms:.3f} ms = {B / k_ms * 1e3:.4g} cells/s | iso_grid auto {e_ms:.3f} ms = {B / e_ms * 1e3:.4g} cells/s | "
             f"make_grid {m_ms:.3f} ms = {B / m_ms * 1e3:.4g} cells/s (host bracket {br_ms:.3f} ms) | plain {p_ms:.3f} ms = {B / p_ms * 1e3:.4g} cells/s (peak {peak:.2f} GiB) | "
             f"bound {b_ms:.4f} ms by {b_by} ({ops:.4g} f64 ops) | {smi}"
         )
 
-    # ---- 5. layouts: K1 and K2 at G = 1 and G = 32 on each side of the rule's switch ----
+    # ---- 5. layouts: K1, K2 and K3 at G = 1 and G = 32 on each side of their rule's switch ----
     def switch(N):
-        """The least point count at which the rule picks G = 1 for N bins."""
+        """The least point count at which K1's and K2's rule picks G = 1 for N bins."""
         return n_sm * min(N, cuda_sweep.G1_PER_SM_CAP)
 
-    def layout_line(kind, key, N, B, time_g):
+    def layout_line(kind, key, N, B, time_g, rule_of=cuda_sweep.lanes_per_point, switch_of=switch):
         row = {G: cuda_ms(lambda G=G: time_g(G)) for G in LANES}
-        rule = cuda_sweep.lanes_per_point(N, B, n_sm)
+        rule = rule_of(N, B, n_sm)
         other = 32 if rule == 1 else 1
         log(f"layout {kind} {key} B={B}: " + ", ".join(f"G={G} {t:.3f} ms" for G, t in row.items()) +
-            f" | switch at B={switch(N)}, rule G={rule}: {row[rule] / row[other]:.3f}x the time of G={other} | {smi}")
+            f" | switch at B={switch_of(N)}, rule G={rule}: {row[rule] / row[other]:.3f}x the time of G={other} | {smi}")
         return dict(B=B, rule=rule, ms=row)
 
     layout_k1 = []
@@ -707,7 +738,25 @@ def run():
             layout_k2.append(dict(order=order, **layout_line("K2", f"n31 o{order} M={M} A={A}", h.nbins, M * A, lambda G: cuda_mb.mb_sweep_thermo(
                 h.lnpi, h.op, xrows, krows, h.volume, mu_t, a, tg, meta.nspec, meta.smooth, meta.max_phases, order, True, _lanes=G))))
 
-    # one profiler window over three mb31_o2 "auto" calls (the last grid above)
+    layout_k3 = []
+    for gname, order in (("ISO31", 1), ("ISO31", 2), ("ISO1400", 1)):
+        g = getattr(TC, gname)
+        N = TC.CELLS[g["name"]]["N"]
+        k3_switch = cuda_iso.g1_switch(N, n_sm)
+        for B in sorted({k3_switch // 2, 2 * k3_switch, g["NX"] * g["NY"]}):
+            NY = g["NY"] if B == g["NX"] * g["NY"] else (31 if N == 31 else 128)  # both divide the switch's half and double on 132 SMs
+            NX = B // NY
+            assert NX * NY == B, (N, B)
+            mu1_v, dmu2_v = np.linspace(*TC.mu_window(**TC.CELLS[g["name"]]), NX), np.linspace(*g["dmu2"], NY)
+            _, srcs, mk, lr, wts = C.iso_setup(g["name"], order, g["beta"], mu1_v, dmu2_v)
+            pro = IB._iso_prologue(srcs, state.HistMeta(**dict(mk, max_phases=8)), mu1_v, dmu2_v, lr, wts, g["beta"], order, CUTOFF)
+            kin = [pro[k] for k in ("lnpi", "op", "xrows", "krows", "a", "edge", "mu", "lr", "wts", "tg", "volume")]
+            staged = cuda_iso.staged_sources(1, len(srcs), NX, NY, N, order)
+            layout_k3.append(dict(order=order, NX=NX, NY=NY, staged_sources_g1=staged, **layout_line(
+                "K3", f"N={N} o{order} {NY}x{NX} (G=1 stages {staged} sources)", N, B,
+                lambda G: cuda_iso.iso_grid(*kin, mk["smooth"], 8, order, CUTOFF, _lanes=G), cuda_iso.lanes_per_cell, lambda N: cuda_iso.g1_switch(N, n_sm))))
+
+    # one profiler window over three mb31_o2 "auto" calls (the mb31 grid above)
     from torch.profiler import ProfilerActivity, profile
 
     def mb_auto():
@@ -757,7 +806,7 @@ def run():
     kernels = [
         entry(cuda_sweep.NAME, "fhmcanalysis_torch/csrc/sweep_thermo.cu", runs, max(worst.values()), layouts=layout_k1),
         entry(cuda_mb.NAME, "fhmcanalysis_torch/csrc/mb_sweep_thermo.cu", mb_runs, max(worst_mb.values()), layouts=layout_k2, profile_mb31_o2=profile_mb),
-        entry(cuda_iso.NAME, "fhmcanalysis_torch/csrc/iso_grid.cu", iso_runs, max(worst_iso.values())),
+        entry(cuda_iso.NAME, "fhmcanalysis_torch/csrc/iso_grid.cu", iso_runs, max(worst_iso.values()), layouts=layout_k3),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": C.name, "count": torch.cuda.device_count()}}))

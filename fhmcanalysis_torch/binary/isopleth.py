@@ -31,7 +31,7 @@ import scipy.interpolate
 import scipy.ndimage
 import torch
 
-from ..core import cuda_iso, ops, pipeline, segment
+from ..core import cuda_iso, cuda_sweep, ops, pipeline, segment
 from ..core.state import HistMeta
 from ..histogram import ntot as gch
 
@@ -246,7 +246,7 @@ def iso_grid_body(sources, metas, mu1_v, dmu2_v, lr, wts, beta_target, order: in
     return tuple(torch.cat([b[k] for b in blocks], dim=1) for k in range(5))
 
 
-def iso_grid(sources, metas, mu1_v, dmu2_v, lr, wts, beta_target, order: int, cutoff: float, collect=None, engine: str = "auto", mu1_chunk=None):
+def iso_grid(sources, metas, mu1_v, dmu2_v, lr, wts, beta_target, order: int, cutoff: float, collect=None, engine: str = "auto", mu1_chunk=None, *, _lanes=None):
     """Evaluate the isopleth surface over mu1_v [NX] x dmu2_v [NY].
 
     sources: list of port Hist (nspec 2) on one device, metas their
@@ -261,7 +261,11 @@ def iso_grid(sources, metas, mu1_v, dmu2_v, lr, wts, beta_target, order: int, cu
     CPU runs the plain version.  "torch" forces the plain version on
     either device; "cuda" forces the kernel and raises for CPU tensors.
     Nothing falls back.  mu1_chunk sizes only the plain version's blocks.
+    _lanes forces K3's lanes per cell (cuda_iso.lanes_per_cell picks it
+    otherwise); tests and chip_smoke.py use it.
     """
+    if _lanes is not None:
+        cuda_sweep.check_lanes(_lanes)
     if engine not in ("auto", "torch", "cuda"):
         raise ValueError(f"engine must be 'auto', 'torch' or 'cuda', got {engine!r}")
     if engine == "torch" or (engine == "auto" and sources[0].device.type != "cuda"):
@@ -271,7 +275,7 @@ def iso_grid(sources, metas, mu1_v, dmu2_v, lr, wts, beta_target, order: int, cu
     pro = _iso_prologue(sources, meta, mu1_v, dmu2_v, lr, wts, beta_target, order, cutoff)
     return cuda_iso.iso_grid(
         pro["lnpi"], pro["op"], pro["xrows"], pro["krows"], pro["a"], pro["edge"], pro["mu"], pro["lr"], pro["wts"],
-        pro["tg"], pro["volume"], meta.smooth, meta.max_phases, order, cutoff, collect,
+        pro["tg"], pro["volume"], meta.smooth, meta.max_phases, order, cutoff, collect, _lanes=_lanes,
     )
 
 

@@ -10,8 +10,8 @@ the edge flag cancel; ``binary/isopleth.py`` says why).  So K3 is K2's
 x'/key' former (``csrc/extrap_rows.cuh``) run for the left and the right
 source, the inverse-distance mix, and the tail K1 and K2 share
 (``csrc/thermo_tail.cuh``) with a sink that keeps the most stable phase;
-the source is ``csrc/iso_grid.cu``, one warp per cell, and its header says
-what bounds it.
+the source is ``csrc/iso_grid.cu``, G lanes per cell with G picked by
+``lanes_per_cell``, and its header says what bounds it.
 
 The plain version of this kernel is ``binary.isopleth.iso_grid_body``;
 nothing on the CUDA path calls it.  ``binary.isopleth.iso_grid`` picks
@@ -20,7 +20,7 @@ between the two by the tensors' device.
 Layouts (built by ``binary.isopleth._iso_prologue``; W sources, nspec 2):
   lnpi, op [W, N]        each source's surface and order parameter
   xrows    [W, R, N]     pipeline._mb_rows x-rows (R = 2, or 5 at order 2)
-  krows    [W, G, 3, N]  its key-row groups (G = 3, or 6 at order 2)
+  krows    [W, KG, 3, N] its key-row groups (KG = 3, or 6 at order 2)
   a, edge  [W, NX]       beta_ref (mu_1 - mu_ref) and the edge flag per source and column
   mu       [NX]          mu_1 per column
   lr, wts  [NY, 2]       bracketing sources (int32, each in [0, W): the
@@ -38,10 +38,37 @@ import torch
 
 from .. import _build
 from .cuda_mb import n_groups, n_xrows
+from .cuda_sweep import check_lanes, sm_count
 
 NAME = "iso_grid"
-MAX_PHASES = 8  # the kernel's per-warp arrays; csrc/thermo_tail.cuh MAXP
+MAX_PHASES = 8  # the kernel's per-cell arrays; csrc/thermo_tail.cuh MAXP
 S = 2  # the isopleth class takes binary mixtures only
+# G = 1 from min(G1_PER_BIN * N, G1_PER_SM_CAP) cells per SM: fitted on one
+# H100 SXM (132 SMs) to K3's layout lines in chip_smoke.py (PERF.md)
+G1_PER_BIN = 3
+G1_PER_SM_CAP = 1024
+
+
+def g1_switch(N: int, n_sm: int) -> int:
+    """The least cell count at which K3 runs one cell per lane, for N bins
+    on a card of n_sm SMs."""
+    return n_sm * min(G1_PER_BIN * N, G1_PER_SM_CAP)
+
+
+def lanes_per_cell(N: int, B: int, n_sm: int) -> int:
+    """G, the lanes of a warp that K3 gives one cell, for B cells of N bins
+    on a card of n_sm SMs.
+
+    K1's and K2's rule in form (``cuda_sweep.lanes_per_point``: G = 1 needs
+    enough cells in flight to hide one lane walking a cell's N bins) with
+    constants of K3's own: a cell forms two sources' x' and their mix at
+    every read, and its G = 1 layout holds 2 blocks (512 cells) per SM, so
+    on one H100 its layout lines crossed later than K1's, and G = 1 won
+    from about 3N cells per SM at N = 31 and from about 1,024 (two such
+    waves) at N = 1400.  K3 is not bound to K1's bits (K2 is), so it may
+    switch elsewhere.
+    """
+    return 1 if B >= g1_switch(N, n_sm) else 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,8 +76,10 @@ def _lib() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load(NAME)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.iso_grid_launch.argtypes = [i, p] + [p] * 11 + [i] * 9 + [ctypes.c_double] + [p] * 5
+    lib.iso_grid_launch.argtypes = [i, p, i] + [p] * 11 + [i] * 10 + [ctypes.c_double] + [p] * 5
     lib.iso_grid_launch.restype = i
+    lib.iso_grid_staged_sources.argtypes = [i] * 7
+    lib.iso_grid_staged_sources.restype = i
     lib.iso_grid_error_string.argtypes = [i]
     lib.iso_grid_error_string.restype = ctypes.c_char_p
     lib.iso_grid_max_phases.argtypes = []
@@ -60,13 +89,25 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def iso_grid(lnpi, op, xrows, krows, a, edge, mu, lr, wts, tg, volume, smooth: int, max_phases: int, order: int, cutoff: float, collect=None):
+def staged_sources(G: int, W: int, NX: int, NY: int, N: int, order: int) -> int:
+    """Sources a block of K3 stages in shared memory at G lanes per cell
+    on this grid (0: its rows stay in global memory); csrc/iso_grid.cu
+    decides, this reports it (tests, chip_smoke.py)."""
+    return _lib().iso_grid_staged_sources(G, W, NX, NY, N, n_xrows(S, order), n_groups(S, order, False))
+
+
+def iso_grid(lnpi, op, xrows, krows, a, edge, mu, lr, wts, tg, volume, smooth: int, max_phases: int, order: int, cutoff: float, collect=None, *, _lanes=None):
     """Launch K3 for the NY x NX cells (mu[ix], row iy), b = iy * NX + ix.
 
     Tensors as in the module docstring.  Returns (z, density, fe, ok,
     fail_code), each [NY, NX] (f64, f64, f64, bool, int32).  Runs on
     ``torch.cuda.current_stream()`` and does not synchronise.
+
+    _lanes forces G, the lanes per cell (tests and chip_smoke.py); by
+    default ``lanes_per_cell`` picks it.
     """
+    if _lanes is not None:
+        check_lanes(_lanes)
     tensors = {"lnpi": lnpi, "op": op, "xrows": xrows, "krows": krows, "a": a, "edge": edge, "mu": mu, "lr": lr, "wts": wts, "tg": tg, "volume": volume}
     for name, t in tensors.items():
         if t is None or not t.is_cuda:
@@ -84,11 +125,11 @@ def iso_grid(lnpi, op, xrows, krows, a, edge, mu, lr, wts, tg, volume, smooth: i
         raise ValueError("iso_grid: need lnpi, op [W, N] and a scalar volume")
     W, N = lnpi.shape
     R = T = n_xrows(S, order)  # one target scalar per x-row
-    G = n_groups(S, order, False)
+    KG = n_groups(S, order, False)
     if not 1 <= N < 2**31 - 1 or W < 1:
         raise ValueError(f"iso_grid: need 1 <= N < 2**31-1 and W >= 1, got W={W}, N={N}")
-    if xrows.shape != (W, R, N) or krows.shape != (W, G, S + 1, N):
-        raise ValueError(f"iso_grid: xrows must be [{W}, {R}, {N}] and krows [{W}, {G}, {S + 1}, {N}], got {tuple(xrows.shape)}, {tuple(krows.shape)}")
+    if xrows.shape != (W, R, N) or krows.shape != (W, KG, S + 1, N):
+        raise ValueError(f"iso_grid: xrows must be [{W}, {R}, {N}] and krows [{W}, {KG}, {S + 1}, {N}], got {tuple(xrows.shape)}, {tuple(krows.shape)}")
     NX, NY = mu.shape[0] if mu.dim() == 1 else -1, lr.shape[0]
     if NX < 0 or a.shape != (W, NX) or edge.shape != (W, NX):
         raise ValueError(f"iso_grid: need mu [NX] and a, edge [{W}, NX]")
@@ -104,6 +145,8 @@ def iso_grid(lnpi, op, xrows, krows, a, edge, mu, lr, wts, tg, volume, smooth: i
         raise ValueError(f"iso_grid: {NY} x {NX} cells exceed the kernel's int32 grid")
 
     dev = lnpi.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    G = lanes_per_cell(N, NX * NY, sm_count(index)) if _lanes is None else _lanes
     out = {
         "z": torch.empty((NY, NX), dtype=torch.float64, device=dev),
         "rho": torch.empty((NY, NX), dtype=torch.float64, device=dev),
@@ -113,10 +156,11 @@ def iso_grid(lnpi, op, xrows, krows, a, edge, mu, lr, wts, tg, volume, smooth: i
     }
     lib = _lib()
     rc = lib.iso_grid_launch(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        index,
         torch.cuda.current_stream(dev).cuda_stream,
+        G,
         *(t.data_ptr() for t in tensors.values()),
-        NX, NY, N, R, G, max_phases, smooth, order, int(collect == "janus"), float(cutoff),
+        W, NX, NY, N, R, KG, max_phases, smooth, order, int(collect == "janus"), float(cutoff),
         *(t.data_ptr() for t in out.values()),
     )
     if rc != 0:

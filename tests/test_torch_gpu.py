@@ -12,7 +12,8 @@ properties agree to 1e-10 absolute on valid masked slots (the JAX
 package's own kernel bar, tests/test_pallas_sweep.py): the kernel sums in
 another order and uses the card's f64 exp/log.  K1 and K2 are checked at
 the G (lanes per point) their rule picks and forced to every G they build:
-the layout changes only the order of the sums.
+the layout changes only the order of the sums.  K3 likewise, at the G
+its rule picks and at G = 1 and 32.
 """
 
 import sys
@@ -28,7 +29,7 @@ import fhmcanalysis_torch.core.cuda_sweep as CS
 import fhmcanalysis_torch.core.pipeline as TP
 import fhmcanalysis_torch.core.state as TS
 from fhmcanalysis_torch.binary import isopleth
-from torch_composites import CELLS, ISO31, SURFACE_KINDS, cell, iso_grid_args, iso_sources, janus_surfaces, mb_grid, mu_window, port_histogram, random_surface, shuffled_mu_grid, worst_abs_diff
+from torch_composites import CELLS, ISO31, ISO_FIVE_DMU2, ISO_NARROW, ISO_PARTIAL, SURFACE_KINDS, cell, iso_grid_args, iso_sources, janus_surfaces, mb_grid, mu_window, port_histogram, random_surface, shuffled_mu_grid, worst_abs_diff
 
 IB = sys.modules["fhmcanalysis_torch.binary.isopleth"]
 
@@ -236,6 +237,17 @@ def _iso_equal(got, want, min_ok=0.3):
         assert worst_abs_diff(got[k].cpu(), want[k].cpu(), ok) <= 1e-10, k
 
 
+def _iso_compare(args, min_ok=0.3):
+    """K3 at the rule's G and at every G forced against one plain run."""
+    want = IB.iso_grid(*args, engine="torch")
+    for G in LANES:
+        n0 = CI.iso_grid.launches
+        got = IB.iso_grid(*args, engine="cuda", _lanes=G)
+        torch.cuda.synchronize()
+        assert CI.iso_grid.launches == n0 + 1, G
+        _iso_equal(got, want, min_ok)
+
+
 _X31 = np.linspace(0.0, 1.0, 31)
 _THREE_PEAK = 11.5 * np.exp(-((_X31 - 0.15) ** 2) / 0.004) + 11.3 * np.exp(-((_X31 - 0.45) ** 2) / 0.003) + 12 * np.exp(-((_X31 - 0.8) ** 2) / 0.006)
 
@@ -255,21 +267,38 @@ _THREE_PEAK = 11.5 * np.exp(-((_X31 - 0.15) ** 2) / 0.004) + 11.3 * np.exp(-((_X
     ],
 )
 def test_iso_kernel_matches_plain(cuda, name, kw, order, collect, max_phases):
-    """K3 vs its plain version; the dMu_2 rows reach past the sources, so
-    the end rows are clamped to one source (L == R)."""
+    """K3 vs its plain version at the rule's G and at G = 1 and 32 (N =
+    1400 at G = 1 reads its rows from global memory: they do not fit in
+    shared memory); the dMu_2 rows reach past the sources, so the end rows
+    are clamped to one source (L == R)."""
     three = "lnpi" in kw
     beta = 1.001 if three else (1.0 if name == "n1400" else 1.02)
     mu1_v = np.linspace(*((4.9, 5.1) if three else mu_window(**CELLS[name])), 64)
     dmu2_v = np.linspace(-4.9, -4.1, 16) if three else np.linspace(-5.3, -3.7, 32)
     iso, srcs, mk, lr, wts = _iso(cuda, name, order, beta, mu1_v, dmu2_v, **kw)
     metas = [TS.HistMeta(**dict(mk, max_phases=max_phases))] * len(srcs)
-    args = (srcs, metas, mu1_v, dmu2_v, lr, wts, beta, order, 10.0, collect)
-    n0 = CI.iso_grid.launches
-    got = IB.iso_grid(*args, engine="cuda")
-    want = IB.iso_grid(*args, engine="torch")
-    torch.cuda.synchronize()
-    assert CI.iso_grid.launches == n0 + 1
-    _iso_equal(got, want)
+    _iso_compare((srcs, metas, mu1_v, dmu2_v, lr, wts, beta, order, 10.0, collect))
+    if name == "n1400":
+        assert CI.staged_sources(1, len(srcs), 64, 32, 1400, order) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("grid", ["narrow", "partial"])
+def test_iso_kernel_shapes(cuda, grid, order, collect):
+    """K3 on torch_composites' shape grids at every G: the narrow grid over
+    five sources, where a block at one cell per lane stages every source
+    it names, and 7 x 256 + 13 cells, whose last block is partial."""
+    g, dmu2s = (ISO_NARROW, ISO_FIVE_DMU2) if grid == "narrow" else (ISO_PARTIAL, (-5.0, -4.0))
+    mu1, dmu2, _ = iso_grid_args(g)
+    mu1_v, dmu2_v = np.linspace(*mu1, g["NX"]), np.linspace(*dmu2, g["NY"])
+    iso, srcs, mk, lr, wts = _iso(cuda, g["name"], order, g["beta"], mu1_v, dmu2_v, dmu2s=dmu2s)
+    if grid == "narrow":
+        assert len(srcs) == 5 and CI.staged_sources(1, 5, g["NX"], g["NY"], 31, order) == 5
+    else:
+        assert g["NX"] * g["NY"] % 256 == 13
+    _iso_compare((srcs, [TS.HistMeta(**dict(mk, max_phases=8))] * len(srcs), mu1_v, dmu2_v, lr, wts, g["beta"], order, 10.0, collect))
 
 
 @pytest.mark.gpu
@@ -307,10 +336,7 @@ def test_iso_kernel_sources_with_their_own_op(cuda, order):
     lr, wts = iso._bracket(dmu2_v, 2.5)
     srcs = [h._hist() for h in iso.data["histograms"]]
     assert not torch.equal(srcs[0].op, srcs[1].op)
-    args = (srcs, [TS.HistMeta(**dict(mk, max_phases=8))] * 2, mu1_v, dmu2_v, lr, wts, 1.02, order, 10.0)
-    got, want = IB.iso_grid(*args, engine="cuda"), IB.iso_grid(*args, engine="torch")
-    torch.cuda.synchronize()
-    _iso_equal(got, want)
+    _iso_compare((srcs, [TS.HistMeta(**dict(mk, max_phases=8))] * 2, mu1_v, dmu2_v, lr, wts, 1.02, order, 10.0))
 
 
 @pytest.mark.gpu
@@ -321,3 +347,8 @@ def test_iso_kernel_rejects_unsupported(cuda):
         IB.iso_grid(srcs, [TS.HistMeta(**dict(mk, max_phases=9))] * 2, mu1_v, dmu2_v, lr, wts, 1.02, 1, 10.0)
     with pytest.raises(KeyError):
         IB.iso_grid(srcs, [TS.HistMeta(**mk)] * 2, mu1_v, dmu2_v, lr, wts, 1.02, 1, 10.0, collect="nope")
+    n0 = CI.iso_grid.launches
+    for G in (0, 2, 16, 64):
+        with pytest.raises(ValueError, match="lanes per point"):
+            IB.iso_grid(srcs, [TS.HistMeta(**mk)] * 2, mu1_v, dmu2_v, lr, wts, 1.02, 1, 10.0, _lanes=G)
+    assert CI.iso_grid.launches == n0

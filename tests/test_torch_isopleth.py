@@ -39,13 +39,14 @@ from fhmcanalysis_torch.histogram.ntot import histogram
 from fhmcanalysis_torch.io import write_composite
 from fhmcanalysis_tpu.binary import isopleth as jax_isopleth
 from fhmcanalysis_tpu.histogram.ntot import histogram as jax_histogram
-from torch_composites import ISO31, ISO1400, iso_grid_args, iso_sources, port_histogram
+from torch_composites import ISO31, ISO1400, ISO_FIVE_DMU2, ISO_NARROW, iso_grid_args, iso_sources, port_histogram
 
 IB = sys.modules["fhmcanalysis_torch.binary.isopleth"]
 torch.set_num_threads(1)
 TOL = 1.0e-9
 GRID31 = iso_grid_args(ISO31, NX=16, NY=8)
 GRID1400 = iso_grid_args(ISO1400, NX=16, NY=4)
+NARROW = iso_grid_args(ISO_NARROW)
 JANUS_GRID = ((4.9, 5.1), (-4.9, -4.1), (0.02, 0.1))
 FAIL_GRID = ((4.9, 5.1), (-4.9, -4.1), (0.1, 0.4))
 THREE = (-5.0, -4.6, -4.2)
@@ -128,6 +129,18 @@ def test_make_grid_matches_jax(sources, name, order, collect, kw):
     beta = 1.02 if name == "n31" else 1.0  # N=1400: beta_target = beta_ref (ISO1400 says why)
     a, b = _grids(*sources(name, **kw), beta, order, grid, collect)
     _assert_parity(a, b, order)
+
+
+@pytest.mark.parametrize("order", [1, 2])
+def test_narrow_five_source_grid_matches_jax(sources, order):
+    """Five sources on a narrow grid (torch_composites.ISO_NARROW: 12 mu_1
+    columns, rows past the sources on both sides), the grid whose blocks
+    stage several sources in K3 at one cell per lane: every source is
+    bracketed, and the port matches the JAX package cell for cell."""
+    a, b = _grids(*sources(dmu2s=ISO_FIVE_DMU2), ISO_NARROW["beta"], order, NARROW)
+    _assert_parity(a, b, order)
+    lr, _ = a._bracket(a.data["Y"][:, 0], 2.5)
+    assert set(lr.ravel().tolist()) == set(range(len(ISO_FIVE_DMU2)))
 
 
 @pytest.mark.parametrize("order", [1, 2])

@@ -1,27 +1,33 @@
 """PyTorch port: the kernels' layout rule and the inputs that hold it.
 
 K1 and K2 run G lanes per state point (csrc/thermo_tail.cuh), with G from
-``cuda_sweep.lanes_per_point``.  On the CPU this file checks the rule's
-contract, that a forced G the kernels do not build raises before any
+``cuda_sweep.lanes_per_point``, and K3 G lanes per isopleth cell, with G
+from ``cuda_iso.lanes_per_cell``.  On the CPU this file checks the rules'
+contracts, that a forced G the kernels do not build raises before any
 launch, and that the shuffled mu grid the GPU tests use really mixes
 segmentation cases inside every warp-sized group of points (checked with
 the plain version, and held against the JAX package like every other
 input: segmentation equal, floats to 1e-12).
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
 
+import fhmcanalysis_torch.core.cuda_iso as CI
 import fhmcanalysis_torch.core.cuda_mb as CM
 import fhmcanalysis_torch.core.cuda_sweep as CS
 import fhmcanalysis_torch.core.pipeline as TP
 import fhmcanalysis_torch.core.segment as TSeg
+import fhmcanalysis_torch.binary.isopleth  # noqa: F401  (the module; the package exports the class under its name)
 import fhmcanalysis_torch.core.state as TS
 import fhmcanalysis_tpu.core.pipeline as JP
 import fhmcanalysis_tpu.core.state as JS
-from torch_composites import CELLS, cell, shuffled_mu_grid, worst_abs_diff
+from torch_composites import CELLS, ISO31, ISO1400, ISO_PARTIAL, cell, iso_grid_args, iso_sources, port_histogram, shuffled_mu_grid, worst_abs_diff
 
+IB = sys.modules["fhmcanalysis_torch.binary.isopleth"]
 torch.set_num_threads(1)
 SEG = ("valid", "mask", "n_phases", "left", "right")
 SURFACES = ("n31", "negated")
@@ -132,3 +138,56 @@ def test_forced_invalid_lanes_raise_before_launch(lanes):
             with pytest.raises(ValueError, match="CUDA tensors"):
                 call(valid)
     assert (CS.sweep_thermo.launches, CM.mb_sweep_thermo.launches) == (n1, n2) == (0, 0)
+
+
+@pytest.mark.parametrize("n_sm", [H100_SMS, 114, 1])
+def test_lanes_per_cell_contract(n_sm):
+    """K3's rule: one of the layouts the kernel builds; one cell per lane on
+    the iso31 grid (251,034 cells) and one warp per cell on iso1400's
+    16,384 cells of 1,400 bins on the card it was fitted on, with the
+    switch where cuda_iso.g1_switch puts it; never more lanes for more
+    cells or fewer bins."""
+    Ns = [1, 2, 31, 63, 127, 255, 384, 573, 1023, 1400, 2047]
+    Bs = [1, 7, 1000, 4092, 6138, 12_276, 16_384, 24_552, 67_584, 135_168, 251_034, 270_336, 2**21]
+    gs = {(N, B): CI.lanes_per_cell(N, B, n_sm) for N in Ns for B in Bs}
+    assert set(gs.values()) <= set(CS.LANES)
+    if n_sm == H100_SMS:
+        assert CI.lanes_per_cell(31, ISO31["NX"] * ISO31["NY"], n_sm) == 1
+        assert CI.lanes_per_cell(1400, ISO1400["NX"] * ISO1400["NY"], n_sm) == 32
+        assert CI.lanes_per_cell(31, 12_276, n_sm) == 1 and CI.lanes_per_cell(31, 12_275, n_sm) == 32
+        assert CI.lanes_per_cell(1400, 135_168, n_sm) == 1 and CI.lanes_per_cell(1400, 135_167, n_sm) == 32
+    for N in Ns:
+        assert CI.lanes_per_cell(N, CI.g1_switch(N, n_sm), n_sm) == 1 and CI.lanes_per_cell(N, CI.g1_switch(N, n_sm) - 1, n_sm) == 32
+    for N in Ns:
+        assert [gs[N, B] for B in Bs] == sorted((gs[N, B] for B in Bs), reverse=True)
+    for B in Bs:
+        assert [gs[N, B] for N in Ns] == sorted(gs[N, B] for N in Ns)
+
+
+@pytest.mark.parametrize("lanes", [0, 2, 4, 16, 33, -1, True, 1.0, "1"])
+def test_iso_forced_invalid_lanes_raise_before_launch(lanes):
+    """A forced G that K3 does not build raises on CPU histograms, before
+    the device check and before any launch, in the wrapper and in
+    binary.isopleth.iso_grid at every engine; a valid G on CPU tensors
+    still meets the device check."""
+    ds, mk = iso_sources()
+    srcs = [port_histogram(d, mk, device="cpu")._hist() for d in ds]
+    grid = iso_grid_args(ISO_PARTIAL)
+    mu1_v, dmu2_v = np.linspace(*grid[0], ISO_PARTIAL["NX"]), np.linspace(*ISO_PARTIAL["dmu2"], ISO_PARTIAL["NY"])
+    lr = np.array([[0, 0]] * 4 + [[0, 1]] * (ISO_PARTIAL["NY"] - 8) + [[1, 1]] * 4, dtype=np.int32)
+    wts = np.full((ISO_PARTIAL["NY"], 2), 0.5)
+    metas = [TS.HistMeta(**dict(mk, max_phases=8))] * 2
+    args = (srcs, metas, mu1_v, dmu2_v, lr, wts, 1.02, 1, 10.0)
+    pro = IB._iso_prologue(srcs, metas[0], mu1_v, dmu2_v, lr, wts, 1.02, 1, 10.0)
+    kin = [pro[k] for k in ("lnpi", "op", "xrows", "krows", "a", "edge", "mu", "lr", "wts", "tg", "volume")]
+    calls = [lambda G: CI.iso_grid(*kin, mk["smooth"], 8, 1, 10.0, _lanes=G), lambda G: IB.iso_grid(*args, engine="cuda", _lanes=G)]
+    for call in calls:
+        with pytest.raises(ValueError, match="lanes per point must be a power of two dividing 32"):
+            call(lanes)
+        for valid in CS.LANES:
+            with pytest.raises(ValueError, match="CUDA tensors"):
+                call(valid)
+    for engine in ("auto", "torch"):
+        with pytest.raises(ValueError, match="lanes per point must be a power of two dividing 32"):
+            IB.iso_grid(*args, engine=engine, _lanes=lanes)
+    assert CI.iso_grid.launches == 0

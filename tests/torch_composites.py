@@ -174,6 +174,14 @@ def iso_sources(name: str = "n31", dmu2s=ISO_DMU2, max_order: int = 3, used_ke: 
 # log units and every cell turns edge-unsafe).
 ISO31 = dict(name="n31", NX=834, NY=301, dmu2=(-4.95, -4.05), beta=1.02)
 ISO1400 = dict(name="n1400", NX=128, NY=128, dmu2=(-4.95, -4.05), beta=1.0)
+# K3's shape coverage at one cell per lane (256 cells a block): a narrow
+# grid over five sources, whose 12 mu_1 columns make a block span ~22
+# dMu_2 rows and name up to four sources; and a grid of 7 x 256 + 13
+# cells, whose last block is partial.  The rows reach past the sources on
+# both sides (clamped rows).
+ISO_FIVE_DMU2 = (-5.0, -4.6, -4.2, -3.8, -3.4)
+ISO_NARROW = dict(name="n31", NX=12, NY=40, dmu2=(-5.3, -3.1), beta=1.02)
+ISO_PARTIAL = dict(name="n31", NX=95, NY=19, dmu2=(-5.3, -3.7), beta=1.02)
 
 
 def iso_grid_args(g: dict, NX: int | None = None, NY: int | None = None):
