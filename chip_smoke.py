@@ -21,7 +21,10 @@ Phases (each raises on failure, so any failure exits non-zero):
      shuffled mu grid (every warp mixes segmentation cases; a point count
      that leaves partial blocks and warps): segmentation equal, floats
      within 1e-10 abs; K2 at identity targets equal to K1 bit for bit at
-     every G; K3 (the isopleth cell) over its coverage (orders 1-2,
+     every G; K2's paired mode (one target per mu, the coexistence
+     solver's) equal to the product mode's point (m, tix[m]) bit for bit
+     at every G on n31 and n573 (orders 1-2, props on/off, collect
+     None/"janus"), and to its plain version; K3 (the isopleth cell) over its coverage (orders 1-2,
      collect None/"janus", 2-3 sources, clamped rows, used_ke, max_phases
      4/8, N 31 and 1400, the fail-code surfaces, a narrow grid over five
      sources, a partial last block) at <=4,096 cells per case, at the G
@@ -50,6 +53,19 @@ Phases (each raises on failure, so any failure exits non-zero):
      and at the main-path grid -- the measurement behind the rules; then one torch.profiler
      window over three mb31_o2 "auto" calls:
      K2's share of device time and the idle share of the window;
+  5b. coexistence, each path with its launch counter reset just before
+     and read just after: solve.trace_coexistence(engine="auto") on coex573
+     (256 betas on the n573 composite, K2's paired mode) and
+     solve.find_phase_eq_state over 256 mu guesses on n31 (K1): every beta
+     converged to |dF.E./kT| <= lnZ_tol with two phases, the same
+     convergence and mu_star within 1e-9 as engine="torch", the properties
+     at mu_star within 1e-10 of the plain version's; solves/s for "auto" and
+     "torch" (CUDA events, warm, median of 3), K2 launches and Nelder-Mead
+     steps per trace, the trace at sync intervals 1-32, one solver step's
+     K2 launch against its plain version, its bound and the product-diagonal
+     alternative (K2 at M = A = 5 x 256), a layout line at that step, and a
+     utils.profiling window over one trace (K2's share of device time, the
+     idle share; the timeline goes to _profiles/coex573/trace.json);
   6. a {"kernels": [...]} line with each kernel's launches, worst error,
      times and bound, then the last line: {"ok": true, "device": {...}}.
 
@@ -79,6 +95,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-10  # the JAX package's kernel bar (tests/test_pallas_sweep.py)
 SEG = ("valid", "mask", "n_phases", "left", "right")
 PROPS = ("n_i", "x_i", "ntot", "u", "density")
@@ -147,6 +164,24 @@ def cuda_ms(fn, reps=3):
     return statistics.median(times)
 
 
+def device_ms(fn, kernel, reps=20):
+    """Mean device time of the launches of `kernel` (a substring of its
+    name) over reps calls of fn, from a torch.profiler window: for a launch
+    shorter than the host's call, CUDA events around the call time the
+    host.  None where the profiler recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    d = [e.time_range.end - e.time_range.start for e in prof.events() if e.device_type.name == "CUDA" and kernel in e.name]
+    return sum(d) / len(d) / 1e3 if d else None
+
+
 def bound(inputs, outputs, ops):
     """(bound_ms, bound_by) for a kernel call: bytes of every input and
     output tensor once over the memory rate, against ops over the f64 peak."""
@@ -194,7 +229,8 @@ def compare_iso(got, want, where, min_ok=0.0):
 
 def ptxas_report(text):
     """[(kernel, G or None, registers, stack bytes, spill store bytes)] from
-    nvcc --ptxas-options=-v output; G from the kernel's template argument."""
+    nvcc --ptxas-options=-v output; G from the kernel's template argument,
+    and " paired" after the name of K2's paired-mode instantiation."""
     rows, fn, stack, spill = [], None, 0, 0
     for line in text.splitlines():
         if m := re.search(r"Function properties for (\S+)", line):
@@ -204,7 +240,9 @@ def ptxas_report(text):
         elif (m := re.search(r"Used (\d+) registers", line)) and fn:
             kname = re.search(r"\d+([a-z_]+_kernel)", fn)
             lanes = re.search(r"ILi(\d+)E", fn)
-            rows.append((kname.group(1) if kname else fn, int(lanes.group(1)) if lanes else None, int(m.group(1)), stack, spill))
+            paired = re.search(r"ILi\d+ELb1E", fn)
+            name = (kname.group(1) if kname else fn) + (" paired" if paired else "")
+            rows.append((name, int(lanes.group(1)) if lanes else None, int(m.group(1)), stack, spill))
             fn = None
     return rows
 
@@ -218,8 +256,7 @@ class Ctx:
 
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: no CUDA device; this check runs only on a GPU")
-        root = os.path.dirname(os.path.abspath(__file__))
-        sys.path[:0] = [root, os.path.join(root, "tests")]
+        sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
         import numpy as np
 
         import torch_composites as TC
@@ -505,6 +542,44 @@ def run():
     log(f"parity K2: identity targets equal K1 bit for bit on every field at the rule's G and G in {LANES}")
     log("parity K1+K2 by forced G, worst abs diff over every float field:", json.dumps({G: float(f"{v:.3e}") for G, v in worst_lanes.items()}))
 
+    # K2's paired mode (the coexistence solver's): the product mode's point
+    # (m, tix[m]) bit for bit at each G -- the diagonal of a 64 x 64 product
+    # and random targets of a 4,096 x 64 one -- and the plain version at the
+    # rule's G and at each G
+    n_paired = 0
+    for cname in ("n31", "n573"):
+        d, mk, mus = TC.cell(cname, 4096, max_order=3)
+        h, meta = hist(d), state.HistMeta(**mk)
+        A = 64
+        dmus = (d["curr_mu"][1:] - d["curr_mu"][0]) + np.linspace(-0.4, 0.4, A)[:, None] if mk["nspec"] == 2 else np.zeros((1, 0))
+        rng = np.random.default_rng(len(cname))
+        for order in (1, 2):
+            for props in (True, False):
+                mu, a, xrows, krows, tg = pipeline._mb_inputs(h, meta, mus, np.linspace(0.92, 1.08, A), dmus, order, props, False)
+                for collect in (None, "janus"):
+                    def k2(M, **kw):
+                        return cuda_mb.mb_sweep_thermo(h.lnpi, h.op, xrows, krows if props else None, h.volume, mu[:M], a[:M], tg, meta.nspec, meta.smooth, meta.max_phases,
+                                                       order, props, False, collect, **kw)
+
+                    where = f"K2 paired {cname} order={order} props={props} collect={collect}"
+                    for M, tix_np in ((A, np.arange(A)), (4096, rng.integers(0, A, size=4096))):
+                        tix = torch.as_tensor(tix_np, dtype=torch.int32, device=dev)
+                        rows = torch.arange(M, device=dev) * A + tix.long()
+                        for G in LANES:
+                            prod, got = k2(M, _lanes=G), k2(M, tix=tix, _lanes=G)
+                            torch.cuda.synchronize()
+                            for k in prod:
+                                if not torch.equal(got[k], prod[k][rows]):
+                                    raise AssertionError(f"{where} M={M} G={G}: {k} differs from the product mode's (m, tix[m])")
+                    want = pipeline._mb_paired_body(h, meta, mu, a, xrows, krows, tg, tix, order, props, collect)
+                    for G in (None,) + LANES:
+                        got = k2(4096, tix=tix, _lanes=G)
+                        torch.cuda.synchronize()
+                        note(compare(got, want, props, f"{where} G={G}"), worst_mb, G=G)
+                    n_paired += 1
+    log(f"parity K2 paired: {n_paired} cases equal the product mode's (m, tix[m]) bit for bit on every field at G in {LANES}; "
+        "against the plain version (rule's G and every G) the worst abs diff so far:", json.dumps({k: float(f"{v:.3e}") for k, v in worst_mb.items()}))
+
     # K3 over its coverage: <= 64 x 64 = 4,096 cells per case, at the rule's G and at every G
     worst_iso: dict = {}
     worst_iso_lanes = {G: 0.0 for G in LANES}
@@ -782,6 +857,176 @@ def run():
             f"K2 {k2_us / 1e3:.3f} ms = {100 * k2_us / busy:.1f}% of device time, idle {100 * (1 - busy / window):.1f}% of the window, {len(spans)} device ops | {smi}")
     else:
         log("profile mb31_o2 auto x3: the profiler recorded no device time (not measured)")
+
+    # ---- 5b. coexistence: trace_coexistence on coex573 (K2's paired mode) and
+    # find_phase_eq_state over a batch of guesses on n31 (K1) ----
+    from fhmcanalysis_torch.core import solve as SV
+    from fhmcanalysis_torch.utils import profiling as prof_mod
+
+    d, mk, betas, guess, kw = TC.coex_grid()
+    h, meta = hist(d), state.HistMeta(**mk)
+    T, lnz2 = betas.shape[0], kw["lnZ_tol"] ** 2
+    cuda_mb.mb_sweep_thermo.launches = 0
+    out = SV.trace_coexistence(h, meta, betas, guess, **kw)
+    torch.cuda.synchronize()
+    launches = cuda_mb.mb_sweep_thermo.launches
+    if launches < 3:
+        raise AssertionError(f"coex573: the main path launched K2 {launches} times (the start, the steps and the properties need 3 or more)")
+    P = meta.max_phases
+    if out["fe"].shape != (T, P) or out["x_i"].shape != (T, P, meta.nspec) or out["mu_star"].shape != (T,):
+        raise AssertionError("coex573: unexpected output shapes")
+    if not bool(out["converged"].all()) or not float(out["err"].max()) <= lnz2:
+        raise AssertionError(f"coex573: {int((~out['converged']).sum())} betas not converged, worst err^2 {float(out['err'].max()):.3e} > lnZ_tol^2 = {lnz2:.1e}")
+    two = out["mask"].sum(-1) == 2
+    fe2 = torch.where(out["mask"], out["fe"], 0.0)
+    if not bool(two.all()) or not bool(torch.isfinite(fe2).all()):
+        raise AssertionError("coex573: every beta must have two phases with finite free energies")
+    rho = torch.where(out["mask"], out["density"], torch.nan)
+    if not bool((rho.nan_to_num(0.0).amax(-1) > 2 * rho.nan_to_num(1e9).amin(-1)).all()):
+        raise AssertionError("coex573: the two phases of a beta must be a vapor and a liquid (densities apart)")
+    ref = SV.trace_coexistence(h, meta, betas, guess, engine="torch", **kw)
+    if not torch.equal(out["converged"], ref["converged"]):
+        raise AssertionError("coex573: converged differs from engine='torch'")
+    d_mu = float((out["mu_star"] - ref["mu_star"]).abs().max())
+    if not d_mu <= 1e-9:
+        raise AssertionError(f"coex573: mu_star differs from engine='torch' by {d_mu:.3e} > 1e-9")
+    dmus = (h.curr_mu[1:] - h.curr_mu[0])[None].expand(T, -1)
+    betas_t = torch.as_tensor(betas, device=dev)
+    arange_t = torch.arange(T, dtype=torch.int32, device=dev)
+    objs = {e: SV._Objective(h, meta, betas_t, dmus, kw["order"], kw["min_width"], True, None, e, props_rows=True) for e in ("cuda", "torch")}
+    at_k, at_p = (objs[e].segment(out["mu_star"], arange_t, props=True) for e in ("cuda", "torch"))
+    torch.cuda.synchronize()
+    for k in ("fe", "mask") + PROPS[1:]:
+        if not torch.equal(at_k[k], out[k]):
+            raise AssertionError(f"coex573: the trace's {k} is not the paired launch's at its mu_star")
+    worst_coex = compare(at_k, at_p, True, "coex573 properties at mu_star")
+    note(worst_coex, worst_mb)
+    d_props = {k: float(torch.where(out["mask"][..., None] if out[k].dim() == 3 else out["mask"], (out[k] - ref[k]).abs(), 0.0).max()) for k in ("fe",) + PROPS[1:]}
+    log(f"coexistence coex573: N={h.nbins} betas={T} K2 launches={launches} converged {int(out['converged'].sum())}/{T} worst err^2 {float(out['err'].max()):.3e} (|dF.E.| <= {float(out['err'].max()) ** 0.5:.3e}) | "
+        f"against engine='torch': converged equal, mu_star within {d_mu:.3e}, properties at the same mu_star within", json.dumps({k: float(f"{v:.3e}") for k, v in worst_coex.items()}),
+        "| the two traces' properties apart by", json.dumps({k: float(f"{v:.3e}") for k, v in d_props.items()}))
+
+    # K1: find_phase_eq_state over a batch of mu guesses
+    d31c, mk31c, guesses, kw31 = TC.coex31_guesses()
+    h31c, meta31c = hist(d31c), state.HistMeta(**mk31c)
+    cuda_sweep.sweep_thermo.launches = 0
+    st31, mus31, err31, conv31 = SV.find_phase_eq_state(h31c, meta31c, kw31["lnZ_tol"], guesses, min_width=kw31["min_width"])
+    torch.cuda.synchronize()
+    launches31 = cuda_sweep.sweep_thermo.launches
+    if launches31 < 2:
+        raise AssertionError(f"coex31: find_phase_eq_state launched K1 {launches31} times")
+    _, mus31_p, err31_p, conv31_p = SV.find_phase_eq_state(h31c, meta31c, kw31["lnZ_tol"], guesses, min_width=kw31["min_width"], engine="torch")
+    d_mu31 = float((mus31 - mus31_p).abs().max())
+    if not (bool(conv31.all()) and torch.equal(conv31, conv31_p) and d_mu31 <= 1e-9 and float(err31.max()) <= kw31["lnZ_tol"] ** 2):
+        raise AssertionError(f"coex31: converged {int(conv31.sum())}/{len(guesses)} (torch {int(conv31_p.sum())}), mu_star apart by {d_mu31:.3e}, worst err^2 {float(err31.max()):.3e}")
+    if st31.lnpi.shape != (len(guesses), h31c.nbins) or st31.lnpi.device != dev:
+        raise AssertionError("coex31: the coexistence states must be [B, N] on the card")
+    log(f"coexistence coex31: N={h31c.nbins} guesses={len(guesses)} K1 launches={launches31} converged {int(conv31.sum())}/{len(guesses)} mu* {float(mus31.mean()):.9f} "
+        f"(spread {float(mus31.max() - mus31.min()):.3e}) | against engine='torch': converged equal, mu_star within {d_mu31:.3e}")
+
+    # times: solves/s, steps, the sync interval, the paired launch against the
+    # product-diagonal alternative, the layout at the solver's point count
+    coex = dict(betas=T, k2_launches=launches, d_mu_vs_torch=d_mu, worst_props_at_mu=worst_coex, props_apart=d_props)
+    coex["auto_ms"] = cuda_ms(lambda: SV.trace_coexistence(h, meta, betas, guess, **kw))
+    coex["torch_ms"] = cuda_ms(lambda: SV.trace_coexistence(h, meta, betas, guess, engine="torch", **kw))
+    _, steps = SV._trace(h, meta, betas, guess, kw["lnZ_tol"], None, kw["order"], kw["min_width"], "auto")
+    coex.update(steps_max=int(steps.max()), steps_median=float(steps.double().median()), sync_every=SV.SYNC_EVERY)
+    # the sync interval: three rounds over the intervals in turn (the host's
+    # clock is noisy), the median of each interval's three
+    sync_runs = {k: [] for k in (1, 2, 4, 8, 16, 32)}
+    for r in range(3):
+        for k in (list(sync_runs) if r % 2 == 0 else list(sync_runs)[::-1]):
+            sync_runs[k].append(cuda_ms(lambda k=k: SV._trace(h, meta, betas, guess, kw["lnZ_tol"], None, kw["order"], kw["min_width"], "auto", sync_every=k)))
+    coex["sync_ms"] = {k: statistics.median(v) for k, v in sync_runs.items()}
+    coex["sync_ms_runs"] = sync_runs
+    log(f"coexistence coex573 times: auto {coex['auto_ms']:.3f} ms = {T / coex['auto_ms'] * 1e3:.5g} solves/s | torch {coex['torch_ms']:.3f} ms = {T / coex['torch_ms'] * 1e3:.5g} solves/s | "
+        f"K2 launches per trace {launches}, Nelder-Mead steps max {coex['steps_max']} median {coex['steps_median']:g}, sync every {SV.SYNC_EVERY} | by sync interval:",
+        ", ".join(f"k={k} {t:.3f} ms" for k, t in coex["sync_ms"].items()), f"| {smi}")
+    coex31 = dict(guesses=len(guesses), k1_launches=launches31, d_mu_vs_torch=d_mu31)
+    coex31["auto_ms"] = cuda_ms(lambda: SV.find_phase_eq_state(h31c, meta31c, kw31["lnZ_tol"], guesses, min_width=kw31["min_width"]))
+    coex31["torch_ms"] = cuda_ms(lambda: SV.find_phase_eq_state(h31c, meta31c, kw31["lnZ_tol"], guesses, min_width=kw31["min_width"], engine="torch"))
+    log(f"coexistence coex31 times (find_phase_eq_state, K1): auto {coex31['auto_ms']:.3f} ms = {len(guesses) / coex31['auto_ms'] * 1e3:.5g} solves/s | "
+        f"torch {coex31['torch_ms']:.3f} ms = {len(guesses) / coex31['torch_ms'] * 1e3:.5g} solves/s | {smi}")
+
+    # one solver step's K2 launch (5 candidates x T targets, props=False) at
+    # its mu values, its plain version, its bound, and the product-diagonal
+    # alternative: M = A = 5T, every candidate against every target's row
+    obj = objs["cuda"]
+    step_mu = out["mu_star"].repeat(5) + torch.linspace(-1e-3, 1e-3, 5, device=dev, dtype=torch.float64).repeat_interleave(T)
+    step_tix = arange_t.repeat(5)
+    step_a = pipeline._reweight_coeff(h, step_mu).contiguous()
+    step_out = obj.segment(step_mu, step_tix)
+
+    def paired_step():
+        return cuda_mb.mb_sweep_thermo(h.lnpi, h.op, obj.xrows, None, h.volume, step_mu, step_a, obj.tg, meta.nspec, meta.smooth, P, kw["order"], False, tix=step_tix)
+
+    tg_rows = obj.tg[step_tix.long()].contiguous()
+
+    def diagonal_step():
+        return cuda_mb.mb_sweep_thermo(h.lnpi, h.op, obj.xrows, None, h.volume, step_mu, step_a, tg_rows, meta.nspec, meta.smooth, P, kw["order"], False)
+
+    pk_call_ms = cuda_ms(paired_step)
+    pk_ms = device_ms(paired_step, "mb_sweep_thermo_kernel")
+    pp_ms = cuda_ms(lambda: objs["torch"].segment(step_mu, step_tix))
+    diag_ms = cuda_ms(diagonal_step)
+    diag_dev_ms = device_ms(diagonal_step, "mb_sweep_thermo_kernel", reps=3)
+    B = step_mu.shape[0]
+    x_ops = 2 + 4 + (2 if meta.nspec == 2 else 0) + (7 if kw["order"] == 2 else 0)
+    ops = tail_ops(step_out, B, h.nbins, meta.smooth, x_ops, 0)
+    b_ms, b_by = bound([h.lnpi, h.op, obj.xrows, h.volume, step_mu, step_a, obj.tg, step_tix], step_out.values(), ops)
+    coex_layout = layout_line("K2 paired", f"coex573 one step N={h.nbins} B={B} (call time)", h.nbins, B, lambda G: cuda_mb.mb_sweep_thermo(
+        h.lnpi, h.op, obj.xrows, None, h.volume, step_mu, step_a, obj.tg, meta.nspec, meta.smooth, P, kw["order"], False, tix=step_tix, _lanes=G))
+    coex_layout["device_ms"] = {G: device_ms(lambda G=G: cuda_mb.mb_sweep_thermo(
+        h.lnpi, h.op, obj.xrows, None, h.volume, step_mu, step_a, obj.tg, meta.nspec, meta.smooth, P, kw["order"], False, tix=step_tix, _lanes=G), "mb_sweep_thermo_kernel") for G in LANES}
+    log(f"layout K2 paired coex573 one step B={B} (device time, profiler): " + ", ".join(f"G={G} {t:.4f} ms" for G, t in coex_layout["device_ms"].items() if t is not None) + f" | {smi}")
+    log(f"coexistence step: K2 paired at B={B} (G={cuda_mb.lanes_per_point(h.nbins, B, n_sm)}) device {pk_ms if pk_ms is None else round(pk_ms, 5)} ms, call {pk_call_ms:.4f} ms | "
+        f"plain {pp_ms:.3f} ms | product diagonal, K2 at M = A = {B} ({B * B} points) device {diag_dev_ms if diag_dev_ms is None else round(diag_dev_ms, 4)} ms, call {diag_ms:.3f} ms "
+        f"= {diag_ms / pk_call_ms:.1f}x the paired call | bound {b_ms:.5f} ms by {b_by} ({ops:.4g} f64 ops) | {smi}")
+    mb_runs["coex573"] = dict(M=B, A=T, B=B, N=h.nbins, order=kw["order"], paired=True, props=False, lanes=cuda_mb.lanes_per_point(h.nbins, B, n_sm), launches=launches,
+                              kernel_ms=pk_ms if pk_ms is not None else pk_call_ms, kernel_ms_from="profiler" if pk_ms is not None else "cuda events around the call",
+                              call_ms=pk_call_ms, plain_ms=pp_ms, product_diagonal_ms=diag_ms, product_diagonal_device_ms=diag_dev_ms,
+                              bound_ms=b_ms, bound_by=b_by, ops=ops, covered_bins=covered_bins(step_out))
+    k1_step_a = pipeline._reweight_coeff(h31c, mus31.repeat(5)).contiguous()
+    keys31 = segment.key_rows(h31c.mom, meta31c).contiguous()
+
+    def k1_step():
+        return cuda_sweep.sweep_thermo(h31c.lnpi, h31c.op, keys31, h31c.volume, k1_step_a, meta31c.smooth, meta31c.max_phases, False)
+
+    k1_out = k1_step()
+    B31 = k1_step_a.shape[0]
+    ops31 = tail_ops(k1_out, B31, h31c.nbins, meta31c.smooth, 2, 0)
+    b31_ms, b31_by = bound([h31c.lnpi, h31c.op, keys31, h31c.volume, k1_step_a], k1_out.values(), ops31)
+    k1_dev = device_ms(k1_step, "sweep_thermo_kernel")
+    runs["coex31"] = dict(B=B31, N=h31c.nbins, props=False, lanes=cuda_sweep.lanes_per_point(h31c.nbins, B31, n_sm), launches=launches31,
+                          kernel_ms=k1_dev if k1_dev is not None else cuda_ms(k1_step), kernel_ms_from="profiler" if k1_dev is not None else "cuda events around the call",
+                          call_ms=cuda_ms(k1_step), plain_ms=cuda_ms(lambda: pipeline.mu_sweep_body(h31c, meta31c, mus31.repeat(5), False)), bound_ms=b31_ms, bound_by=b31_by, ops=ops31)
+    log(f"coexistence step (K1, coex31): B={B31} device {runs['coex31']['kernel_ms']:.5f} ms, call {runs['coex31']['call_ms']:.4f} ms | plain {runs['coex31']['plain_ms']:.3f} ms | "
+        f"bound {b31_ms:.5f} ms by {b31_by} | {smi}")
+
+    # a utils.profiling window over one "auto" trace: K2's share of device
+    # time and the idle share of the window
+    SV.trace_coexistence(h, meta, betas, guess, **kw)
+    torch.cuda.synchronize()
+    with prof_mod.trace(os.path.join(ROOT, "_profiles", "coex573")) as prof:
+        SV.trace_coexistence(h, meta, betas, guess, **kw)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events() if e.device_type.name == "CUDA" and e.time_range.end > e.time_range.start)
+    coex["profile"] = None
+    if spans:
+        busy, end = 0.0, spans[0][0]
+        for t0, t1, _ in spans:
+            busy += max(0.0, t1 - max(t0, end))
+            end = max(end, t1)
+        window = spans[-1][1] - spans[0][0]
+        k2_us = sum(t1 - t0 for t0, t1, n in spans if "mb_sweep_thermo_kernel" in n)
+        coex["profile"] = dict(window_ms=window / 1e3, device_busy_ms=busy / 1e3, k2_ms=k2_us / 1e3, k2_share_of_device=k2_us / busy, idle_share=1 - busy / window, device_ops=len(spans))
+        log(f"profile coex573 auto x1: window {window / 1e3:.3f} ms (first to last device op), device busy {busy / 1e3:.3f} ms, "
+            f"K2 {k2_us / 1e3:.3f} ms = {100 * k2_us / busy:.1f}% of device time, idle {100 * (1 - busy / window):.1f}% of the window, {len(spans)} device ops | {smi}")
+    else:
+        log("profile coex573 auto x1: the profiler recorded no device time (not measured)")
+    mb_runs["coex573"]["coexistence"] = coex
+    runs["coex31"]["coexistence"] = coex31
+    layout_k2.append(dict(order=kw["order"], paired=True, **coex_layout))
 
     # ---- 6. the kernels line and the last line ----
     def entry(kname, source, cells, err, **extra):

@@ -9,22 +9,23 @@ JAX package used ``vmap``.
 What runs today: the mu_1 reweight + segment + per-phase thermo sweep
 (``core.pipeline.mu_sweep_thermo``), the (mu_1, beta, dMu) extrapolating
 sweep (``core.pipeline.mu_beta_sweep_thermo``, over ``core.derivs`` /
-``core.extrap``) and the binary isopleth surface
+``core.extrap``), the coexistence solver (``core.solve``, on the first
+two's kernels) and the binary isopleth surface
 (``binary.isopleth.isopleth(...).make_grid``), each with its fused kernel
 written in CUDA C++ for Hopper (``csrc/sweep_thermo.cu``,
 ``csrc/mb_sweep_thermo.cu``, ``csrc/iso_grid.cu``, sharing
 ``csrc/thermo_tail.cuh``; built at first use by ``_build.py``); and the
 host class shells ``histogram.ntot`` / ``histogram.n1`` with their netCDF
 reader and writer (``io``, which imports ``h5py`` only when a file is
-read or written).
+read or written), with ``utils.profiling`` for traces and timers.
 Tensors live on the CUDA card unless the caller passes ``device="cpu"``.
 Importing the package needs neither ``nvcc`` nor a GPU.
 """
 
 __version__ = "0.1.0"
 
-from . import binary, core, histogram, io  # noqa: E402,F401
-from .core import derivs, extrap, moments, numerics, ops, pipeline, segment, state  # noqa: F401
+from . import binary, core, histogram, io, utils  # noqa: E402,F401
+from .core import derivs, extrap, moments, numerics, ops, pipeline, segment, solve, state  # noqa: F401
 from .core.state import Hist, HistMeta, from_host, make_hist, to_host  # noqa: F401
 
 __all__ = [
@@ -43,5 +44,7 @@ __all__ = [
     "ops",
     "pipeline",
     "segment",
+    "solve",
     "state",
+    "utils",
 ]

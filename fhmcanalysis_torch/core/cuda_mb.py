@@ -20,6 +20,10 @@ Row layouts (built by ``pipeline._mb_rows`` / ``_mb_targets``):
   krows [G, S+1, N] key, sgB, sgM (nspec 2), then at order 2 unless
                     first_order_mom: sgB2, sgX, sgM2 (nspec 2)
   tg    [A, T]     dB, dd (nspec 2), then at order 2: dB^2, 2 dB dd, dd^2
+
+Two modes: the product of the M mu values and the A targets, and with
+``tix`` the paired mode, one target per mu (the coexistence solver's,
+``core/solve.py``).
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ def _lib() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load(NAME)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mb_sweep_thermo_launch.argtypes = [i, p, i] + [p] * 8 + [i] * 10 + [p] * 11
+    lib.mb_sweep_thermo_launch.argtypes = [i, p, i] + [p] * 9 + [i] * 10 + [p] * 11
     lib.mb_sweep_thermo_launch.restype = i
     lib.mb_sweep_thermo_error_string.argtypes = [i]
     lib.mb_sweep_thermo_error_string.restype = ctypes.c_char_p
@@ -61,11 +65,36 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _check_tix(tix, mu, A: int, dev) -> None:
+    """tix is an int32 [M] CUDA tensor beside mu with every entry in
+    [0, A).  The range is read from the card once per tensor and again after
+    an in-place write to it (its version counter), so a caller that
+    launches with one tix at every step, as the coexistence solver does,
+    waits for the card once."""
+    if not tix.is_cuda:
+        raise ValueError(f"mb_sweep_thermo: tix is on {tix.device}; the CUDA kernel needs CUDA tensors (engine='torch' runs the plain version)")
+    if tix.dtype != torch.int32:
+        raise TypeError(f"mb_sweep_thermo: tix must be int32, got {tix.dtype}")
+    if not tix.is_contiguous():
+        raise ValueError("mb_sweep_thermo: tix must be contiguous")
+    if tix.device != dev:
+        raise ValueError(f"mb_sweep_thermo: tix is on {tix.device}, lnpi on {dev}")
+    if tix.shape != mu.shape:
+        raise ValueError(f"mb_sweep_thermo: tix must be [M] = {tuple(mu.shape)} like mu, got {tuple(tix.shape)}")
+    seen = getattr(tix, "_mb_range", None)
+    if seen is None or seen[0] != tix._version:
+        lo, hi = torch.stack(torch.aminmax(tix)).tolist() if tix.numel() else (0, -1)
+        seen = tix._mb_range = (tix._version, lo, hi)
+    if seen[1] < 0 or seen[2] >= A:
+        raise ValueError(f"mb_sweep_thermo: tix spans [{seen[1]}, {seen[2]}], outside the {A} targets [0, {A})")
+
+
 def mb_sweep_thermo(
     lnpi, op, xrows, krows, volume, mu, a, tg, nspec: int, smooth: int, max_phases: int, order: int = 1,
-    props: bool = True, first_order_mom: bool = False, collect=None, *, _lanes=None,
+    props: bool = True, first_order_mom: bool = False, collect=None, *, tix=None, _lanes=None,
 ) -> dict:
-    """Launch K2 for the M x A points (mu_m, target_t), b = m * A + t.
+    """Launch K2 for the M x A points (mu_m, target_t), b = m * A + t, or
+    with ``tix`` for the M points (mu_b, target tix[b]).
 
     lnpi, op : f64[N]           composite surface and order parameter
     xrows    : f64[R, N]        mu-independent lnPI' rows (module docstring)
@@ -73,9 +102,11 @@ def mb_sweep_thermo(
     volume   : f64[]            box volume
     mu, a    : f64[M]           mu_1 per point and beta*(mu - mu0)
     tg       : f64[A, T]        per-target scalars
+    tix      : i32[M] or None   each point's target (the paired mode)
 
-    Returns the mu_sweep_thermo dict with a flat leading axis M*A.  Runs on
-    ``torch.cuda.current_stream()`` and does not synchronise.
+    Returns the mu_sweep_thermo dict with a flat leading axis M*A (M with
+    tix).  Runs on ``torch.cuda.current_stream()`` and synchronises only
+    to read a new tix's range (see _check_tix).
 
     _lanes forces G, the lanes per point (tests and chip_smoke.py); by
     default ``lanes_per_point`` picks it, as for K1.
@@ -115,10 +146,12 @@ def mb_sweep_thermo(
     if collect not in (None, "janus"):
         raise NotImplementedError(f"mb_sweep_thermo: the kernel implements collect None and 'janus', not {collect!r}")
     M, A = mu.shape[0], tg.shape[0]
-    if M * A >= 2**31:
-        raise ValueError(f"mb_sweep_thermo: {M} x {A} points exceed the kernel's int32 grid")
+    B, P, dev = (M * A if tix is None else M), max_phases, lnpi.device
+    if B >= 2**31:
+        raise ValueError(f"mb_sweep_thermo: {B} points exceed the kernel's int32 grid")
+    if tix is not None:
+        _check_tix(tix, mu, A, dev)
 
-    B, P, dev = M * A, max_phases, lnpi.device
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     G = lanes_per_point(N, B, sm_count(index)) if _lanes is None else _lanes
     f64 = dict(dtype=torch.float64, device=dev)
@@ -143,7 +176,7 @@ def mb_sweep_thermo(
     rc = lib.mb_sweep_thermo_launch(
         index, torch.cuda.current_stream(dev).cuda_stream, G,
         lnpi.data_ptr(), op.data_ptr(), xrows.data_ptr(), krows.data_ptr() if props else None,
-        volume.data_ptr(), mu.data_ptr(), a.data_ptr(), tg.data_ptr(),
+        volume.data_ptr(), mu.data_ptr(), a.data_ptr(), tg.data_ptr(), None if tix is None else tix.data_ptr(),
         M, A, N, S, P, smooth, order, int(props), int(first_order_mom and order >= 2), int(collect == "janus"),
         ptr["fe"], ptr["left"], ptr["right"], ptr["mask"], ptr["n_phases"], ptr["valid"],
         *(ptr.get(k) for k in ("n_i", "x_i", "ntot", "u", "density")),

@@ -191,13 +191,23 @@ def _mb_targets(h: Hist, meta: HistMeta, beta_grid, dmu_grid, order: int) -> tor
     return torch.stack(cols, dim=1).contiguous()
 
 
-def _mb_chunk(h: Hist, meta: HistMeta, mu, a, xrows, krows, tg, order: int, props: bool, collect) -> dict:
-    """The plain extrapolating sweep over mu [m] x the A targets of tg:
-    x' and key' in cuda_mb's association, then the thermo tail."""
+def _mb_chunk(h: Hist, meta: HistMeta, mu, a, xrows, krows, tg, order: int, props: bool, collect, tix=None) -> dict:
+    """The plain extrapolating sweep over mu [m] x the A targets of tg, or
+    with tix [m] over the m points (mu_b, target tix[b]): x' and key' in
+    cuda_mb's association, then the thermo tail.  Both modes form each
+    point's x' from the same scalars with the same operations, so a paired
+    point equals the product's (m, tix[m]) bit for bit."""
     S, N = meta.nspec, h.nbins
-    col = lambda j: tg[:, j][None, :, None]  # noqa: E731  a target scalar against [m, A, N]
-    x = (h.lnpi + a[:, None] * h.op)[:, None, :]
-    t = (xrows[0] + mu[:, None] * h.op)[:, None, :]
+    if tix is None:  # a target scalar against [m, A, N]
+        col = lambda j: tg[:, j][None, :, None]  # noqa: E731
+        x = (h.lnpi + a[:, None] * h.op)[:, None, :]
+        t = (xrows[0] + mu[:, None] * h.op)[:, None, :]
+        B = mu.shape[0] * tg.shape[0]
+    else:  # a point's target scalar against [m, N]
+        col = lambda j: tg[tix, j][:, None]  # noqa: E731
+        x = h.lnpi + a[:, None] * h.op
+        t = xrows[0] + mu[:, None] * h.op
+        B = mu.shape[0]
     xp = x + col(0) * t
     if S == 2:
         xp = xp + col(1) * xrows[1]
@@ -207,7 +217,6 @@ def _mb_chunk(h: Hist, meta: HistMeta, mu, a, xrows, krows, tg, order: int, prop
             q = q + col(3) * xrows[3]
             q = q + col(4) * xrows[4]
         xp = xp + 0.5 * q
-    B = mu.shape[0] * tg.shape[0]
     xp = xp.reshape(B, N)
     if not props:
         pt, pp = thermo_core(xp, h.mom, meta, props=False, collect=collect), None
@@ -222,7 +231,7 @@ def _mb_chunk(h: Hist, meta: HistMeta, mu, a, xrows, krows, tg, order: int, prop
                 q = q + kc(3) * krows[4]
                 q = q + kc(4) * krows[5]
             kp = kp + 0.5 * q
-        kp = kp[None].expand((mu.shape[0],) + kp.shape).reshape(B, S + 1, N)
+        kp = kp[None].expand((mu.shape[0],) + kp.shape).reshape(B, S + 1, N) if tix is None else kp[tix]
         pt, pp = thermo_key_core(xp, kp, meta, h.volume, collect=collect)
     out = {"fe": pt.fe, "mask": pt.mask, "left": pt.left, "right": pt.right, "n_phases": pt.n_phases, "valid": pt.valid}
     if props:
@@ -230,11 +239,26 @@ def _mb_chunk(h: Hist, meta: HistMeta, mu, a, xrows, krows, tg, order: int, prop
     return out
 
 
-def _mb_inputs(h: Hist, meta: HistMeta, mu_grid, beta_grid, dmu_grid, order: int, props: bool, first_order_mom: bool):
+def _mb_paired_body(h: Hist, meta: HistMeta, mu, a, xrows, krows, tg, tix, order: int, props: bool, collect=None) -> dict:
+    """The plain paired extrapolating sweep (K2's paired mode) over the
+    points (mu_b, target tix[b]) on any device, chunked over points so the
+    [B, P, N] intermediates fit in memory; rows and targets as
+    _mb_rows / _mb_targets build them."""
+    per = max(1, _PLAIN_CHUNK_ELEMS // (meta.max_phases * h.nbins))
+    M = mu.shape[0]
+    outs = [_mb_chunk(h, meta, mu[i : i + per], a[i : i + per], xrows, krows, tg, order, props, collect, tix[i : i + per]) for i in range(0, M, per)]
+    return outs[0] if len(outs) == 1 else {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+
+def _check_mb(meta: HistMeta, order: int) -> None:
     if order not in (1, 2):
         raise ValueError(f"the extrapolating sweep implements orders 1-2, got {order}")
     if meta.nspec not in (1, 2):
         raise ValueError(f"the extrapolating sweep implements nspec 1-2 (the moment algebra's limit), got {meta.nspec}")
+
+
+def _mb_inputs(h: Hist, meta: HistMeta, mu_grid, beta_grid, dmu_grid, order: int, props: bool, first_order_mom: bool):
+    _check_mb(meta, order)
     mu = torch.atleast_1d(torch.as_tensor(mu_grid, dtype=torch.float64, device=h.device)).contiguous()
     tg = _mb_targets(h, meta, beta_grid, dmu_grid, order)
     xrows, krows = _mb_rows(h, meta, order, props, first_order_mom)

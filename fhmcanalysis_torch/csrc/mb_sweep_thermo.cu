@@ -4,7 +4,7 @@
 // (_mb_ds_pallas -> _kernel -> mb_block_lanes -> extrap_source_lanes ->
 // thermo_lanes).  What it computes is the float64 semantics of the plain
 // version, fhmcanalysis_torch/core/pipeline.py mu_beta_sweep_body, for one
-// point (mu_m, beta_t, dMu_t), b = m * A + t, per group of G lanes:
+// point (mu_m, beta_t, dMu_t) per group of G lanes:
 //
 //   x'(i)  = lnpi + a_m op + dB (r1 + mu_m op) + dd m1
 //            + [order 2] 0.5 ((dB^2 h00 + 2 dB dd h01) + dd^2 h11)
@@ -18,6 +18,14 @@
 // algebra) per point with a second exp pass; they shift lnPI' by a
 // constant over the bins that the tail cancels, so this kernel has no
 // second exp pass and no reduction beyond the tail's own.
+//
+// Two modes, a template argument: the product of M mu values and A
+// targets, point b = m * A + t; and the paired mode (tix given), M points,
+// point b at (mu_b, target tix[b]), which the coexistence solver launches
+// with one mu per target (core/solve.py; its plain version is
+// pipeline._mb_chunk with tix).  Only the choice of (m, t) differs, so a
+// paired point equals the product's point (m, tix[m]) bit for bit, and the
+// product mode compiles as it did before the paired one existed.
 //
 // What bounds it on the card: the same as K1 -- float64 exp (one per bin
 // and point) and the serial segmentation logic.  The rows (up to 7 for x',
@@ -54,6 +62,7 @@ struct Args {
   const double* mu;      // [M]
   const double* a;       // [M]
   const double* tg;      // [A, T]: dB, dd (S=2), then order 2: dB^2, 2 dB dd, dd^2 (S=2)
+  const int* tix;        // [M]: each point's target (paired mode), or null (product mode)
   int M, A, N, S, P, smooth, order, props, khess, janus;
   tail::Out out;
 };
@@ -73,7 +82,13 @@ __host__ __device__ __forceinline__ size_t row_bytes(const Args& g) {
 // without the bound ptxas picks fewer registers and spills; at G = 1 it
 // takes 93 registers (2 blocks per SM) and runs 13-15% slower at mb31_o1,
 // while 4 blocks (64 registers) spill (PERF.md).
-template <int G>
+// Points of a launch: M x A in the product mode, M in the paired mode.
+template <bool PAIRED>
+__host__ __device__ __forceinline__ long long n_points(const Args& g) {
+  return PAIRED ? (long long)g.M : (long long)g.M * g.A;
+}
+
+template <int G, bool PAIRED>
 __global__ void __launch_bounds__(THREADS, 3) mb_sweep_thermo_kernel(Args g) {
   constexpr int PTS = THREADS / G;  // points per block
   constexpr bool NC = G == 32;      // rows read through the read-only cache
@@ -98,10 +113,10 @@ __global__ void __launch_bounds__(THREADS, 3) mb_sweep_thermo_kernel(Args g) {
       krows = s_rows + 2 * N + XN;
     }
   }
-  if (b >= (long long)g.M * g.A) return;  // G = 32: the warp; else the group, whose collectives name only its lanes
+  if (b >= n_points<PAIRED>(g)) return;  // G = 32: the warp; else the group, whose collectives name only its lanes
 
   const int S = g.S;
-  const long long m = b / g.A, t = b % g.A;
+  const long long m = PAIRED ? b : b / g.A, t = PAIRED ? (long long)g.tix[b] : b % g.A;
   const double mu = g.mu[m], a = g.a[m];
   const tail::Targets tg = tail::targets(g.tg + t * tail::n_targets(S, g.order), S, g.order);
   const bool two = S == 2, o2 = g.order >= 2;
@@ -117,12 +132,11 @@ __global__ void __launch_bounds__(THREADS, 3) mb_sweep_thermo_kernel(Args g) {
   tail::thermo_point(xf, kf, tail::group_of<G>(threadIdx.x), g.N, S, g.P, g.smooth, g.props, g.janus, sink, mx, mn, pitch);
 }
 
-template <int G>
+template <int G, bool PAIRED>
 cudaError_t launch(const Args& g, cudaStream_t stream) {
   constexpr int PTS = THREADS / G;
-  const long long B = (long long)g.M * g.A;
-  const unsigned blocks = (unsigned)((B + PTS - 1) / PTS);
-  mb_sweep_thermo_kernel<G><<<blocks, THREADS, tail::stages_rows<G>(row_bytes(g)) ? row_bytes(g) : 0, stream>>>(g);
+  const unsigned blocks = (unsigned)((n_points<PAIRED>(g) + PTS - 1) / PTS);
+  mb_sweep_thermo_kernel<G, PAIRED><<<blocks, THREADS, tail::stages_rows<G>(row_bytes(g)) ? row_bytes(g) : 0, stream>>>(g);
   return cudaGetLastError();
 }
 
@@ -138,25 +152,26 @@ const char* mb_sweep_thermo_error_string(int code) { return cudaGetErrorString((
 // cudaGetLastError() (0 on success; cudaErrorInvalidValue for a G the
 // library does not build: 1 and 32 only, cuda_sweep.LANES).  Does not
 // synchronise.  All pointers are device pointers (krows may be null
-// without props); the caller has checked shapes, dtypes and bounds.
-// khess: the order-2 key-row terms are applied.
+// without props; tix null selects the product mode, else the paired mode
+// over M points); the caller has checked shapes, dtypes and bounds, tix's
+// range included.  khess: the order-2 key-row terms are applied.
 int mb_sweep_thermo_launch(int device, void* stream, int G, const double* lnpi, const double* op, const double* xrows,
                            const double* krows, const double* volume, const double* mu, const double* a,
-                           const double* tg, int M, int A, int N, int S, int P, int smooth, int order, int props,
+                           const double* tg, const int* tix, int M, int A, int N, int S, int P, int smooth, int order, int props,
                            int first_order_mom, int janus, double* fe, int* left, int* right, unsigned char* mask,
                            int* n_phases, unsigned char* valid, double* n_i, double* x_i, double* ntot, double* u,
                            double* density) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const long long B = (long long)M * A;
-  if (B <= 0) return 0;
+  if (M <= 0 || A <= 0) return 0;
   const int khess = order >= 2 && !first_order_mom;
-  const Args g{lnpi, op, xrows, krows, volume, mu, a, tg, M, A, N, S, P, smooth, order, props, khess, janus,
+  const Args g{lnpi, op, xrows, krows, volume, mu, a, tg, tix, M, A, N, S, P, smooth, order, props, khess, janus,
                {fe, left, right, mask, n_phases, valid, n_i, x_i, ntot, u, density}};
   const cudaStream_t st = (cudaStream_t)stream;
+  const bool paired = tix != nullptr;
   switch (G) {
-    case 1: return (int)launch<1>(g, st);
-    case 32: return (int)launch<32>(g, st);
+    case 1: return (int)(paired ? launch<1, true>(g, st) : launch<1, false>(g, st));
+    case 32: return (int)(paired ? launch<32, true>(g, st) : launch<32, false>(g, st));
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,7 @@
 """PyTorch port on the card: the fused kernels (K1, the mu sweep; K2, the
-(mu, beta, dMu) sweep; K3, the isopleth cell) against their plain versions
-on the same card.
+(mu, beta, dMu) sweep, and its paired mode; K3, the isopleth cell) against
+their plain versions on the same card, and the coexistence solver through
+the kernels against its plain objective.
 Imports no JAX, so it runs on the GPU machine:
 
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
@@ -13,7 +14,11 @@ package's own kernel bar, tests/test_pallas_sweep.py): the kernel sums in
 another order and uses the card's f64 exp/log.  K1 and K2 are checked at
 the G (lanes per point) their rule picks and forced to every G they build:
 the layout changes only the order of the sums.  K3 likewise, at the G
-its rule picks and at G = 1 and 32.
+its rule picks and at G = 1 and 32.  K2's paired mode equals the product
+mode's point (m, tix[m]) bit for bit at each G.  The solver through the
+kernels ends where engine="torch" does: convergence equal, mu_star within
+1e-9 (the JAX package's bar between two trace engines), and the
+properties at its mu_star within 1e-10 of the plain version's.
 """
 
 import sys
@@ -27,9 +32,10 @@ import fhmcanalysis_torch.core.cuda_iso as CI
 import fhmcanalysis_torch.core.cuda_mb as CM
 import fhmcanalysis_torch.core.cuda_sweep as CS
 import fhmcanalysis_torch.core.pipeline as TP
+import fhmcanalysis_torch.core.solve as TSV
 import fhmcanalysis_torch.core.state as TS
 from fhmcanalysis_torch.binary import isopleth
-from torch_composites import CELLS, ISO31, ISO_FIVE_DMU2, ISO_NARROW, ISO_PARTIAL, SURFACE_KINDS, cell, iso_grid_args, iso_sources, janus_surfaces, mb_grid, mu_window, port_histogram, random_surface, shuffled_mu_grid, worst_abs_diff
+from torch_composites import CELLS, ISO31, coex31_guesses, coex_grid, ISO_FIVE_DMU2, ISO_NARROW, ISO_PARTIAL, SURFACE_KINDS, cell, iso_grid_args, iso_sources, janus_surfaces, mb_grid, mu_window, port_histogram, random_surface, shuffled_mu_grid, worst_abs_diff
 
 IB = sys.modules["fhmcanalysis_torch.binary.isopleth"]
 
@@ -352,3 +358,140 @@ def test_iso_kernel_rejects_unsupported(cuda):
         with pytest.raises(ValueError, match="lanes per point"):
             IB.iso_grid(srcs, [TS.HistMeta(**mk)] * 2, mu1_v, dmu2_v, lr, wts, 1.02, 1, 10.0, _lanes=G)
     assert CI.iso_grid.launches == n0
+
+
+def _paired_inputs(cuda, name, order, props, M, A=64):
+    """(h, meta, K2 inputs) of an M mu x A target product on a cell."""
+    d, mk, mus = cell(name, M, max_order=3)
+    h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
+    dmus = (d["curr_mu"][1:] - d["curr_mu"][0]) + np.linspace(-0.4, 0.4, A)[:, None] if mk["nspec"] == 2 else np.zeros((1, 0))
+    return h, meta, TP._mb_inputs(h, meta, mus, np.linspace(0.92, 1.08, A), dmus, order, props, False)
+
+
+def _k2(h, meta, inputs, order, props, collect, **kw):
+    mu, a, xrows, krows, tg = inputs
+    return CM.mb_sweep_thermo(h.lnpi, h.op, xrows, krows if props else None, h.volume, mu, a, tg, meta.nspec, meta.smooth, meta.max_phases, order, props, False, collect, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("props", [True, False])
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("name", ["n31", "n573"])
+def test_mb_paired_equals_product(cuda, name, order, props, collect):
+    """K2's paired mode against the product mode's points (m, tix[m]) bit
+    for bit on every field, at G = 1 and 32: the diagonal of a 64 x 64
+    product, and random targets of a 1024 x 64 one."""
+    A = 64
+    h, meta, inputs = _paired_inputs(cuda, name, order, props, 1024, A)
+    mu, a, xrows, krows, tg = inputs
+    rng = np.random.default_rng(order + 2 * props)
+    for M, tix in ((A, np.arange(A)), (1024, rng.integers(0, A, size=1024))):
+        t = torch.as_tensor(tix, dtype=torch.int32, device=cuda)
+        sub = (mu[:M], a[:M], xrows, krows, tg)
+        for G in CS.LANES:
+            n0 = CM.mb_sweep_thermo.launches
+            prod = _k2(h, meta, sub, order, props, collect, _lanes=G)
+            got = _k2(h, meta, sub, order, props, collect, tix=t, _lanes=G)
+            torch.cuda.synchronize()
+            assert CM.mb_sweep_thermo.launches == n0 + 2
+            rows = torch.arange(M, device=cuda) * A + t.long()
+            for k in prod:
+                assert torch.equal(got[k], prod[k][rows]), (M, G, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("props", [True, False])
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("name", ["n31", "n573", "n1400"])
+def test_mb_paired_matches_plain(cuda, name, order, props, collect):
+    """K2's paired mode against its plain version at the rule's G and at
+    every G: segmentation equal, floats within 1e-10."""
+    h, meta, inputs = _paired_inputs(cuda, name, order, props, 2048)
+    mu, a, xrows, krows, tg = inputs
+    t = torch.as_tensor(np.random.default_rng(7).integers(0, tg.shape[0], size=mu.shape[0]), dtype=torch.int32, device=cuda)
+    want = TP._mb_paired_body(h, meta, mu, a, xrows, krows, tg, t, order, props, collect)
+    ok = (want["mask"] & want["valid"][:, None]).cpu()
+    for G in LANES:
+        got = _k2(h, meta, inputs, order, props, collect, tix=t, _lanes=G)
+        torch.cuda.synchronize()
+        assert set(got) == set(want)
+        for k in SEG:
+            assert torch.equal(got[k], want[k]), (G, k)
+        for k in ("fe",) + (PROPS if props else ()):
+            assert worst_abs_diff(got[k].cpu(), want[k].cpu(), ok) <= 1e-10, (G, k)
+
+
+@pytest.mark.gpu
+def test_mb_paired_rejects_bad_tix(cuda):
+    """tix out of range, of another dtype or shape, strided, or on the CPU
+    raises before any launch; a tix written in place after a launch is read
+    again."""
+    h, meta, inputs = _paired_inputs(cuda, "n31", 1, False, 16, 8)
+    good = torch.zeros(16, dtype=torch.int32, device=cuda)
+    n0 = CM.mb_sweep_thermo.launches
+    bad = [
+        (ValueError, "outside", torch.full((16,), 8, dtype=torch.int32, device=cuda)),
+        (ValueError, "outside", torch.full((16,), -1, dtype=torch.int32, device=cuda)),
+        (TypeError, "int32", good.long()),
+        (ValueError, "CUDA tensors", good.cpu()),
+        (ValueError, "contiguous", torch.zeros(32, dtype=torch.int32, device=cuda)[::2]),
+        (ValueError, "like mu", good[:8]),
+    ]
+    for exc, msg, tix in bad:
+        with pytest.raises(exc, match=msg):
+            _k2(h, meta, inputs, 1, False, None, tix=tix)
+    assert CM.mb_sweep_thermo.launches == n0
+    _k2(h, meta, inputs, 1, False, None, tix=good)
+    good[3] = 8
+    with pytest.raises(ValueError, match="outside"):
+        _k2(h, meta, inputs, 1, False, None, tix=good)
+    assert CM.mb_sweep_thermo.launches == n0 + 1
+
+
+def _props_at(h, meta, res, betas, order, engine):
+    """The per-phase properties at the trace's own mu_star, through one
+    engine."""
+    T = len(betas)
+    obj = TSV._Objective(h, meta, torch.as_tensor(betas, device=h.device), (h.curr_mu[1:] - h.curr_mu[0])[None].expand(T, -1), order, 0, True, None, engine, props_rows=True)
+    return obj.segment(res["mu_star"], torch.arange(T, dtype=torch.int32, device=h.device), props=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", [1, 2])
+def test_trace_kernels_match_torch(cuda, order):
+    """trace_coexistence through K2's paired mode against engine="torch" on
+    the coex573 cell (32 of its betas)."""
+    d, mk, betas, guess, kw = coex_grid(32)
+    kw = dict(kw, order=order)
+    h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
+    n0 = CM.mb_sweep_thermo.launches
+    got = TSV.trace_coexistence(h, meta, betas, guess, **kw)
+    torch.cuda.synchronize()
+    assert CM.mb_sweep_thermo.launches - n0 >= 3  # the start, the steps, the properties
+    want = TSV.trace_coexistence(h, meta, betas, guess, engine="torch", **kw)
+    assert torch.equal(got["converged"], want["converged"]) and got["converged"].all()
+    assert float((got["mu_star"] - want["mu_star"]).abs().max()) <= 1e-9
+    assert float(got["err"].max()) <= kw["lnZ_tol"] ** 2
+    at_k, at_p = _props_at(h, meta, got, betas, order, "cuda"), _props_at(h, meta, got, betas, order, "torch")
+    ok = (at_p["mask"] & at_p["valid"][:, None]).cpu()
+    assert torch.equal(at_k["mask"], got["mask"]) and torch.equal(at_p["mask"], got["mask"])
+    for k in ("fe", "x_i", "ntot", "u", "density"):  # the trace's keys
+        assert torch.equal(at_k[k], got[k]), k
+        assert worst_abs_diff(got[k].cpu(), at_p[k].cpu(), ok) <= 1e-10, k
+
+
+@pytest.mark.gpu
+def test_find_phase_eq_state_k1_matches_torch(cuda):
+    """find_phase_eq_state without extrapolation over a batch of mu
+    guesses: K1's objective against the plain one."""
+    d, mk, guesses, kw = coex31_guesses(64)
+    h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
+    n0 = CS.sweep_thermo.launches
+    out, mus, err, conv = TSV.find_phase_eq_state(h, meta, kw["lnZ_tol"], guesses, min_width=kw["min_width"])
+    torch.cuda.synchronize()
+    assert CS.sweep_thermo.launches - n0 >= 2 and out.lnpi.shape == (64, h.nbins) and out.lnpi.is_cuda
+    _, mus_t, err_t, conv_t = TSV.find_phase_eq_state(h, meta, kw["lnZ_tol"], guesses, min_width=kw["min_width"], engine="torch")
+    assert torch.equal(conv, conv_t) and conv.all()
+    assert float((mus - mus_t).abs().max()) <= 1e-9 and float(err.max()) <= kw["lnZ_tol"] ** 2

@@ -17,8 +17,9 @@ and ``fhmcanalysis_torch.core.state.from_host``):
 with a mu_1 window that crosses coexistence: one-phase points at the low
 end, two-phase points at the high end, every point valid.  ``iso_sources``
 and ``ISO31`` / ``ISO1400`` build the isopleth sources and grids from the
-same composites, and ``port_histogram`` the port's histogram class from a
-dict without a file.
+same composites, ``COEX573`` / ``coex_grid`` and ``COEX31`` /
+``coex31_guesses`` the coexistence solves, and
+``port_histogram`` the port's histogram class from a dict without a file.
 """
 
 from __future__ import annotations
@@ -115,6 +116,46 @@ def mb_grid(M: int | None = None, A: int | None = None, **over):
     betas = np.linspace(*g["beta"], A)
     dmus = np.linspace(*g["dmu"], A)[:, None]
     return d, meta, mus, betas, dmus
+
+
+# The coexistence cell: trace_coexistence on the n573 composite built at
+# max_order 3, in the JAX bench's coexistence shape (bench.py:797-815):
+# 256 betas evenly spaced, lnZ_tol 1e-6, min_width = 2 * smooth, order 1,
+# one mu guess for every beta.  The bench's span, T in [0.88, 0.92], and
+# its guess (-4.03) belong to the real square-well fixture.  On this
+# composite the objective is flat (DEFAULT_ERR2) wherever |dF.E./kT| > 10,
+# which leaves each beta a basin ~0.05 wide in mu around a coexistence mu
+# that moves by 0.115 over that span (0.082 at T = 0.92 to -0.033 at 0.88),
+# so no one guess reaches every beta there.  The span is narrowed to T in
+# [0.895, 0.905], where mu* runs from 0.0384 to 0.0098 and the guess 0.022
+# lies inside every basin: JAX's trace_coexistence converges at all 256
+# betas from it on the CPU, to (dF.E./kT)^2 <= 1.6e-16
+# (tests/coex573_span.py prints the search).
+COEX573 = dict(cell="n573", max_order=3, B=256, T=(0.895, 0.905), guess=0.022, lnZ_tol=1e-6, order=1)
+
+
+def coex_grid(B: int | None = None, **over):
+    """(composite dict, meta kwargs, betas [B], mu guess, trace kwargs) of
+    the coexistence cell; B defaults to its 256 betas."""
+    g = dict(COEX573, **over)
+    d, meta, _ = cell(g["cell"], 1, max_order=g["max_order"])
+    betas = np.linspace(1.0 / g["T"][1], 1.0 / g["T"][0], g["B"] if B is None else B)
+    kw = dict(lnZ_tol=g["lnZ_tol"], order=g["order"], min_width=2 * meta["smooth"])
+    return d, meta, betas, g["guess"], kw
+
+
+# The coexistence solve without extrapolation (kernel K1's objective): a
+# batch of mu guesses on the n31 composite, whose coexistence mu (5.556)
+# has a basin over [5.1, 6.1]; min_width = 2 * smooth.
+COEX31 = dict(cell="n31", max_order=3, B=256, guesses=(5.2, 6.0), lnZ_tol=1e-6)
+
+
+def coex31_guesses(B: int | None = None):
+    """(composite dict, meta kwargs, mu guesses [B], solve kwargs) of the
+    K1 coexistence solve; B defaults to 256 guesses."""
+    g = COEX31
+    d, meta, _ = cell(g["cell"], 1, max_order=g["max_order"])
+    return d, meta, np.linspace(*g["guesses"], g["B"] if B is None else B), dict(lnZ_tol=g["lnZ_tol"], min_width=2 * meta["smooth"])
 
 
 def composite_raw(d: dict, nspec: int, max_order: int, history: str = "synthetic composite") -> dict:
