@@ -579,6 +579,33 @@ def run():
                     n_paired += 1
     log(f"parity K2 paired: {n_paired} cases equal the product mode's (m, tix[m]) bit for bit on every field at G in {LANES}; "
         "against the plain version (rule's G and every G) the worst abs diff so far:", json.dumps({k: float(f"{v:.3e}") for k, v in worst_mb.items()}))
+    # the kernel's own range guard: entries written past the wrapper's check
+    # (through .data, which the version counter does not see) come back as
+    # invalid points, and every other point is unchanged
+    mu, a, xrows, krows, tg = pipeline._mb_inputs(h, meta, mus, np.linspace(0.92, 1.08, A), dmus, 1, True, False)
+    n_hit = 0
+    for G in LANES:
+        tix = torch.as_tensor(rng.integers(0, A, size=4096), dtype=torch.int32, device=dev)
+
+        def k2_guard():
+            return cuda_mb.mb_sweep_thermo(h.lnpi, h.op, xrows, krows, h.volume, mu, a, tg, meta.nspec, meta.smooth, meta.max_phases, 1, True, False, None, tix=tix, _lanes=G)
+
+        before = tix._version
+        want = k2_guard()
+        tix.data[::7], tix.data[3::7] = A, -1
+        if tix._version != before:
+            raise AssertionError("K2 guard: the write through .data moved the version counter; the case tests nothing")
+        got = k2_guard()
+        torch.cuda.synchronize()
+        hit = (tix < 0) | (tix >= A)
+        n_hit = int(hit.sum())
+        floats = ("fe", "n_i", "x_i", "ntot", "u", "density")
+        if bool(got["valid"][hit].any()) or bool(got["n_phases"][hit].any()) or bool(got["mask"][hit].any()) or not all(bool(got[k][hit].isnan().all()) for k in floats):
+            raise AssertionError(f"K2 guard G={G}: a point with tix out of range is not marked invalid")
+        for k in got:
+            if not torch.equal(got[k][~hit], want[k][~hit]):
+                raise AssertionError(f"K2 guard G={G}: {k} of an in-range point changed")
+    log(f"parity K2 paired guard: {n_hit} of 4096 points with tix out of range (written past the wrapper's check) come back invalid with NaN floats at G in {LANES}; the rest unchanged")
 
     # K3 over its coverage: <= 64 x 64 = 4,096 cells per case, at the rule's G and at every G
     worst_iso: dict = {}
@@ -934,9 +961,14 @@ def run():
     # the sync interval: three rounds over the intervals in turn (the host's
     # clock is noisy), the median of each interval's three
     sync_runs = {k: [] for k in (1, 2, 4, 8, 16, 32)}
-    for r in range(3):
-        for k in (list(sync_runs) if r % 2 == 0 else list(sync_runs)[::-1]):
-            sync_runs[k].append(cuda_ms(lambda k=k: SV._trace(h, meta, betas, guess, kw["lnZ_tol"], None, kw["order"], kw["min_width"], "auto", sync_every=k)))
+    sync_default = SV.SYNC_EVERY
+    try:
+        for r in range(3):
+            for k in (list(sync_runs) if r % 2 == 0 else list(sync_runs)[::-1]):
+                SV.SYNC_EVERY = k
+                sync_runs[k].append(cuda_ms(lambda: SV.trace_coexistence(h, meta, betas, guess, **kw)))
+    finally:
+        SV.SYNC_EVERY = sync_default
     coex["sync_ms"] = {k: statistics.median(v) for k, v in sync_runs.items()}
     coex["sync_ms_runs"] = sync_runs
     log(f"coexistence coex573 times: auto {coex['auto_ms']:.3f} ms = {T / coex['auto_ms'] * 1e3:.5g} solves/s | torch {coex['torch_ms']:.3f} ms = {T / coex['torch_ms'] * 1e3:.5g} solves/s | "

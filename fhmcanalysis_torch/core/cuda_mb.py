@@ -70,7 +70,11 @@ def _check_tix(tix, mu, A: int, dev) -> None:
     [0, A).  The range is read from the card once per tensor and again after
     an in-place write to it (its version counter), so a caller that
     launches with one tix at every step, as the coexistence solver does,
-    waits for the card once."""
+    waits for the card once.  This check gives the early error; the
+    kernel itself marks a point whose tix lies outside [0, A) invalid
+    (valid False, no phase, NaN floats), so a write the version counter
+    misses (through ``.data`` or a raw pointer) cannot make it read out of
+    bounds."""
     if not tix.is_cuda:
         raise ValueError(f"mb_sweep_thermo: tix is on {tix.device}; the CUDA kernel needs CUDA tensors (engine='torch' runs the plain version)")
     if tix.dtype != torch.int32:
@@ -106,7 +110,8 @@ def mb_sweep_thermo(
 
     Returns the mu_sweep_thermo dict with a flat leading axis M*A (M with
     tix).  Runs on ``torch.cuda.current_stream()`` and synchronises only
-    to read a new tix's range (see _check_tix).
+    to read a new tix's range (see _check_tix; a point whose tix is out of
+    range at launch comes back invalid).
 
     _lanes forces G, the lanes per point (tests and chip_smoke.py); by
     default ``lanes_per_point`` picks it, as for K1.

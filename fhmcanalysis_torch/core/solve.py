@@ -40,9 +40,12 @@ from .state import Hist, HistMeta
 __all__ = ["phase_eq_error", "nelder_mead_1d", "find_phase_eq_state", "trace_coexistence"]
 
 DEFAULT_ERR2 = 100.0  # reference default when <2 phases qualify (gc_hist.pyx:2614)
-# Masked Nelder-Mead steps between the host's stopping tests: each test
-# waits for the card.  Chosen on one H100 from the coexistence phase of
-# chip_smoke.py, which times the coex573 trace at several intervals (PERF.md).
+# Masked Nelder-Mead steps between the host's stopping tests, read at each
+# call: each test waits for the card.  The coexistence phase of
+# chip_smoke.py times the coex573 trace at k = 1 to 32: k = 1 is the
+# slowest, and the host's noise does not separate k = 2 to 32 (PERF.md).
+# k = 8 is kept because a solve that ends between tests wastes at most 7
+# masked steps.
 SYNC_EVERY = 8
 
 
@@ -139,8 +142,9 @@ def phase_eq_error(mu_guess, h: Hist, meta: HistMeta, beta=None, dmu=None, order
     pass-through at :2612) and the JAX package's.  mu_guess is a scalar or
     a batch [B]; with ``extrapolate`` the targets are beta [A] (or a
     scalar) and dmu [A or 1, S-1] (or [S-1]), and point b is evaluated at
-    target tix[b] (int, [B]; default: b when A == B, else 0).  Without it
-    beta and dmu are ignored.  Returns err^2 of mu_guess's shape.
+    target tix[b] (int, [B]; default: b when A == B, 0 when A == 1, else
+    an error).  Without it beta and dmu are ignored.  Returns err^2 of
+    mu_guess's shape.
 
     engine: "auto" follows the tensors' device (CUDA: K1, or K2's paired
     mode with extrapolate; CPU: their plain versions), "torch" forces the
@@ -151,13 +155,15 @@ def phase_eq_error(mu_guess, h: Hist, meta: HistMeta, beta=None, dmu=None, order
     betas, dmus = _targets(h, beta, dmu) if extrapolate else (None, None)
     A = 1 if betas is None else betas.shape[0]
     if tix is None:
+        if A not in (1, B):
+            raise ValueError(f"phase_eq_error: {B} mu values and {A} targets; pass tix to pair them")
         tix = torch.arange(B, device=h.device) if A == B else torch.zeros(B, dtype=torch.int64, device=h.device)
     tix = torch.as_tensor(tix, device=h.device).to(torch.int32).reshape(-1).expand(B).contiguous()
     obj = _Objective(h, meta, betas, dmus, order, min_width, extrapolate, collect, engine)
     return obj(mu.reshape(-1).contiguous(), tix).reshape(mu.shape)
 
 
-def nelder_mead_1d(f, x0, xtol: float = 1e-4, ftol: float = 1e-4, maxiter: int = 100000, *, sync_every: int | None = None):
+def nelder_mead_1d(f, x0, xtol: float = 1e-4, ftol: float = 1e-4, maxiter: int = 100000):
     """1-D Nelder-Mead with scipy.optimize.fmin's update rules, over a
     batch of independent targets.
 
@@ -169,14 +175,14 @@ def nelder_mead_1d(f, x0, xtol: float = 1e-4, ftol: float = 1e-4, maxiter: int =
     target's five candidates in one call of f (the JAX package evaluates
     both branches of its lax.cond under vmap too) and picks with
     torch.where in JAX's order; a finished target's state stays frozen, so
-    the host tests for the end every ``sync_every`` steps (default
-    SYNC_EVERY) and extra steps change nothing.
+    the host tests for the end every ``SYNC_EVERY`` steps and extra steps
+    change nothing.
 
     Returns (x_best, f_best, n_iter, converged), each of x0's shape.
     """
-    k = SYNC_EVERY if sync_every is None else sync_every
+    k = SYNC_EVERY
     if k < 1:
-        raise ValueError(f"sync_every must be >= 1, got {k}")
+        raise ValueError(f"SYNC_EVERY must be >= 1, got {k}")
     x0 = torch.as_tensor(x0, dtype=torch.float64)
     shape = x0.shape
     x0 = x0.reshape(-1)
@@ -225,12 +231,12 @@ def nelder_mead_1d(f, x0, xtol: float = 1e-4, ftol: float = 1e-4, maxiter: int =
     return a.reshape(shape), fa.reshape(shape), it.reshape(shape), converged.reshape(shape)
 
 
-def _solve(obj: _Objective, x0: torch.Tensor, lnZ_tol: float, sync_every: int | None = None):
+def _solve(obj: _Objective, x0: torch.Tensor, lnZ_tol: float):
     """Minimise obj over mu for each of x0's [T] targets.  The objective is
     (dFE)^2, so meeting |dFE| <= lnZ_tol (the BASELINE coexistence bar,
     stronger than scipy-fmin's ftol-on-err^2 semantics) needs the squared
     tolerance, as in the JAX package."""
-    return nelder_mead_1d(obj.on_targets(x0.shape[0]), x0, xtol=1e-10, ftol=lnZ_tol**2, sync_every=sync_every)
+    return nelder_mead_1d(obj.on_targets(x0.shape[0]), x0, xtol=1e-10, ftol=lnZ_tol**2)
 
 
 def find_phase_eq_state(
@@ -280,13 +286,13 @@ def find_phase_eq_state(
     return Hist(**{f.name: torch.stack([getattr(o, f.name) for o in states]) for f in dataclasses.fields(Hist)}), mu_star, err, converged
 
 
-def _trace(h: Hist, meta: HistMeta, betas, mu_guess, lnZ_tol: float, dmu, order: int, min_width: int, engine: str, sync_every: int | None = None):
+def _trace(h: Hist, meta: HistMeta, betas, mu_guess, lnZ_tol: float, dmu, order: int, min_width: int, engine: str):
     """trace_coexistence's dict and the Nelder-Mead steps of each beta."""
     betas, dmus = _targets(h, _f64(h, betas).reshape(-1), dmu)
     T = betas.shape[0]
     obj = _Objective(h, meta, betas, dmus, order, min_width, True, None, engine, props_rows=True)
     mu0 = _f64(h, mu_guess).reshape(-1).expand(T).contiguous()
-    mu_star, err, n_iter, converged = _solve(obj, mu0, lnZ_tol, sync_every)
+    mu_star, err, n_iter, converged = _solve(obj, mu0, lnZ_tol)
     # the properties at (mu*_t, beta_t) in one paired launch: K2 drops the
     # grand-canonical constant, to which fe and the (ratio) properties are
     # blind

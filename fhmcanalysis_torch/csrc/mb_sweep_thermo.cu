@@ -25,7 +25,8 @@
 // with one mu per target (core/solve.py; its plain version is
 // pipeline._mb_chunk with tix).  Only the choice of (m, t) differs, so a
 // paired point equals the product's point (m, tix[m]) bit for bit, and the
-// product mode compiles as it did before the paired one existed.
+// product mode compiles as it did before the paired one existed.  A paired
+// point with tix outside [0, A) is marked invalid rather than read.
 //
 // What bounds it on the card: the same as K1 -- float64 exp (one per bin
 // and point) and the serial segmentation logic.  The rows (up to 7 for x',
@@ -88,6 +89,25 @@ __host__ __device__ __forceinline__ long long n_points(const Args& g) {
   return PAIRED ? (long long)g.M : (long long)g.M * g.A;
 }
 
+// A paired point whose target lies outside [0, A): written as an invalid
+// point with no phase and NaN floats, instead of reading tg out of bounds.
+__device__ __forceinline__ void out_of_range_point(const Args& g, long long b) {
+  const double nan = __longlong_as_double(0x7ff8000000000000LL);
+  const tail::Out& o = g.out;
+  for (int p = 0; p < g.P; ++p) {
+    const long long ob = b * g.P + p;
+    o.fe[ob] = nan;
+    o.left[ob] = o.right[ob] = -1;
+    o.mask[ob] = 0;
+    if (g.props) {
+      for (int s = 0; s < g.S; ++s) o.n_i[ob * g.S + s] = o.x_i[ob * g.S + s] = nan;
+      o.ntot[ob] = o.u[ob] = o.density[ob] = nan;
+    }
+  }
+  o.n_phases[b] = 0;
+  o.valid[b] = 0;
+}
+
 template <int G, bool PAIRED>
 __global__ void __launch_bounds__(THREADS, 3) mb_sweep_thermo_kernel(Args g) {
   constexpr int PTS = THREADS / G;  // points per block
@@ -114,6 +134,14 @@ __global__ void __launch_bounds__(THREADS, 3) mb_sweep_thermo_kernel(Args g) {
     }
   }
   if (b >= n_points<PAIRED>(g)) return;  // G = 32: the warp; else the group, whose collectives name only its lanes
+  if constexpr (PAIRED) {
+    // the wrapper checks tix's range once per tensor version; this guard
+    // holds whatever wrote tix since (every lane of the group returns)
+    if ((unsigned)g.tix[b] >= (unsigned)g.A) {
+      if (threadIdx.x % G == 0) out_of_range_point(g, b);
+      return;
+    }
+  }
 
   const int S = g.S;
   const long long m = PAIRED ? b : b / g.A, t = PAIRED ? (long long)g.tix[b] : b % g.A;
@@ -153,8 +181,10 @@ const char* mb_sweep_thermo_error_string(int code) { return cudaGetErrorString((
 // library does not build: 1 and 32 only, cuda_sweep.LANES).  Does not
 // synchronise.  All pointers are device pointers (krows may be null
 // without props; tix null selects the product mode, else the paired mode
-// over M points); the caller has checked shapes, dtypes and bounds, tix's
-// range included.  khess: the order-2 key-row terms are applied.
+// over M points); the caller has checked shapes, dtypes and bounds.  A
+// paired point whose tix lies outside [0, A) comes back invalid (valid 0,
+// n_phases 0, mask 0, NaN floats).  khess: the order-2 key-row terms are
+// applied.
 int mb_sweep_thermo_launch(int device, void* stream, int G, const double* lnpi, const double* op, const double* xrows,
                            const double* krows, const double* volume, const double* mu, const double* a,
                            const double* tg, const int* tix, int M, int A, int N, int S, int P, int smooth, int order, int props,

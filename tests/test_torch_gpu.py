@@ -427,8 +427,10 @@ def test_mb_paired_matches_plain(cuda, name, order, props, collect):
 def test_mb_paired_rejects_bad_tix(cuda):
     """tix out of range, of another dtype or shape, strided, or on the CPU
     raises before any launch; a tix written in place after a launch is read
-    again."""
-    h, meta, inputs = _paired_inputs(cuda, "n31", 1, False, 16, 8)
+    again; an entry written past that check (through .data, which the
+    version counter does not see) comes back from the kernel as an invalid
+    point."""
+    h, meta, inputs = _paired_inputs(cuda, "n31", 1, True, 16, 8)
     good = torch.zeros(16, dtype=torch.int32, device=cuda)
     n0 = CM.mb_sweep_thermo.launches
     bad = [
@@ -448,6 +450,22 @@ def test_mb_paired_rejects_bad_tix(cuda):
     with pytest.raises(ValueError, match="outside"):
         _k2(h, meta, inputs, 1, False, None, tix=good)
     assert CM.mb_sweep_thermo.launches == n0 + 1
+    good[3] = 0
+    for G in CS.LANES:
+        want = _k2(h, meta, inputs, 1, True, None, tix=good, _lanes=G)
+        version = good._version
+        good.data[3], good.data[5] = 8, -1
+        assert good._version == version
+        got = _k2(h, meta, inputs, 1, True, None, tix=good, _lanes=G)
+        torch.cuda.synchronize()
+        good.data[3] = good.data[5] = 0
+        hit = torch.zeros(16, dtype=torch.bool, device=cuda)
+        hit[[3, 5]] = True
+        assert not got["valid"][hit].any() and not got["n_phases"][hit].any() and not got["mask"][hit].any()
+        for k in ("fe",) + PROPS:
+            assert got[k][hit].isnan().all(), (G, k)
+        for k in got:
+            assert torch.equal(got[k][~hit], want[k][~hit]), (G, k)
 
 
 def _props_at(h, meta, res, betas, order, engine):

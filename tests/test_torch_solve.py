@@ -152,7 +152,8 @@ def test_phase_eq_error_matches_jax(state, monkeypatch, extrapolate, order):
 
 def test_phase_eq_error_targets_per_point(state):
     """A batch of mu against a batch of targets pairs point b with target
-    b, or with tix[b]; one target serves every point."""
+    b, or with tix[b]; one target serves every point; counts that differ
+    otherwise need tix."""
     th, tm, _, _ = state
     mus, betas = np.array([5.0, 5.2, 5.3]), np.array([0.99, 1.0, 1.01])
     kw = dict(dmu=DMU, min_width=2, extrapolate=True)
@@ -163,6 +164,10 @@ def test_phase_eq_error_targets_per_point(state):
     assert float(rev[0]) == float(TSV.phase_eq_error(mus[0], th, tm, beta=betas[2], **kw))
     shared = TSV.phase_eq_error(mus, th, tm, beta=1.0, **kw)
     assert float(shared[2]) == float(TSV.phase_eq_error(mus[2], th, tm, beta=1.0, **kw))
+    with pytest.raises(ValueError, match="pass tix"):
+        TSV.phase_eq_error(np.append(mus, 5.4), th, tm, beta=betas, **kw)
+    more = TSV.phase_eq_error(np.append(mus, 5.4), th, tm, beta=betas, tix=[0, 1, 2, 0], **kw)
+    assert float(more[3]) == float(TSV.phase_eq_error(5.4, th, tm, beta=betas[0], **kw))
 
 
 def _quad(c):
@@ -190,7 +195,7 @@ def test_nelder_mead_quadratic_from_zero():
     assert bool(got[3]) and abs(got[0].item() - 2.5) < 1e-6
 
 
-def test_nelder_mead_batch_is_independent_runs():
+def test_nelder_mead_batch_is_independent_runs(monkeypatch):
     """One batched run equals each target's own run bit for bit, whatever
     the sync interval: a finished target's state stays frozen; maxiter
     stops a target where JAX's loop would."""
@@ -200,7 +205,10 @@ def test_nelder_mead_batch_is_independent_runs():
     def f(x):
         return (x - cs) ** 2 + 1.0
 
-    runs = [TSV.nelder_mead_1d(f, x0, xtol=1e-8, ftol=1e-12, sync_every=k) for k in (1, 3, 8)]
+    runs = []
+    for k in (1, 3, 8):
+        monkeypatch.setattr(TSV, "SYNC_EVERY", k)
+        runs.append(TSV.nelder_mead_1d(f, x0, xtol=1e-8, ftol=1e-12))
     for i in range(4):
         solo = TSV.nelder_mead_1d(_quad(float(cs[i])), float(x0[i]), xtol=1e-8, ftol=1e-12)
         for r in runs:
@@ -209,8 +217,9 @@ def test_nelder_mead_batch_is_independent_runs():
     assert capped[2].tolist() == [5] * 4 and not capped[3].any()
     want = JSV.nelder_mead_1d(_quad(2.75), 20.0, xtol=1e-8, ftol=1e-12, maxiter=5)
     assert (float(want[0]), int(want[2])) == (capped[0][1].item(), capped[2][1].item())
-    with pytest.raises(ValueError, match="sync_every"):
-        TSV.nelder_mead_1d(f, x0, sync_every=0)
+    monkeypatch.setattr(TSV, "SYNC_EVERY", 0)
+    with pytest.raises(ValueError, match="SYNC_EVERY"):
+        TSV.nelder_mead_1d(f, x0)
 
 
 def _check_hist(got, want):
