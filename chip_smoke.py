@@ -9,7 +9,8 @@ Phases (each raises on failure, so any failure exits non-zero):
   1. device: require a CUDA device (no CPU fallback); print the card's
      name and power limit as nvidia-smi reports them;
   2. build: compile every kernel from csrc/ with nvcc, one nvcc per
-     source, all started together; print ptxas registers/stack/spills per
+     source, all started together with the 2-D host flood
+     (native/imaging.cpp, g++); print ptxas registers/stack/spills per
      kernel instantiation (each kernel is a template on G, the lanes per
      point or cell);
   3. parity: each kernel against its plain PyTorch version on the card:
@@ -66,8 +67,20 @@ Phases (each raises on failure, so any failure exits non-zero):
      alternative (K2 at M = A = 5 x 256), a layout line at that step, and a
      utils.profiling window over one trace (K2's share of device time, the
      idle share; the timeline goes to _profiles/coex573/trace.json);
+  5c. the 2-D surface path (core.segment2d under two_dim; plain PyTorch,
+     no kernel of its own): pore_state_sweep on pore13 (13 x 21) and
+     pore96 (96 x 385), joint_state_sweep on joint96 (96 x 385), at S = 64
+     and, on the 96 x 385 cells, S = 1,024: the device engine equal to the
+     host flood on every tie-free unsaturated state (and on 64 of the
+     1,024), both within 1e-10 of pore_hist(engine="numpy") on 4 states a
+     cell, the class on the card on one; states/s of both engines and of
+     joint96 with its surfaces, peak memory, joint96's stage times and a
+     utils.profiling window over one S = 1,024 call (timeline to
+     _profiles/joint96/trace.json); an exact tie with and without
+     tie_fallback, and saturated slots; a {"two_dim": ...} line;
   6. a {"kernels": [...]} line with each kernel's launches, worst error,
-     times and bound, then the last line: {"ok": true, "device": {...}}.
+     times and bound (the 2-D path adds none), then the last line:
+     {"ok": true, "device": {...}}.
 
 --dump PATH runs only phases 1-2 and the main paths of K1, K2 and K3 (a
 strided sample of the sweeps' points, every isopleth cell) and K3's parity
@@ -279,11 +292,18 @@ class Ctx:
 
     def build(self):
         """Phase 2: one nvcc per source, started together."""
+        try:
+            from fhmcanalysis_torch import native
+        except ImportError:  # a tree from before the 2-D path (--dump run from an older tree)
+            native = None
+
         libs = (self.cuda_sweep, self.cuda_mb, self.cuda_iso)
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(len(libs)) as pool:
+        with ThreadPoolExecutor(len(libs) + 1) as pool:
+            flood = pool.submit(lambda: native is not None and native.IMAGING_AVAILABLE)  # the 2-D host flood, g++
             list(pool.map(lambda mod: mod._lib(), libs))
-        log(f"build: {', '.join(mod.NAME for mod in libs)} ready in {time.perf_counter() - t0:.1f} s")
+            flood = flood.result()
+        log(f"build: {', '.join(mod.NAME for mod in libs)} ready in {time.perf_counter() - t0:.1f} s; native flood (native/imaging.cpp, g++) {'built' if flood else 'not built'}")
         report = {}
         for mod in libs:
             info = self._build.BUILD_INFO.get(mod.NAME, {})
@@ -424,6 +444,266 @@ def compare_dumps(path_a, path_b):
         log(f"compare {key}: segmentation equal {seg}, bit-identical {bits}, worst float diff", json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
     print(json.dumps({"ok": seg_ok, "compared": len(a)}))
     return 0 if seg_ok else 1
+
+
+def window_stats(prof, kernel=None, top=0):
+    """The device window of a torch.profiler run: its span (first to last
+    device op), the busy union of device intervals, the idle share, the
+    device time of ops whose name holds ``kernel``, and the ``top`` ops by
+    summed device time; None where the profiler recorded no device time."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events() if e.device_type.name == "CUDA" and e.time_range.end > e.time_range.start)
+    if not spans:
+        return None
+    busy, end = 0.0, spans[0][0]
+    for t0, t1, _ in spans:  # the union of device intervals
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    window = spans[-1][1] - spans[0][0]
+    out = dict(window_ms=window / 1e3, device_busy_ms=busy / 1e3, idle_share=1 - busy / window, device_ops=len(spans))
+    if kernel is not None:
+        k_us = sum(t1 - t0 for t0, t1, n in spans if kernel in n)
+        out.update(kernel_ms=k_us / 1e3, kernel_share_of_device=k_us / busy)
+    if top:
+        by = {}
+        for t0, t1, n in spans:
+            ms, cnt = by.get(n, (0.0, 0))
+            by[n] = (ms + (t1 - t0) / 1e3, cnt + 1)
+        out["top_ops"] = [dict(name=n[:80], ms=ms, count=cnt) for n, (ms, cnt) in sorted(by.items(), key=lambda kv: -kv[1][0])[:top]]
+    return out
+
+
+def log_window(what, kname, w, smi):
+    """One line for a window_stats result (None: not measured)."""
+    if w is None:
+        log(f"{what}: the profiler recorded no device time (not measured)")
+        return
+    log(f"{what}: window {w['window_ms']:.3f} ms (first to last device op), device busy {w['device_busy_ms']:.3f} ms, "
+        + (f"{kname} {w['kernel_ms']:.3f} ms = {100 * w['kernel_share_of_device']:.1f}% of device time, " if kname else "")
+        + f"idle {100 * w['idle_share']:.1f}% of the window, {w['device_ops']} device ops"
+        + ("; top ops: " + "; ".join(f"{o['name']} {o['ms']:.3f} ms x{o['count']}" for o in w["top_ops"]) if "top_ops" in w else "") + f" | {smi}")
+
+
+def compare_2d(want, got, states, where, tol=TOL):
+    """Two 2-D sweeps' outputs on the given states: every integer and bool
+    field, the labels and the peaks equal; every float within ``tol`` abs,
+    with NaN and +-inf in the same places.  Returns the worst float diff."""
+    np = sys.modules["numpy"]
+    st = np.asarray(states, dtype=int)
+    worst = 0.0
+    for k, v in want.items():
+        if k in ("prop_names", "local_maxima"):
+            continue
+        a, b = np.asarray(v)[st], np.asarray(got[k])[st]
+        if a.dtype.kind != "f":
+            if not np.array_equal(a, b):
+                bad = st[np.flatnonzero((a != b).reshape(len(st), -1).any(1))][:5].tolist()
+                raise AssertionError(f"{where}: {k} differs at states {bad}")
+            continue
+        same = (a == b) | (np.isnan(a) & np.isnan(b))
+        fin = np.isfinite(a) & np.isfinite(b)
+        if not (same | fin).all():
+            raise AssertionError(f"{where}: {k} has NaN or inf in other places")
+        with np.errstate(invalid="ignore"):  # inf - inf where both are the same inf
+            d = float(np.abs(np.where(fin & ~same, a - b, 0.0)).max()) if a.size else 0.0
+        if not d <= tol:
+            raise AssertionError(f"{where}: {k} differs by {d:.3e} > {tol}")
+        worst = max(worst, d)
+    for s in st:
+        if not np.array_equal(want["local_maxima"][s], got["local_maxima"][s]):
+            raise AssertionError(f"{where}: local_maxima differ at state {s}")
+    return worst
+
+
+def compare_class(out, s, ph, props, where, tol=TOL):
+    """State s of a 2-D sweep against the class engine's phase_average
+    (`props`) of the same state (`ph`): phases, labels and surface equal
+    or within ``tol``; returns the worst float diff."""
+    np = sys.modules["numpy"]
+    keys = sorted(k for k in props if isinstance(k, int))
+    n = len(keys)
+    if int(out["n_phases"][s]) != n or not np.array_equal(np.asarray(out["labels"][s]), ph.data["seg"]["phase_labels"]):
+        raise AssertionError(f"{where}: state {s}: phases or labels differ from the class engine's")
+    diffs = [abs(out["fe"][s, k] - props[k]["F.E./kT"]) for k in keys]
+    diffs += [abs(out["ave"][s, k, j] - props[k][name]) for k in keys for j, name in enumerate(out["prop_names"])]
+    diffs += [np.abs(out["act_kT"][s, :n, :n] - props["activation_kT"]).max(), np.abs(out["act_kT_diff"][s, :n, :n] - props["activation_kT_diff"]).max()]
+    fin = np.isfinite(ph.data["ln(PI)"])
+    if not np.array_equal(np.isfinite(out["lnpi"][s]), fin):
+        raise AssertionError(f"{where}: state {s}: the surface's finite cells differ from the class engine's")
+    diffs.append(np.abs(out["lnpi"][s][fin] - ph.data["ln(PI)"][fin]).max())
+    worst = float(max(diffs))
+    if not worst <= tol:
+        raise AssertionError(f"{where}: state {s} differs from the class engine's by {worst:.3e} > {tol}")
+    return worst
+
+
+def joint_stages(C, jh, targets):
+    """The device engine's stages on a joint sweep, each timed alone on
+    the previous stage's outputs: the surfaces, the watershed, the
+    per-phase analysis (boundary integrals included) and the boundary
+    integrals alone."""
+    torch, np = C.torch, C.np
+    from fhmcanalysis_torch.core import segment2d as S2
+    from fhmcanalysis_torch.two_dim.pore_pipeline import _footprint
+
+    hd = jh.data
+    raw = torch.as_tensor(hd["ln(PI)"], device=C.dev)
+    valid = torch.isfinite(raw)
+    edge = torch.as_tensor(np.asarray(hd["bounds_idx"][:, 1], dtype=np.int64), device=C.dev)
+    props = torch.as_tensor(np.stack([hd["props"][k] for k in hd["props"]]), device=C.dev)
+    op1, op2 = (torch.as_tensor(hd[k], device=C.dev) for k in ("op_1", "op_2"))
+    d1, d2 = (torch.as_tensor(targets[:, i] - C.TC.JOINT_MU_REF[i], device=C.dev) for i in (0, 1))
+    fp, P = _footprint(*raw.shape, 1).shape, 5
+    ln, _ = S2.joint_surface_batch(raw, op1, op2, C.TC.JOINT_BETA, d1, d2, valid)
+    seg = S2.hillclimb_segment_batch(ln, valid, fp, P)
+    return {
+        "surfaces": cuda_ms(lambda: S2.joint_surface_batch(raw, op1, op2, C.TC.JOINT_BETA, d1, d2, valid)),
+        "watershed": cuda_ms(lambda: S2.hillclimb_segment_batch(ln, valid, fp, P)),
+        "phase analysis": cuda_ms(lambda: S2.pore_phase_batch(ln, seg["labels"], valid, edge, props, seg["peak_lnpi"], seg["n_labels"], P)),
+        "of which boundary integrals": cuda_ms(lambda: S2.boundary_pair_integrals(ln, seg["labels"], P)),
+    }
+
+
+def two_dim_phase(C):
+    """Phase 5c: the 2-D surface path (core.segment2d under
+    two_dim.pore_state_sweep / joint_state_sweep; plain PyTorch on the card,
+    no kernel of its own) on the pore13, pore96, joint96 and
+    joint96_surfaces cells: the device watershed against the host flood,
+    both against the class engine (pore_hist(engine="numpy")), the tie and
+    saturation cases, states/s, peak memory and a profiler window."""
+    torch, np, TC, smi = C.torch, C.np, C.TC, C.smi
+    from fhmcanalysis_torch import native, two_dim
+    from fhmcanalysis_torch.utils import profiling as prof_mod
+
+    if not native.IMAGING_AVAILABLE:
+        raise AssertionError("2-D: the native flood (native/imaging.cpp) did not build with g++")
+    fh = two_dim.free_energy_profile.polynomial(TC.FH_COEFFS)
+    res = {}
+
+    def cell_setup(cname):
+        c = TC.CELLS2D[cname]
+        jh = TC.joint(c["entries"]())
+        jh.make()  # made once: a made histogram is used read-only
+        if c["kind"] == "pore":
+            def sweep(states, **kw):
+                return two_dim.pore_state_sweep(jh, fh, states[0], states[1], 1.0, nnebr=1, max_peaks=4, device=C.dev, **kw)
+
+            def take(states, idx):
+                return states[0][idx], states[1][idx]
+
+            def oracle(states, s):
+                ph = two_dim.pore_hist(jh, fh, float(states[0][s]), 1.0, float(states[1][s]), engine="numpy")
+                return ph, ph.phase_average(nnebr=1, max_peaks=4)
+
+            def on_card(states, s):
+                ph = two_dim.pore_hist(jh, fh, float(states[0][s]), 1.0, float(states[1][s]), device=C.dev)
+                return ph, ph.phase_average(nnebr=1, max_peaks=4)
+        else:
+            def sweep(states, **kw):
+                return two_dim.joint_state_sweep(jh, TC.JOINT_BETA, TC.JOINT_MU_REF, states, nnebr=1, max_peaks=4, device=C.dev, **kw)
+
+            def take(states, idx):
+                return states[idx]
+
+            def oracle(states, s):
+                return TC.joint_class_oracle(jh, TC.JOINT_BETA, TC.JOINT_MU_REF, states[s], 1, 4)
+
+            on_card = None
+        return c, jh, sweep, take, oracle, on_card
+
+    def n_states(states):
+        return len(states[0]) if isinstance(states, tuple) else len(states)
+
+    for cname in ("pore13", "pore96", "joint96"):
+        c, jh, sweep, take, oracle, on_card = cell_setup(cname)
+        st64 = c["states"](c["S"])
+        dev = sweep(st64, segment_engine="device")
+        host = sweep(st64, segment_engine="host")
+        S = c["S"]
+        if dev["fe"].shape != (S, 5) or not isinstance(dev["lnpi"], np.ndarray):
+            raise AssertionError(f"2-D {cname}: unexpected output shapes or types")
+        clean = np.flatnonzero(~dev["elev_tie"] & (dev["fail_code"] != 3) & (host["fail_code"] != 3))
+        if clean.size < S // 2 or not (dev["fail_code"][clean] == 0).all():
+            raise AssertionError(f"2-D {cname}: {clean.size} of {S} states tie-free and unsaturated, fail codes {np.bincount(dev['fail_code'], minlength=5).tolist()}")
+        w_eng = compare_2d(host, dev, clean, f"2-D {cname} device vs host")
+        ph_states = np.linspace(0, S - 1, 4).astype(int)
+        w_cls = 0.0
+        for s in ph_states:
+            ph, props = oracle(st64, s)
+            w_cls = max(w_cls, compare_class(dev, s, ph, props, f"2-D {cname} device vs class"), compare_class(host, s, ph, props, f"2-D {cname} host vs class"))
+        w_card = None
+        if on_card is not None:  # the class engine on the card, one state
+            ph, props = on_card(st64, ph_states[1])
+            w_card = compare_class(dev, ph_states[1], ph, props, f"2-D {cname} device vs class on the card")
+        row = dict(S=S, clean_states=int(clean.size), fail_codes=np.bincount(dev["fail_code"], minlength=5).tolist(), phases=np.bincount(dev["n_phases"], minlength=3).tolist(),
+                   worst_device_vs_host=w_eng, worst_vs_class=w_cls, worst_class_on_card=w_card)
+        # states/s: CUDA events around calls that end in the sweep's own
+        # transfer to numpy; warm, median of 3
+        torch.cuda.reset_peak_memory_stats()
+        row["device_ms"] = cuda_ms(lambda: sweep(st64, segment_engine="device", return_surfaces=False))
+        row["device_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        row["host_ms"] = cuda_ms(lambda: sweep(st64, segment_engine="host"))
+        if cname == "joint96":  # joint96_surfaces: the same sweep with the surfaces copied to numpy
+            torch.cuda.reset_peak_memory_stats()
+            row["surfaces_ms"] = cuda_ms(lambda: sweep(st64, segment_engine="device", return_surfaces=True))
+            row["surfaces_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"2-D {cname}: S={S} {jh.data['ln(PI)'].shape[0]}x{jh.data['ln(PI)'].shape[1]} fail codes {row['fail_codes']} phases {row['phases']} | device vs host on {clean.size} tie-free unsaturated states: "
+            f"labels, n_phases, local_maxima, fail_code equal, floats within {w_eng:.3e} | both vs pore_hist(engine='numpy') on states {ph_states.tolist()}: within {w_cls:.3e}"
+            + (f" | class on the card within {w_card:.3e}" if w_card is not None else "") + f" | {smi}")
+        log(f"2-D {cname} times: device {row['device_ms']:.3f} ms = {S / row['device_ms'] * 1e3:.5g} states/s (peak {row['device_peak_gib']:.3f} GiB) | host flood {row['host_ms']:.3f} ms = {S / row['host_ms'] * 1e3:.5g} states/s"
+            + (f" | joint96_surfaces (return_surfaces=True) {row['surfaces_ms']:.3f} ms = {S / row['surfaces_ms'] * 1e3:.5g} states/s (peak {row['surfaces_peak_gib']:.3f} GiB)" if "surfaces_ms" in row else "") + f" | {smi}")
+        if "grid" in c:  # S = 1,024: a 32 x 32 grid, where the rate levels off
+            big = c["grid"](32)
+            nb = n_states(big)
+            out = sweep(big, segment_engine="device")
+            if out["fe"].shape != (nb, 5) or not np.isfinite(out["fe"][out["phase_ok"]]).all() or not (out["n_phases"] >= 1).all():
+                raise AssertionError(f"2-D {cname} S={nb}: shapes, phases or free energies wrong")
+            # 64 states spread over the grid against the host flood
+            idx = np.linspace(0, nb - 1, 64).astype(int)
+            sub = sweep(take(big, idx), segment_engine="host")
+            keep = np.flatnonzero(~out["elev_tie"][idx] & (out["fail_code"][idx] != 3) & (sub["fail_code"] != 3))
+            sub = {k: v for k, v in sub.items() if k != "elev_tie"}
+            out_s = {k: ([v[i] for i in idx] if k == "local_maxima" else v if k == "prop_names" else v[idx]) for k, v in out.items() if k != "elev_tie"}
+            w_big = compare_2d(sub, out_s, keep, f"2-D {cname} S={nb} device vs host sample")
+            ok = keep
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: sweep(big, segment_engine="device", return_surfaces=False))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            row["big"] = dict(S=nb, device_ms=ms, peak_gib=peak, fail_codes=np.bincount(out["fail_code"], minlength=5).tolist(), sample_states=int(ok.size), worst_device_vs_host=w_big)
+            log(f"2-D {cname} S={nb}: device {ms:.3f} ms = {nb / ms * 1e3:.5g} states/s (peak {peak:.3f} GiB) fail codes {row['big']['fail_codes']} | device vs host on {ok.size} sampled states within {w_big:.3e} | {smi}")
+            if cname == "joint96":  # where the device engine's time goes, and a utils.profiling window over one call
+                row["stages"] = {S_: joint_stages(C, jh, st) for S_, st in ((S, st64), (nb, big))}
+                for S_, stg in row["stages"].items():
+                    log(f"2-D joint96 S={S_} stages (CUDA events, warm, median of 3): " + ", ".join(f"{k} {v:.3f} ms" for k, v in stg.items()) + f" | {smi}")
+                with prof_mod.trace(os.path.join(ROOT, "_profiles", "joint96")) as prof:
+                    sweep(big, segment_engine="device", return_surfaces=False)
+                    torch.cuda.synchronize()
+                row["profile"] = window_stats(prof, top=8)
+                log_window(f"profile joint96 S={nb} device x1", None, row["profile"], smi)
+        res[cname] = row
+
+    # exact elevation ties: fail_code 4 without the fallback, the host flood's
+    # answer with it; and saturated peak slots: fail_code 3 on both engines
+    jt = TC.tie_joint(TC.joint(TC.pore13_entries()))
+    ps, bs = TC.pore_states(8)
+    host = two_dim.pore_state_sweep(jt, fh, ps, bs, 1.0, nnebr=1, max_peaks=4, device=C.dev, segment_engine="host")
+    flag = two_dim.pore_state_sweep(jt, fh, ps, bs, 1.0, nnebr=1, max_peaks=4, device=C.dev, segment_engine="device")
+    if not flag["elev_tie"].all() or not (flag["fail_code"][host["fail_code"] == 0] == 4).all():
+        raise AssertionError("2-D tie: every state must be flagged, and the clean ones report fail_code 4")
+    for rs in (True, False):
+        fb = two_dim.pore_state_sweep(jt, fh, ps, bs, 1.0, nnebr=1, max_peaks=4, device=C.dev, segment_engine="device", tie_fallback=True, return_surfaces=rs)
+        if (fb["fail_code"] == 4).any():
+            raise AssertionError("2-D tie: tie_fallback left fail_code 4")
+        if not rs:
+            fb = dict(fb, lnpi=fb["lnpi"].cpu().numpy(), labels=fb["labels"].cpu().numpy())
+        w_tie = compare_2d(dict(host, elev_tie=fb["elev_tie"]), fb, np.arange(len(ps)), f"2-D tie_fallback (return_surfaces={rs}) vs host")
+    sat_h = two_dim.pore_state_sweep(TC.joint(TC.pore13_entries()), fh, ps, bs, 1.0, nnebr=1, max_peaks=0, device=C.dev, segment_engine="host")
+    sat_d = two_dim.pore_state_sweep(TC.joint(TC.pore13_entries()), fh, ps, bs, 1.0, nnebr=1, max_peaks=0, device=C.dev, segment_engine="device")
+    if not ((sat_h["fail_code"] == 3).all() and np.array_equal(sat_h["fail_code"], sat_d["fail_code"]) and np.array_equal(sat_h["n_phases"], sat_d["n_phases"])):
+        raise AssertionError(f"2-D saturation: fail codes host {sat_h['fail_code'].tolist()} device {sat_d['fail_code'].tolist()}")
+    res["tie"] = dict(states=len(ps), worst_fallback_vs_host=w_tie)
+    log(f"2-D tie case: {len(ps)} pore13 states with a plateau pair: device flags all (fail_code 4 on the clean ones), tie_fallback equals the host flood within {w_tie:.3e} "
+        f"(return_surfaces True and False) | saturation (max_peaks=0): fail_code 3 on all {len(ps)} states on both engines | {smi}")
+    return res
 
 
 def run():
@@ -870,20 +1150,8 @@ def run():
         for _ in range(3):
             mb_auto()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events() if e.device_type.name == "CUDA" and e.time_range.end > e.time_range.start)
-    profile_mb = None
-    if spans:
-        busy, end = 0.0, spans[0][0]
-        for t0, t1, _ in spans:  # the union of device intervals
-            busy += max(0.0, t1 - max(t0, end))
-            end = max(end, t1)
-        window = spans[-1][1] - spans[0][0]
-        k2_us = sum(t1 - t0 for t0, t1, n in spans if "mb_sweep_thermo_kernel" in n)
-        profile_mb = dict(window_ms=window / 1e3, device_busy_ms=busy / 1e3, k2_ms=k2_us / 1e3, k2_share_of_device=k2_us / busy, idle_share=1 - busy / window, device_ops=len(spans))
-        log(f"profile mb31_o2 auto x3: window {window / 1e3:.3f} ms (first to last device op), device busy {busy / 1e3:.3f} ms, "
-            f"K2 {k2_us / 1e3:.3f} ms = {100 * k2_us / busy:.1f}% of device time, idle {100 * (1 - busy / window):.1f}% of the window, {len(spans)} device ops | {smi}")
-    else:
-        log("profile mb31_o2 auto x3: the profiler recorded no device time (not measured)")
+    profile_mb = window_stats(prof, "mb_sweep_thermo_kernel")
+    log_window("profile mb31_o2 auto x3", "K2", profile_mb, smi)
 
     # ---- 5b. coexistence: trace_coexistence on coex573 (K2's paired mode) and
     # find_phase_eq_state over a batch of guesses on n31 (K1) ----
@@ -1042,23 +1310,14 @@ def run():
     with prof_mod.trace(os.path.join(ROOT, "_profiles", "coex573")) as prof:
         SV.trace_coexistence(h, meta, betas, guess, **kw)
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events() if e.device_type.name == "CUDA" and e.time_range.end > e.time_range.start)
-    coex["profile"] = None
-    if spans:
-        busy, end = 0.0, spans[0][0]
-        for t0, t1, _ in spans:
-            busy += max(0.0, t1 - max(t0, end))
-            end = max(end, t1)
-        window = spans[-1][1] - spans[0][0]
-        k2_us = sum(t1 - t0 for t0, t1, n in spans if "mb_sweep_thermo_kernel" in n)
-        coex["profile"] = dict(window_ms=window / 1e3, device_busy_ms=busy / 1e3, k2_ms=k2_us / 1e3, k2_share_of_device=k2_us / busy, idle_share=1 - busy / window, device_ops=len(spans))
-        log(f"profile coex573 auto x1: window {window / 1e3:.3f} ms (first to last device op), device busy {busy / 1e3:.3f} ms, "
-            f"K2 {k2_us / 1e3:.3f} ms = {100 * k2_us / busy:.1f}% of device time, idle {100 * (1 - busy / window):.1f}% of the window, {len(spans)} device ops | {smi}")
-    else:
-        log("profile coex573 auto x1: the profiler recorded no device time (not measured)")
+    coex["profile"] = window_stats(prof, "mb_sweep_thermo_kernel")
+    log_window("profile coex573 auto x1", "K2", coex["profile"], smi)
     mb_runs["coex573"]["coexistence"] = coex
     runs["coex31"]["coexistence"] = coex31
     layout_k2.append(dict(order=kw["order"], paired=True, **coex_layout))
+
+    # ---- 5c. the 2-D surface path (no kernel of its own) ----
+    print(json.dumps({"two_dim": two_dim_phase(C)}))
 
     # ---- 6. the kernels line and the last line ----
     def entry(kname, source, cells, err, **extra):

@@ -17,15 +17,22 @@ written in CUDA C++ for Hopper (``csrc/sweep_thermo.cu``,
 ``csrc/thermo_tail.cuh``; built at first use by ``_build.py``); and the
 host class shells ``histogram.ntot`` / ``histogram.n1`` with their netCDF
 reader and writer (``io``, which imports ``h5py`` only when a file is
-read or written), with ``utils.profiling`` for traces and timers.
+read or written), with ``utils.profiling`` for traces and timers; and the
+2-D surface path: ``two_dim.pore_state_sweep`` over slit-pore lnPI(h, N_tot)
+surfaces and ``two_dim.joint_state_sweep`` over binary lnPI(N_1, N_tot)
+surfaces, on ``core.segment2d`` (surface build, a device watershed and the
+per-phase analysis in plain PyTorch on the card; no Pallas kernel lies on
+the JAX package's 2-D path), the class ``two_dim.pore_hist``, and the host
+flood ``two_dim.imaging`` with its native C++ build (``native``, g++ at
+first use) as the reference-exact cross-check arm.
 Tensors live on the CUDA card unless the caller passes ``device="cpu"``.
 Importing the package needs neither ``nvcc`` nor a GPU.
 """
 
 __version__ = "0.1.0"
 
-from . import binary, core, histogram, io, utils  # noqa: E402,F401
-from .core import derivs, extrap, moments, numerics, ops, pipeline, segment, solve, state  # noqa: F401
+from . import binary, core, histogram, io, native, two_dim, utils  # noqa: E402,F401
+from .core import derivs, extrap, moments, numerics, ops, pipeline, segment, segment2d, solve, state  # noqa: F401
 from .core.state import Hist, HistMeta, from_host, make_hist, to_host  # noqa: F401
 
 __all__ = [
@@ -44,7 +51,9 @@ __all__ = [
     "ops",
     "pipeline",
     "segment",
+    "segment2d",
     "solve",
     "state",
+    "two_dim",
     "utils",
 ]

@@ -1,4 +1,4 @@
-from . import cuda_iso, cuda_mb, cuda_sweep, derivs, extrap, moments, numerics, ops, pipeline, segment, solve, state
+from . import cuda_iso, cuda_mb, cuda_sweep, derivs, extrap, moments, numerics, ops, pipeline, segment, segment2d, solve, state
 from .state import Hist, HistMeta, from_host, make_hist, to_host
 
 __all__ = [
@@ -17,6 +17,7 @@ __all__ = [
     "ops",
     "pipeline",
     "segment",
+    "segment2d",
     "solve",
     "state",
 ]

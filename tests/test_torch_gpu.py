@@ -7,6 +7,9 @@ Imports no JAX, so it runs on the GPU machine:
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 
 (--noconftest: tests/conftest.py imports JAX, which that machine lacks.)
+The 2-D surface path (plain PyTorch on the card, no kernel of its own) is
+held here against the host flood, the class numpy engine and its own CPU
+run.
 
 Segmentation fields (for K3: ok and fail_code) must be equal; fe and the
 properties agree to 1e-10 absolute on valid masked slots (the JAX
@@ -513,3 +516,141 @@ def test_find_phase_eq_state_k1_matches_torch(cuda):
     _, mus_t, err_t, conv_t = TSV.find_phase_eq_state(h, meta, kw["lnZ_tol"], guesses, min_width=kw["min_width"], engine="torch")
     assert torch.equal(conv, conv_t) and conv.all()
     assert float((mus - mus_t).abs().max()) <= 1e-9 and float(err.max()) <= kw["lnZ_tol"] ** 2
+
+
+# ---------------------------------------------------------------------------
+# The 2-D surface path (core.segment2d under two_dim): plain PyTorch on the
+# card, no kernel of its own.  The device watershed against the host flood,
+# the class on the card against its numpy engine, the tie fallback, and the
+# watershed and boundary integrals on the card against the same functions
+# on the CPU (which tests/test_torch_segment2d.py holds against JAX):
+# integers equal, floats within 1e-10 (the card's exp and log).
+# ---------------------------------------------------------------------------
+
+
+def _same_2d(a, b, where, atol=1e-10):
+    a = a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+    b = b.cpu().numpy() if torch.is_tensor(b) else np.asarray(b)
+    assert a.shape == b.shape, where
+    if a.dtype.kind != "f":
+        np.testing.assert_array_equal(a, b, err_msg=where)
+        return
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=where)
+    np.testing.assert_array_equal(np.where(np.isinf(a), a, 0), np.where(np.isinf(b), b, 0), err_msg=where)
+    fin = np.isfinite(a)
+    np.testing.assert_allclose(a[fin], b[fin], rtol=0, atol=atol, err_msg=where)
+
+
+def _same_sweep_2d(a, b, where):
+    assert set(a) == set(b) and a["prop_names"] == b["prop_names"]
+    for x, y in zip(a["local_maxima"], b["local_maxima"]):
+        np.testing.assert_array_equal(x, y, err_msg=where)
+    for k in a:
+        if k not in ("prop_names", "local_maxima", "elev_tie"):
+            _same_2d(a[k], b[k], f"{where}: {k}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("return_surfaces", [True, False])
+@pytest.mark.parametrize("surface", ["pore13", "joint24x97"])
+def test_2d_device_engine_matches_host_flood(cuda, surface, return_surfaces):
+    from fhmcanalysis_torch import two_dim
+    from torch_composites import FH_COEFFS, JOINT_BETA, JOINT_MU_REF, joint, joint_prod_entries, joint_states, pore13_entries, pore_states
+
+    if surface == "pore13":
+        jh, fh = joint(pore13_entries()), two_dim.free_energy_profile.polynomial(FH_COEFFS)
+        ps, bs = pore_states(16)
+
+        def sweep(**kw):
+            return two_dim.pore_state_sweep(jh, fh, ps, bs, 1.0, nnebr=1, max_peaks=4, device=cuda, **kw)
+    else:
+        jh = joint(joint_prod_entries(24, 97))
+
+        def sweep(**kw):
+            return two_dim.joint_state_sweep(jh, JOINT_BETA, JOINT_MU_REF, joint_states(16), nnebr=1, max_peaks=4, device=cuda, **kw)
+
+    dev = sweep(return_surfaces=return_surfaces)  # "auto" is the device engine on the card
+    host = sweep(segment_engine="host")
+    assert torch.is_tensor(dev["labels"]) == (not return_surfaces)
+    assert not torch.is_tensor(dev["labels"]) or dev["labels"].is_cuda
+    assert not dev["elev_tie"].any() and (dev["fail_code"] == 0).all()
+    _same_sweep_2d(host, dev, surface)
+
+
+@pytest.mark.gpu
+def test_2d_class_on_card_matches_numpy_engine(cuda):
+    from fhmcanalysis_torch import two_dim
+    from torch_composites import FH_COEFFS, joint, pore13_entries
+
+    fh = two_dim.free_energy_profile.polynomial(FH_COEFFS)
+    for p, beta in ((0.0, 1.0), (0.08, 0.95)):
+        card = two_dim.pore_hist(joint(pore13_entries()), fh, p, 1.0, beta, device=cuda)
+        host = two_dim.pore_hist(joint(pore13_entries()), fh, p, 1.0, beta, engine="numpy")
+        _same_2d(host.data["ln(PI)"], card.data["ln(PI)"], "ln(PI)")
+        a, b = host.phase_average(nnebr=1, max_peaks=4), card.phase_average(nnebr=1, max_peaks=4)
+        assert sorted(k for k in a if isinstance(k, int)) == sorted(k for k in b if isinstance(k, int)) == [0, 1]
+        for k in (0, 1):
+            for prop in ("N_tot", "U", "F.E./kT"):
+                assert abs(a[k][prop] - b[k][prop]) <= 1e-10, (k, prop)
+        for m in ("activation_kT", "activation_kT_diff"):
+            _same_2d(a[m], b[m], m)
+        _same_2d(host.data["seg"]["transition_state_kT"], card.data["seg"]["transition_state_kT"], "ts")
+        mask = card.data["seg"]["phase_labels"] == 1
+        for prop in ("N_tot", "U"):
+            assert abs(card.thermo(mask)[prop] - host.thermo(mask)[prop]) <= 1e-10
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("return_surfaces", [True, False])
+def test_2d_tie_fallback_on_card(cuda, return_surfaces):
+    from fhmcanalysis_torch import two_dim
+    from torch_composites import FH_COEFFS, joint, pore13_entries, pore_states, tie_joint
+
+    jt, fh = tie_joint(joint(pore13_entries())), two_dim.free_energy_profile.polynomial(FH_COEFFS)
+    ps, bs = pore_states(6)
+    kw = dict(nnebr=1, max_peaks=4, device=cuda, return_surfaces=return_surfaces)
+    flagged = two_dim.pore_state_sweep(jt, fh, ps, bs, 1.0, **kw)
+    assert flagged["elev_tie"].all() and (flagged["fail_code"] == 4).all()
+    fb = two_dim.pore_state_sweep(jt, fh, ps, bs, 1.0, tie_fallback=True, **kw)
+    host = two_dim.pore_state_sweep(jt, fh, ps, bs, 1.0, segment_engine="host", **kw)
+    assert fb["elev_tie"].all() and (fb["fail_code"] == 0).all()
+    assert torch.is_tensor(fb["labels"]) == (not return_surfaces)
+    _same_sweep_2d(host, fb, "tie fallback")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,N", [(13, 21), (5, 29), (3, 149), (96, 385)], ids=["fp3x5", "fp3x15", "fp3x149", "fp3x9-96x385"])
+def test_2d_watershed_on_card_matches_cpu(cuda, H, N):
+    """Pointer jumping on the card at every footprint, > 40 cells included:
+    labels, peaks and flags equal to the CPU's."""
+    import fhmcanalysis_torch.core.segment2d as S2
+    from fhmcanalysis_torch.two_dim.pore_pipeline import _footprint
+    from torch_composites import rand_surface
+
+    rng = np.random.RandomState(H * N)
+    lnpi = np.stack([rand_surface(rng, H, N, rng.randint(1, 6)) for _ in range(8)])
+    valid = np.arange(N)[None, :] <= np.clip(rng.randint(N // 2, N, size=H), 1, N - 1)[:, None]
+    fp = _footprint(H, N, 1).shape
+    cpu = S2.hillclimb_segment_batch(torch.as_tensor(lnpi), torch.as_tensor(valid), fp, 6)
+    card = S2.hillclimb_segment_batch(torch.as_tensor(lnpi, device=cuda), torch.as_tensor(valid, device=cuda), fp, 6)
+    for k in cpu:
+        assert card[k].is_cuda and torch.equal(cpu[k], card[k].cpu()), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["onehot", "segment"])
+def test_2d_boundary_engines_on_card(cuda, engine):
+    import fhmcanalysis_torch.core.segment2d as S2
+    from fhmcanalysis_torch.two_dim.pore_pipeline import _footprint
+    from torch_composites import rand_surface
+
+    rng = np.random.RandomState(9)
+    H, N = 24, 97
+    lnpi = np.stack([rand_surface(rng, H, N, 4) for _ in range(6)])
+    lab = S2.hillclimb_segment_batch(torch.as_tensor(lnpi), torch.ones(H, N, dtype=torch.bool), _footprint(H, N, 1).shape, 6)["labels"]
+    cpu = S2.boundary_pair_integrals(torch.as_tensor(lnpi), lab, 6, engine=engine)
+    card = S2.boundary_pair_integrals(torch.as_tensor(lnpi, device=cuda), lab.to(cuda), 6, engine=engine)
+    for a, b, k in zip(cpu, card, ("min_df", "max_val")):
+        assert b.is_cuda
+        _same_2d(a, b, f"{engine} {k}")
+    assert (cpu[0] > S2._BIGNEG).any()

@@ -20,6 +20,11 @@ and ``ISO31`` / ``ISO1400`` build the isopleth sources and grids from the
 same composites, ``COEX573`` / ``coex_grid`` and ``COEX31`` /
 ``coex31_guesses`` the coexistence solves, and
 ``port_histogram`` the port's histogram class from a dict without a file.
+The 2-D path's surfaces are joint_hist entries (``joint`` enters them into
+either package's class): ``CELLS2D`` holds the pore13, pore96 and joint96
+cells built from copies of the JAX bench's builders and states, beside
+the JAX tests' two-basin, tie and random surfaces, and
+``joint_class_oracle`` runs the class numpy engine on one joint GC state.
 """
 
 from __future__ import annotations
@@ -304,3 +309,187 @@ def worst_abs_diff(got, want, ok) -> float:
     with np.errstate(invalid="ignore"):
         d = np.where(g == w, 0.0, np.abs(g - w))
     return float(d.max()) if d.size else 0.0
+
+
+# ---------------------------------------------------------------------------
+# 2-D surfaces: joint histograms lnPI(h, N_tot) and lnPI(N_1, N_tot)
+# ---------------------------------------------------------------------------
+#
+# Copies of the JAX bench's builders (bench.py:110-210) and of the JAX
+# tests' (test_pore_pipeline.py _two_hill_joint, test_joint_pipeline.py
+# _two_basin_joint, test_device_watershed.py _rand_surface), as lists of
+# joint_hist entries (op_1, lnPI slice, op_2 values, properties) that
+# ``joint`` enters into either package's joint_hist class.
+
+
+def joint(entries, cls=None):
+    """A joint_hist of ``entries`` (default class: the port's)."""
+    if cls is None:
+        from fhmcanalysis_torch.two_dim import joint_hist as cls
+    jh = cls()
+    for op1, lnpi, ops, props in entries:
+        jh.enter(op1, lnpi, ops, props)
+    return jh
+
+
+def pore13_entries():
+    """bench.py _pore_joint, identical to the tests' _two_hill_joint: H=13
+    pore widths, ragged N rows, two Gaussian hills whose relative
+    stability flips with the applied pressure p."""
+    H, N = 13, 21
+    g1_0 = np.exp(-25.0 / 12.0)
+    g2_0 = np.exp(-225.0 / 12.0)
+    out = []
+    for i in range(H):
+        nmax = min(12 + (i // 2) * 2, N - 1)
+        n = np.arange(0, nmax + 1, dtype=float)
+        G1 = np.exp(-((n - 5.0) ** 2) / 12.0) - g1_0
+        G2 = np.exp(-((n - 15.0) ** 2) / 12.0) - g2_0
+        lnpi = 40.0 * np.exp(-((i - 3.0) ** 2) / 8.0) * G1 + 55.0 * np.exp(-((i - 9.0) ** 2) / 8.0) * G2
+        out.append((float(i + 1), lnpi, n.astype(int), {"N_tot": n, "U": -0.5 * n}))
+    return out
+
+
+def pore_states(S):
+    """bench.py _pore_states: S (p, beta) pore targets over the basin flip."""
+    return np.linspace(0.0, 0.1, S), np.linspace(0.92, 1.08, S)[::-1].copy()
+
+
+def pore_prod_entries(H=96, N=385):
+    """bench.py _pore_joint_prod: the two-hill surface at 96 x 385."""
+    n1, n2 = 0.25 * (N - 1), 0.72 * (N - 1)
+    h1, h2 = 0.25 * H, 0.7 * H
+    wn = (0.12 * (N - 1)) ** 2
+    wh = (0.2 * H) ** 2
+    g1_0 = np.exp(-(n1**2) / wn)
+    g2_0 = np.exp(-(n2**2) / wn)
+    out = []
+    for i in range(H):
+        nmax = min(int(0.55 * (N - 1)) + int(i * 0.5 * (N - 1) / H), N - 1)
+        n = np.arange(0, nmax + 1, dtype=float)
+        G1 = np.exp(-((n - n1) ** 2) / wn) - g1_0
+        G2 = np.exp(-((n - n2) ** 2) / wn) - g2_0
+        lnpi = 40.0 * np.exp(-((i - h1) ** 2) / wh) * G1 + 55.0 * np.exp(-((i - h2) ** 2) / wh) * G2
+        out.append((float(i + 1), lnpi, n.astype(int), {"N_tot": n, "U": -0.5 * n}))
+    return out
+
+
+def pore_states_prod(S):
+    """bench.py _pore_states_prod: S (p, beta) targets on the 96 x 385 pore."""
+    return np.linspace(0.0, 0.02, S), np.linspace(0.92, 1.08, S)[::-1].copy()
+
+
+def pore_grid_prod(n):
+    """n x n (p, beta) states over pore_states_prod's ranges, flattened."""
+    p, b = np.meshgrid(np.linspace(0.0, 0.02, n), np.linspace(0.92, 1.08, n)[::-1])
+    return p.ravel().copy(), b.ravel().copy()
+
+
+JOINT_BETA = 1.1
+JOINT_MU_REF = (0.2, -0.3)
+
+
+def joint_prod_entries(H=96, N=385):
+    """bench.py _joint_prod: a binary lnPI(N_1, N_tot) with a vapor-like and
+    a species-1-rich liquid-like basin, ragged rows N_tot >= N_1, sampled at
+    JOINT_BETA and JOINT_MU_REF."""
+    n_v, n_l = 0.16 * (N - 1), 0.72 * (N - 1)
+    h_v, h_l = 0.08 * H, 0.33 * H
+    wn = (0.1 * (N - 1)) ** 2
+    wh = (0.12 * H) ** 2
+    out = []
+    for i in range(H):
+        nt = np.arange(i, N, dtype=float)
+        vap = 30.0 * np.exp(-((i - h_v) ** 2) / wh) * np.exp(-((nt - n_v) ** 2) / wn)
+        liq = 33.0 * np.exp(-((i - h_l) ** 2) / wh) * np.exp(-((nt - n_l) ** 2) / wn)
+        lnpi = vap + liq - 0.08 * nt - 0.3 * i - 8.0 * np.exp(-(nt - i) / 4.0)
+        out.append((float(i), lnpi, nt.astype(int), {"N_tot": nt, "N_1": np.full(nt.shape, float(i)), "U": -0.4 * nt}))
+    return out
+
+
+def joint_states(S):
+    """bench.py _joint_states: S (mu_1, mu_2) targets in the two-basin window."""
+    return np.stack([np.linspace(0.1, 0.4, S), np.linspace(-0.35, -0.25, S)], axis=1)
+
+
+def joint_grid(n):
+    """n x n (mu_1, mu_2) targets over joint_states' window, [n * n, 2]."""
+    m1, m2 = np.meshgrid(np.linspace(0.1, 0.4, n), np.linspace(-0.35, -0.25, n))
+    return np.stack([m1.ravel(), m2.ravel()], axis=1)
+
+
+TWO_BASIN_BETA = 1.1
+TWO_BASIN_MU_REF = (0.2, -0.3)
+
+
+def two_basin_entries():
+    """test_joint_pipeline.py _two_basin_joint: lnPI(N_1, N_tot), a
+    vapor-like and a liquid-like bump, ragged rows N_tot >= N_1."""
+    H, N = 12, 25
+    out = []
+    for i in range(H):
+        nt = np.arange(i, N, dtype=float)
+        b1 = 30.0 * np.exp(-((i - 2.0) ** 2) / 6.0) * np.exp(-((nt - 4.0) ** 2) / 8.0)
+        b2 = 33.0 * np.exp(-((i - 8.0) ** 2) / 6.0) * np.exp(-((nt - 18.0) ** 2) / 8.0)
+        out.append((float(i), b1 + b2 - 0.05 * nt, nt.astype(int), {"N_tot": nt, "N_1": np.full(nt.shape, float(i)), "U": -0.4 * nt}))
+    return out
+
+
+def rand_surface(rng, H, N, nb):
+    """test_device_watershed.py _rand_surface (rng: np.random.RandomState):
+    nb Gaussian bumps plus a deterministic tilt that makes every value
+    distinct without adding maxima."""
+    y, x = np.mgrid[0:H, 0:N]
+    z = np.zeros((H, N))
+    for _ in range(nb):
+        cy, cx = rng.rand() * H, rng.rand() * N
+        amp = 5 + 30 * rng.rand()
+        sy, sx = 2 + 4 * rng.rand(), 3 + 8 * rng.rand()
+        z += amp * np.exp(-((y - cy) ** 2 / (2 * sy**2) + (x - cx) ** 2 / (2 * sx**2)))
+    z += 1e-7 * (y * 1.3 + x * 0.7)
+    return z
+
+
+def tie_joint(jh):
+    """``jh`` made, with an exact within-row plateau pair (test_device_watershed
+    _tied_pore_joint): a pore build's shift is constant along a row, so the
+    tie survives every (p, beta) state."""
+    jh.make()
+    ln = np.asarray(jh.data["ln(PI)"], dtype=float)
+    ln[6, 8] = ln[6, 7]
+    jh.data["ln(PI)"] = ln
+    return jh
+
+
+# The 2-D path's cells: surface builder, states, sweep and knobs.  pore13
+# and pore96 run pore_state_sweep with F(h) = polynomial([0.1, 0.0]), A = 1;
+# joint96 runs joint_state_sweep at JOINT_BETA, JOINT_MU_REF on a surface
+# made once.  nnebr 1 and max_peaks 4 everywhere, as the JAX bench.
+CELLS2D = {
+    "pore13": dict(kind="pore", entries=pore13_entries, states=pore_states, S=64),
+    "pore96": dict(kind="pore", entries=pore_prod_entries, states=pore_states_prod, S=64, grid=pore_grid_prod),
+    "joint96": dict(kind="joint", entries=joint_prod_entries, states=joint_states, S=64, grid=joint_grid),
+}
+FH_COEFFS = [0.1, 0.0]
+
+
+def joint_class_oracle(jh_made, beta, mu_ref, mu_t, nnebr, max_peaks, pore_hist_cls=None):
+    """The numpy class engine's phase_average on one joint GC state: the
+    surface reweighted and normalized in numpy (bench.py _joint_numpy_state's
+    first lines), then the port's pore_hist(engine="numpy") steps on it --
+    its normalize, host watershed, per-phase thermo, ridge guard and
+    transition-state loop.  (A joint surface's rows start at N_tot = N_1,
+    which the class's constructor refuses, so its data is set directly.)"""
+    if pore_hist_cls is None:
+        from fhmcanalysis_torch.two_dim import pore_hist as pore_hist_cls
+    hd = jh_made.data
+    lnpi_raw = np.asarray(hd["ln(PI)"], dtype=np.float64)
+    valid = np.isfinite(lnpi_raw)
+    n1 = np.asarray(hd["op_1"])[:, None]
+    n2 = np.asarray(hd["op_2"])[None, :] - n1
+    x = np.where(valid, lnpi_raw + beta * ((mu_t[0] - mu_ref[0]) * n1 + (mu_t[1] - mu_ref[1]) * n2), -np.inf)
+    m = x[valid].max()
+    ph = pore_hist_cls.__new__(pore_hist_cls)
+    ph.engine, ph.device = "numpy", None
+    ph.data = {"hist": jh_made, "ln(PI)": x - (m + np.log(np.sum(np.exp(x[valid] - m)))), "mask": valid, "edge_idx": np.array(hd["bounds_idx"][:, 1], dtype=int)}
+    return ph, ph.phase_average(nnebr=nnebr, max_peaks=max_peaks)
