@@ -78,9 +78,25 @@ Phases (each raises on failure, so any failure exits non-zero):
      utils.profiling window over one S = 1,024 call (timeline to
      _profiles/joint96/trace.json); an exact tie with and without
      tie_fallback, and saturated slots; a {"two_dim": ...} line;
+  5d. window patching (win_patch, host numpy over the native table reader
+     native/fast_table.cpp, g++; no kernel of its own) on win800: 20
+     FHMCSimulation windows (ntot_window_scaling(800, 25, 20, 5), 5-bin
+     overlaps) cut from a two-species N_tot 0-800 composite, each lnPI
+     shifted by a seeded constant, written by tests/torch_windows.py as
+     final_* files and as checkpoint-named ones (two or three per window)
+     -> get_patch_sequence -> test_nebr_equil(trust=True) -> the steps
+     of fhmc_patch._drive_patch in memory (no h5py here) at offset 1,
+     smooth False and True -> histogram.from_composite(device=card) ->
+     pipeline.mu_sweep_thermo(engine="auto") on the n573-sized mu grid,
+     K1's launch counter reset just before and read just after: the native
+     parser equal to numpy's on every table, both trees patched alike, lnPI
+     within 1e-10 and moments within 1e-12 relative of the source, K1 on
+     the patched composite equal in segmentation and within 1e-10 to K1 on
+     the source and to the plain version on a sample; host times (warm,
+     median of 3) and the host CPU model in a {"win_patch": ...} line;
   6. a {"kernels": [...]} line with each kernel's launches, worst error,
-     times and bound (the 2-D path adds none), then the last line:
-     {"ok": true, "device": {...}}.
+     times and bound (the 2-D path and window patching add none), then the
+     last line: {"ok": true, "device": {...}}.
 
 --dump PATH runs only phases 1-2 and the main paths of K1, K2 and K3 (a
 strided sample of the sweeps' points, every isopleth cell) and K3's parity
@@ -156,7 +172,8 @@ def compare(got, want, props, where):
         d = torch.where(g == w, 0.0, (g - w).abs())  # fe is +inf on a real phase with no mass
         worst[k] = float(d.max()) if d.numel() else 0.0
         if not worst[k] <= TOL:
-            raise AssertionError(f"{where}: {k} differs by {worst[k]:.3e} > {TOL}")
+            at = int(d.reshape(d.shape[0], -1).amax(-1).argmax())
+            raise AssertionError(f"{where}: {k} differs by {worst[k]:.3e} > {TOL} (worst at point {at})")
     return worst
 
 
@@ -299,11 +316,13 @@ class Ctx:
 
         libs = (self.cuda_sweep, self.cuda_mb, self.cuda_iso)
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(len(libs) + 1) as pool:
+        with ThreadPoolExecutor(len(libs) + 2) as pool:
             flood = pool.submit(lambda: native is not None and native.IMAGING_AVAILABLE)  # the 2-D host flood, g++
+            table = pool.submit(lambda: getattr(native, "NATIVE_AVAILABLE", False))  # win_patch's table reader, g++
             list(pool.map(lambda mod: mod._lib(), libs))
-            flood = flood.result()
-        log(f"build: {', '.join(mod.NAME for mod in libs)} ready in {time.perf_counter() - t0:.1f} s; native flood (native/imaging.cpp, g++) {'built' if flood else 'not built'}")
+            flood, table = flood.result(), table.result()
+        log(f"build: {', '.join(mod.NAME for mod in libs)} ready in {time.perf_counter() - t0:.1f} s; native flood (native/imaging.cpp, g++) {'built' if flood else 'not built'}; "
+            f"native table reader (native/fast_table.cpp, g++) {'built' if table else 'not built'}")
         report = {}
         for mod in libs:
             info = self._build.BUILD_INFO.get(mod.NAME, {})
@@ -704,6 +723,172 @@ def two_dim_phase(C):
     log(f"2-D tie case: {len(ps)} pore13 states with a plateau pair: device flags all (fail_code 4 on the clean ones), tie_fallback equals the host flood within {w_tie:.3e} "
         f"(return_surfaces True and False) | saturation (max_peaks=0): fail_code 3 on all {len(ps)} states on both engines | {smi}")
     return res
+
+
+def host_ms(fn, reps=3):
+    """Median host wall time of fn in ms, warm (one call first)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def cpu_model():
+    """The host CPU as /proc/cpuinfo names it: its "model name", or where a
+    virtual machine reports that as unknown, the vendor, family, model and
+    clock; with the cores this process sees."""
+    import platform
+
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break  # the first processor is enough
+                key, _, value = line.partition(":")
+                info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    name = info.get("model name", "unknown")
+    if name == "unknown":
+        name = "%s family %s model %s, %s MHz" % tuple(info.get(k, "?") for k in ("vendor_id", "cpu family", "model", "cpu MHz"))
+        if not info:
+            name = platform.machine()
+    return f"{name} ({len(os.sched_getaffinity(0))} cores)"
+
+
+def win_patch_phase(C, worst):
+    """Phase 5d: window patching (win_patch, host numpy over the native
+    table reader) into a composite that K1 sweeps on the card, on the
+    win800 cell: FHMCSimulation windows cut from a known composite
+    (torch_windows.WIN800) in final_* and checkpoint-named copies ->
+    get_patch_sequence -> test_nebr_equil(trust=True) -> the steps of
+    fhmc_patch._drive_patch in memory (no h5py on this machine) at offset
+    1, smooth False and True -> histogram.from_composite(device=card) ->
+    pipeline.mu_sweep_thermo(engine="auto").  Returns the phase's record
+    and K1's cell for the kernels line; K1 against its plain version on a
+    sample goes into `worst`."""
+    import tempfile
+
+    torch, np, TC, smi = C.torch, C.np, C.TC, C.smi
+    import torch_windows as TW
+    from fhmcanalysis_torch import native
+    from fhmcanalysis_torch.histogram.ntot import histogram
+    from fhmcanalysis_torch.win_patch import fhmc_equil, fhmc_patch, windows
+
+    if not native.NATIVE_AVAILABLE:
+        raise AssertionError("win_patch: the native table reader (native/fast_table.cpp) did not build with g++")
+    cuda_sweep, pipeline, segment, state = C.cuda_sweep, C.pipeline, C.segment, C.state
+    c = TW.WIN800
+    src = TW.ntot_source(c["N"], c["nspec"], c["max_order"], c["seed"], c["beta"], c["mu0"])
+    bounds = windows.ntot_window_scaling(*c["windows"])
+    if len(bounds) != 20 or bounds[0][0] != 0 or bounds[-1][1] != c["N"] - 1:
+        raise AssertionError(f"win800: window set {bounds}")
+    mus = torch.as_tensor(np.linspace(*TC.mu_window(**c), c["B"]), device=C.dev)
+    res = dict(cell="win800", N=c["N"], nspec=c["nspec"], max_order=c["max_order"], windows=len(bounds),
+               bins=[min(u - lo for lo, u in bounds), max(u - lo for lo, u in bounds)], overlap=c["windows"][3], offset=c["offset"], B=c["B"])
+
+    def sweep(h, engine="auto"):
+        out = pipeline.mu_sweep_thermo(h._hist(), h._meta(max_phases=c["max_phases"]), mus, props=True, engine=engine)
+        torch.cuda.synchronize()
+        return out
+
+    raw_src = TC.composite_raw(src, c["nspec"], c["max_order"])
+    want = sweep(histogram.from_composite(raw_src, c["beta"], list(c["mu0"]), smooth=c["smooth"], device=C.dev))
+    nph = torch.bincount(want["n_phases"].long(), minlength=3).tolist()
+    if not bool(want["valid"].all()) or nph[1] == 0 or nph[2] == 0:
+        raise AssertionError(f"win800: the source's sweep must be valid and cross from one phase to two, phases {nph}")
+
+    with tempfile.TemporaryDirectory(prefix="win800_") as tmp:
+        trees = {"final": os.path.join(tmp, "final"), "checkpoint": os.path.join(tmp, "checkpoint")}
+        t0 = time.perf_counter()
+        TW.write_fhmc(trees["final"], src, bounds, seed=c["seed"])
+        TW.write_fhmc(trees["checkpoint"], src, bounds, seed=c["seed"], checkpoints=TW.checkpoint_sets(len(bounds)))
+        res["write_s"] = time.perf_counter() - t0
+        files = sorted(os.path.join(d, f) for t in trees.values() for d, _, fs in os.walk(t) for f in fs)
+        tables = [f for f in files if f.endswith("_lnPI.dat") or "extMom" in f]
+        res["files"], res["tables"], res["bytes"] = len(files), len(tables), sum(os.path.getsize(f) for f in files)
+
+        # the native parser against the numpy one on every table of both trees
+        for f in tables:
+            a, b = native.read_table(f), native.numpy_table(f)
+            if a.shape != b.shape or not np.array_equal(a, b):
+                bad = np.argwhere(a != b)[:1].tolist() if a.shape == b.shape else "shape %s vs %s" % (a.shape, b.shape)
+                raise AssertionError(f"win800: native and numpy parsers differ on {os.path.relpath(f, tmp)} at {bad}")
+        res["parse_ms"] = {"native": host_ms(lambda: [native.read_table(f) for f in tables]),
+                           "numpy": host_ms(lambda: [native.numpy_table(f) for f in tables])}
+
+        seqs = {k: fhmc_patch.get_patch_sequence(t) for k, t in trees.items()}
+        top = ["tmmc-Checkpoint-%d_lnPI.dat" % max(k) for k in TW.checkpoint_sets(len(bounds))]
+        if len(seqs["final"]) != 20 or [s[0].rsplit("/", 1)[1] for s in seqs["checkpoint"]] != top:
+            raise AssertionError("win800: get_patch_sequence missed a window or the highest checkpoint")
+        res["host_ms"] = {"scan_" + k: host_ms(lambda: fhmc_patch.get_patch_sequence(t)) for k, t in trees.items()}
+        maxeq = os.path.join(tmp, "maxEq")
+        safe = fhmc_equil.test_nebr_equil(seqs["final"], 1.0, maxeq, trust=True)
+        if safe != seqs["final"]:
+            raise AssertionError(f"win800: test_nebr_equil kept {len(safe)} of 20 windows")
+        res["host_ms"]["equilibration"] = host_ms(lambda: fhmc_equil.test_nebr_equil(seqs["final"], 1.0, maxeq, trust=True))
+
+        res["smooth"], k1 = {}, None
+        for smooth in (False, True):
+            comp, _, err = TW.patch_in_memory(fhmc_patch, safe, c["offset"], smooth)
+            alt, _, _ = TW.patch_in_memory(fhmc_patch, seqs["checkpoint"], c["offset"], smooth)
+            for k in ("lnpi", "op", "mom"):
+                if not np.array_equal(comp[k], alt[k]):
+                    raise AssertionError(f"win800 smooth={smooth}: the checkpoint-named tree patches to another {k}")
+            d_ln = np.abs(comp["lnpi"] - src["lnpi"])
+            scale = np.where(src["mom"] == 0.0, 1.0, np.abs(src["mom"]))
+            d_mom = np.abs(comp["mom"] - src["mom"]) / scale
+            if not d_ln.max() <= 1e-10:
+                raise AssertionError(f"win800 smooth={smooth}: lnPI differs from the source's by {d_ln.max():.3e} at N = {int(d_ln.argmax())}")
+            if not d_mom.max() <= 1e-12:
+                at = np.unravel_index(int(d_mom.argmax()), d_mom.shape)
+                raise AssertionError(f"win800 smooth={smooth}: moments differ from the source's by {d_mom.max():.3e} relative at {tuple(int(i) for i in at)}")
+            patch = host_ms(lambda: TW.patch_in_memory(fhmc_patch, safe, c["offset"], smooth))
+
+            def k1_call():
+                return sweep(histogram.from_composite(comp, c["beta"], list(c["mu0"]), smooth=c["smooth"], device=C.dev))
+
+            cuda_sweep.sweep_thermo.launches = 0
+            got = k1_call()
+            launches = cuda_sweep.sweep_thermo.launches
+            if launches < 1:
+                raise AssertionError(f"win800 smooth={smooth}: the main path launched K1 {launches} times")
+            if got["fe"].shape != (c["B"], c["max_phases"]) or not bool(torch.isfinite(got["fe"][got["mask"]]).all()):
+                raise AssertionError(f"win800 smooth={smooth}: K1's output has the wrong shape or a non-finite free energy")
+            w_src = compare(got, want, True, f"win800 smooth={smooth} patched vs source composite")
+            hc = histogram.from_composite(comp, c["beta"], list(c["mu0"]), smooth=c["smooth"], device=C.dev)
+            idx = torch.as_tensor(np.random.default_rng(800).choice(c["B"], 4096, replace=False), device=C.dev)
+            plain = pipeline.mu_sweep_thermo(hc._hist(), hc._meta(max_phases=c["max_phases"]), mus[idx], props=True, engine="torch")
+            w_plain = compare({k: v[idx] for k, v in got.items()}, plain, True, f"win800 smooth={smooth} K1 vs plain sample")
+            for k, v in w_plain.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+            res["smooth"][str(smooth)] = dict(launches=launches, worst_patch_err=err, lnpi_abs=float(d_ln.max()), mom_rel=float(d_mom.max()),
+                                              k1_vs_source=w_src, k1_vs_plain=w_plain, patch_ms=patch, from_composite_k1_ms=host_ms(k1_call))
+            log(f"win800 smooth={smooth}: 20 windows -> N={len(comp['lnpi'])}, lnPI within {d_ln.max():.3e} of the source, moments within {d_mom.max():.3e} relative "
+                f"(checkpoint-named tree identical) | K1 launches={launches}, patched vs source composite: segmentation equal, floats within "
+                f"{max(w_src.values()):.3e}; vs plain within {max(w_plain.values()):.3e} | host: patch {patch:.1f} ms, from_composite + K1 "
+                f"{res['smooth'][str(smooth)]['from_composite_k1_ms']:.1f} ms | {smi}")
+            if smooth:  # the kernels line's cell: K1 alone on the patched composite
+                h, meta = hc._hist(), hc._meta(max_phases=c["max_phases"])
+                a = pipeline._reweight_coeff(h, mus)
+                keys = segment.key_rows(h.mom, meta).contiguous()
+                ops = tail_ops(got, c["B"], h.nbins, meta.smooth, 2, 2 * (meta.nspec + 1))
+                b_ms, b_by = bound([h.lnpi, h.op, keys, h.volume, a], got.values(), ops)
+                k1 = dict(B=c["B"], N=h.nbins, lanes=cuda_sweep.lanes_per_point(h.nbins, c["B"], cuda_sweep.sm_count(C.dev.index)), launches=launches,
+                          kernel_ms=cuda_ms(lambda: cuda_sweep.sweep_thermo(h.lnpi, h.op, keys, h.volume, a, meta.smooth, meta.max_phases, True)),
+                          plain_ms=cuda_ms(lambda: pipeline.mu_sweep_thermo(h, meta, mus, props=True, engine="torch")),
+                          auto_ms=cuda_ms(lambda: pipeline.mu_sweep_thermo(h, meta, mus, props=True)), bound_ms=b_ms, bound_by=b_by, ops=ops,
+                          phases=torch.bincount(got["n_phases"].long(), minlength=3).tolist()[1:3], covered_bins=covered_bins(got))
+    res["host_cpu"], res["card"] = cpu_model(), smi
+    log(f"win800: {res['files']} files ({res['bytes'] / 2**20:.1f} MiB) written in {res['write_s']:.2f} s; {res['tables']} tables parsed native "
+        f"{res['parse_ms']['native']:.1f} ms, numpy {res['parse_ms']['numpy']:.1f} ms (equal); host: scan {res['host_ms']['scan_final']:.2f} / "
+        f"{res['host_ms']['scan_checkpoint']:.2f} ms (final / checkpoint names), equilibration {res['host_ms']['equilibration']:.1f} ms | "
+        f"K1 alone {k1['kernel_ms']:.3f} ms, plain {k1['plain_ms']:.3f} ms | host CPU {res['host_cpu']} | {smi}")
+    return res, k1
 
 
 def run():
@@ -1318,6 +1503,10 @@ def run():
 
     # ---- 5c. the 2-D surface path (no kernel of its own) ----
     print(json.dumps({"two_dim": two_dim_phase(C)}))
+
+    # ---- 5d. window patching into a composite K1 sweeps (no kernel of its own) ----
+    wp, runs["win800"] = win_patch_phase(C, worst)
+    print(json.dumps({"win_patch": wp}))
 
     # ---- 6. the kernels line and the last line ----
     def entry(kname, source, cells, err, **extra):

@@ -24,14 +24,18 @@ surfaces, on ``core.segment2d`` (surface build, a device watershed and the
 per-phase analysis in plain PyTorch on the card; no Pallas kernel lies on
 the JAX package's 2-D path), the class ``two_dim.pore_hist``, and the host
 flood ``two_dim.imaging`` with its native C++ build (``native``, g++ at
-first use) as the reference-exact cross-check arm.
+first use) as the reference-exact cross-check arm; and window patching
+(``win_patch``: FHMCSimulation, checkpoint and FEASST window files into
+one composite, host numpy over the native table reader
+``native.read_table``), whose ``to_composite()`` hands the composite to
+``histogram.ntot.histogram.from_composite`` without a file.
 Tensors live on the CUDA card unless the caller passes ``device="cpu"``.
 Importing the package needs neither ``nvcc`` nor a GPU.
 """
 
 __version__ = "0.1.0"
 
-from . import binary, core, histogram, io, native, two_dim, utils  # noqa: E402,F401
+from . import binary, core, histogram, io, native, two_dim, utils, win_patch  # noqa: E402,F401
 from .core import derivs, extrap, moments, numerics, ops, pipeline, segment, segment2d, solve, state  # noqa: F401
 from .core.state import Hist, HistMeta, from_host, make_hist, to_host  # noqa: F401
 
@@ -44,6 +48,7 @@ __all__ = [
     "binary",
     "histogram",
     "io",
+    "native",
     "derivs",
     "extrap",
     "moments",
@@ -56,4 +61,5 @@ __all__ = [
     "state",
     "two_dim",
     "utils",
+    "win_patch",
 ]

@@ -1,12 +1,15 @@
-"""Native (C++) host flood for the 2-D watershed, with a Python fallback.
+"""Native (C++) host code: the window-file table reader and the 2-D
+watershed flood, each with a Python fallback.
 
-The PyTorch port's copy of the watershed half of the JAX package's
-``native/__init__.py``: ``imaging.cpp`` is compiled with g++ on first use
-into ``fhmcanalysis_torch/_build/`` (gitignored), keyed by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one
-loads at once.  If no compiler or Python headers are available the heapq
-flood of ``two_dim.imaging.watershed`` runs instead; it is flood-order
-identical.  ``IMAGING_AVAILABLE`` reports which of the two runs.
+The PyTorch port's copy of the JAX package's ``native/__init__.py``.
+``fast_table.cpp`` (``read_table``, the parser of the window loaders in
+``win_patch``) and ``imaging.cpp`` (the priority flood of
+``two_dim.imaging``) are compiled with g++ on first use into
+``fhmcanalysis_torch/_build/`` (gitignored), keyed by a hash of the source
+and the flags, so an edited source rebuilds and an unchanged one loads at
+once.  If no compiler or Python headers are available, ``np.loadtxt`` and
+the heapq flood run instead; both give the same results.
+``NATIVE_AVAILABLE`` and ``IMAGING_AVAILABLE`` report which runs.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["watershed_native", "IMAGING_AVAILABLE"]
+__all__ = ["read_table", "loadtxt_unpacked", "watershed_native", "NATIVE_AVAILABLE", "IMAGING_AVAILABLE"]
 
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE.parent / "_build"
@@ -66,6 +69,35 @@ def _load(src_name: str, mod_name: str):
     return mod
 
 
+def numpy_table(path: str, comment: str = "#") -> np.ndarray:
+    """The fallback parser of ``read_table``: np.loadtxt to f64 [rows, cols]."""
+    return np.loadtxt(path, dtype=np.float64, comments=comment, ndmin=2)
+
+
+def read_table(path: str, comment: str = "#") -> np.ndarray:
+    """Parse a whitespace-delimited numeric table to f64 [rows, cols].
+
+    Native when available, np.loadtxt otherwise; both reject ragged rows
+    and non-numeric fields (ValueError).
+    """
+    mod = _load("fast_table.cpp", "_fhmc_native")
+    if mod:
+        return mod.read_table(path, comment=comment)
+    return numpy_table(path, comment)
+
+
+def loadtxt_unpacked(path: str) -> np.ndarray:
+    """np.loadtxt(path, unpack=True) equivalent on the fast path.
+
+    Returns [cols, rows] like unpack=True; single-column files come back
+    1-D to match numpy semantics (the window loaders rely on this).
+    """
+    out = read_table(path).T
+    if out.shape[0] == 1:
+        return out[0]
+    return out
+
+
 def watershed_native(image, markers, mask, offsets):
     """Priority-flood watershed (imaging.cpp), or None when it cannot be built.
 
@@ -86,7 +118,9 @@ def watershed_native(image, markers, mask, offsets):
 
 
 def __getattr__(name):
-    # lazy: the extension compiles on first use, not at package import
+    # lazy: each extension compiles on first use, not at package import
+    if name == "NATIVE_AVAILABLE":
+        return bool(_load("fast_table.cpp", "_fhmc_native"))
     if name == "IMAGING_AVAILABLE":
         return bool(_load("imaging.cpp", "_fhmc_imaging"))
     raise AttributeError(name)
