@@ -94,9 +94,26 @@ Phases (each raises on failure, so any failure exits non-zero):
      the patched composite equal in segmentation and within 1e-10 to K1 on
      the source and to the plain version on a sample; host times (warm,
      median of 3) and the host CPU model in a {"win_patch": ...} line;
+  5e. parallel/ over grid_mesh() (the machine's cards) and over four
+     shards of card 0 (grid_mesh(4, devices=[card] * 4)), each route with
+     its launch counter set to 0 just before it and read just after:
+     shard_map_mu_sweep on n573 (K1), sharded_mu_beta_sweep on mb31 at
+     order 1 (K2), sharded_trace_coexistence on coex573 (K2's paired
+     mode), sharded_make_grid on iso31_o1 (834 mu_1 in uneven blocks) and
+     iso1400_o1 (K3), sharded_pore_state_sweep / sharded_joint_state_sweep
+     on pore96 and joint96 at S = 1,024, and surface.py on the n1400
+     composite's lnPI (smooth 2 and 60) and on pore96's surface: one
+     launch a shard (the trace: three or more a shard), the thread's
+     current device unchanged by each call, outputs equal to the one-device
+     call's (floats bit for bit where every shard ran its G, else within
+     1e-10; the normalizations within 1e-12); the G of each shard, sharded
+     and one-device times (CUDA events, warm, median of 3), and a
+     {"parallel": ...} line;
   6. a {"kernels": [...]} line with each kernel's launches, worst error,
-     times and bound (the 2-D path and window patching add none), then the
-     last line: {"ok": true, "device": {...}}.
+     times and bound (the 2-D path and window patching add none; the
+     sharded routes add cells "<cell> mesh cards" / "<cell> mesh x4"
+     with their launches), then the last line: {"ok": true, "device":
+     {...}}.
 
 --dump PATH runs only phases 1-2 and the main paths of K1, K2 and K3 (a
 strided sample of the sweeps' points, every isopleth cell) and K3's parity
@@ -891,6 +908,237 @@ def win_patch_phase(C, worst):
     return res, k1
 
 
+def hold(got, want, same_g, where):
+    """A sharded route's outputs against the one-device call's (dicts of
+    tensors or numpy arrays; 2-D sweep dicts with prop_names and
+    local_maxima): integer and boolean fields equal; floats bit for bit
+    where every shard ran the one-device call's G (same_g), else within
+    TOL with NaN and +-inf in the same places.  Returns (bit-identical,
+    worst float difference)."""
+    import numpy as np
+    import torch
+
+    bits, worst = True, 0.0
+    if set(got) != set(want):
+        raise AssertionError(f"{where}: keys {sorted(set(got) ^ set(want))} differ")
+    for k, w in want.items():
+        g = got[k]
+        if k == "prop_names":
+            if g != w:
+                raise AssertionError(f"{where}: prop_names differ")
+            continue
+        if k == "local_maxima":
+            if len(g) != len(w) or not all(np.array_equal(a, b) for a, b in zip(g, w)):
+                raise AssertionError(f"{where}: local maxima differ")
+            continue
+        if torch.is_tensor(w):
+            g = g.to(w.device)
+        else:
+            g, w = torch.as_tensor(np.asarray(g)), torch.as_tensor(np.asarray(w))
+        if g.shape != w.shape:
+            raise AssertionError(f"{where}: {k} has shape {tuple(g.shape)}, the one-device call {tuple(w.shape)}")
+        if not w.is_floating_point():
+            if not torch.equal(g, w):
+                raise AssertionError(f"{where}: {k} differs at {(g != w).nonzero()[:5].tolist()}")
+            continue
+        same = (g == w) | (g.isnan() & w.isnan())
+        d = torch.where(same, 0.0, (g - w).abs())
+        dk = float(d.max()) if d.numel() else 0.0
+        bits &= dk == 0.0
+        if not dk <= TOL:
+            raise AssertionError(f"{where}: {k} differs by {dk:.3e} > {TOL}")
+        worst = max(worst, dk)
+    if same_g and not bits:
+        raise AssertionError(f"{where}: every shard ran the one-device call's G, yet the floats are not bit-identical (worst {worst:.3e})")
+    return bits, worst
+
+
+def parallel_phase(C):
+    """Phase 5e: parallel/ on the card, over the machine's cards
+    (grid_mesh()) and over four shards of card 0 (grid_mesh(4, devices=
+    [card] * 4)): shard_map_mu_sweep on n573 (K1), sharded_mu_beta_sweep
+    on mb31 at order 1 (K2), sharded_trace_coexistence on coex573 (K2's
+    paired mode), sharded_make_grid on iso31_o1 and iso1400_o1 (K3),
+    sharded_pore_state_sweep / sharded_joint_state_sweep on pore96 and
+    joint96 at S = 1,024, and surface.py on the n1400 composite's lnPI
+    (smooth 2 and 60) and on pore96's surface.  Each route's launch
+    counter is set to 0 just before it and read just after: each shard
+    launches its kernel once (the trace: at least three times a shard);
+    the thread's current device is the same before and after each call;
+    the outputs equal the one-device call's (hold), floats bit for bit
+    where every shard ran its G.  Sharded and one-device times with CUDA
+    events (warm, median of 3).  Returns the phase's record and the
+    kernels line's sharded cells by kernel name."""
+    torch, np, TC, smi, dev = C.torch, C.np, C.TC, C.smi, C.dev
+    from fhmcanalysis_torch import parallel, two_dim
+    from fhmcanalysis_torch.core import numerics, segment2d
+    from fhmcanalysis_torch.core import solve as SV
+
+    cuda_sweep, cuda_mb, cuda_iso, pipeline, segment, state = C.cuda_sweep, C.cuda_mb, C.cuda_iso, C.pipeline, C.segment, C.state
+    n_sm = cuda_sweep.sm_count(dev.index)
+    meshes = {"cards": parallel.grid_mesh(), "x4": parallel.grid_mesh(4, devices=[dev] * 4)}
+    res = {name: dict(shape=mesh.shape, devices=[str(d) for d in mesh.device_list()]) for name, mesh in meshes.items()}
+    cells = {cuda_sweep.NAME: {}, cuda_mb.NAME: {}, cuda_iso.NAME: {}}
+
+    def driven(counter, fn):
+        """fn() with the counter set to 0 just before and read just after;
+        the current device must not move."""
+        before = torch.cuda.current_device()
+        counter.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        n = counter.launches
+        if torch.cuda.current_device() != before:
+            raise AssertionError(f"the sharded call left card {torch.cuda.current_device()} current, not {before}")
+        return out, n
+
+    def sizes(n, shards):
+        return [len(b) for b in np.array_split(np.arange(n), shards) if len(b)]
+
+    def record(name, kname, cname, row, sharded, single):
+        row.update(sharded_ms=cuda_ms(sharded), single_ms=cuda_ms(single))
+        res[name][cname] = row
+        if kname is not None:
+            cells[kname][f"{cname} mesh {name}"] = row
+        log(f"parallel {name} {cname}: shards {row['shards']} launches {row.get('launches', '-')} G per shard {row.get('lanes', '-')} (one device G={row.get('single_lanes', '-')}) | "
+            f"bit-identical to the one-device call {row['bit_identical']}, worst float diff {row['worst']:.3e} | sharded {row['sharded_ms']:.3f} ms, one device {row['single_ms']:.3f} ms | {smi}")
+
+    d573, mk573, mus573 = TC.cell("n573")
+    h573, m573 = C.hist(d573), state.HistMeta(**mk573)
+    mus573 = torch.as_tensor(mus573, device=dev)
+    dmb, mkmb, musmb, betas, dmus = TC.mb_grid()
+    hmb, mmb = C.hist(dmb), state.HistMeta(**mkmb)
+    musmb = torch.as_tensor(musmb, device=dev)
+    dco, mkco, betas_co, guess, kwco = TC.coex_grid()
+    hco, mco = C.hist(dco), state.HistMeta(**mkco)
+    d1400, _, _ = TC.cell("n1400")
+    x1400 = torch.as_tensor(d1400["lnpi"], device=dev)
+    fh = two_dim.free_energy_profile.polynomial(TC.FH_COEFFS)
+    cells2d = {}
+    for cname in ("pore96", "joint96"):
+        c = TC.CELLS2D[cname]
+        jh = TC.joint(c["entries"]())
+        jh.make()
+        cells2d[cname] = (c["kind"], jh, c["grid"](32))
+    pore_raw = np.asarray(cells2d["pore96"][1].data["ln(PI)"], dtype=np.float64)
+    pore_edge = np.asarray(cells2d["pore96"][1].data["bounds_idx"][:, 1])
+    pore_valid = torch.as_tensor(np.arange(pore_raw.shape[1])[None, :] <= pore_edge[:, None], device=dev)
+    pore_x = torch.as_tensor(pore_raw, device=dev)
+
+    for name, mesh in meshes.items():
+        k = mesh.size
+
+        # K1: the mu sweep on n573
+        single = pipeline.mu_sweep_thermo(h573, m573, mus573)
+        (got, fe_min), n = driven(cuda_sweep.sweep_thermo, lambda: parallel.shard_map_mu_sweep(mesh, h573, m573, mus573))
+        B = mus573.shape[0]
+        lanes = [cuda_sweep.lanes_per_point(h573.nbins, b, n_sm) for b in sizes(B, k)]
+        g1 = cuda_sweep.lanes_per_point(h573.nbins, B, n_sm)
+        if n != k:
+            raise AssertionError(f"parallel {name} n573: {n} K1 launches for {k} shards")
+        bits, w = hold(got, single, all(G == g1 for G in lanes), f"parallel {name} n573")
+        want_min = torch.where(single["mask"], single["fe"], torch.inf).min()
+        if bits and not torch.equal(fe_min, want_min):
+            raise AssertionError(f"parallel {name} n573: global min fe {float(fe_min)} != {float(want_min)}")
+        record(name, cuda_sweep.NAME, "n573", dict(B=B, N=h573.nbins, shards=k, launches=n, lanes=lanes, single_lanes=g1, bit_identical=bits, worst=w),
+               lambda: parallel.shard_map_mu_sweep(mesh, h573, m573, mus573), lambda: pipeline.mu_sweep_thermo(h573, m573, mus573))
+        del single, got
+
+        # K2's product mode: the (mu, beta, dMu) sweep on mb31 at order 1
+        single = pipeline.mu_beta_sweep_thermo(hmb, mmb, musmb, betas, dmus, order=1)
+        (got, _), n = driven(cuda_mb.mb_sweep_thermo, lambda: parallel.sharded_mu_beta_sweep(mesh, hmb, mmb, musmb, betas, dmus, order=1))
+        M, A = musmb.shape[0], len(betas)
+        lanes = [cuda_mb.lanes_per_point(hmb.nbins, b * A, n_sm) for b in sizes(M, k)]
+        g1 = cuda_mb.lanes_per_point(hmb.nbins, M * A, n_sm)
+        if n != k:
+            raise AssertionError(f"parallel {name} mb31_o1: {n} K2 launches for {k} shards")
+        bits, w = hold(got, single, all(G == g1 for G in lanes), f"parallel {name} mb31_o1")
+        record(name, cuda_mb.NAME, "mb31_o1", dict(M=M, A=A, N=hmb.nbins, shards=k, launches=n, lanes=lanes, single_lanes=g1, bit_identical=bits, worst=w),
+               lambda: parallel.sharded_mu_beta_sweep(mesh, hmb, mmb, musmb, betas, dmus, order=1), lambda: pipeline.mu_beta_sweep_thermo(hmb, mmb, musmb, betas, dmus, order=1))
+        del single, got
+
+        # K2's paired mode: the coexistence trace on coex573, betas split
+        single = SV.trace_coexistence(hco, mco, betas_co, guess, **kwco)
+        got, n = driven(cuda_mb.mb_sweep_thermo, lambda: parallel.sharded_trace_coexistence(mesh, hco, mco, betas_co, guess, **kwco))
+        T = len(betas_co)
+        lanes = [cuda_mb.lanes_per_point(hco.nbins, 5 * b, n_sm) for b in sizes(T, k)]  # a step: 5 candidates a beta
+        g1 = cuda_mb.lanes_per_point(hco.nbins, 5 * T, n_sm)
+        if n < 3 * k or not bool(got["converged"].all()):
+            raise AssertionError(f"parallel {name} coex573: {n} K2 launches for {k} shards, {int(got['converged'].sum())}/{T} converged")
+        bits, w = hold(got, single, all(G == g1 for G in lanes), f"parallel {name} coex573")
+        record(name, cuda_mb.NAME, "coex573", dict(T=T, N=hco.nbins, shards=k, launches=n, lanes=lanes, single_lanes=g1, bit_identical=bits, worst=w),
+               lambda: parallel.sharded_trace_coexistence(mesh, hco, mco, betas_co, guess, **kwco), lambda: SV.trace_coexistence(hco, mco, betas_co, guess, **kwco))
+
+        # K3: make_grid on iso31_o1 and iso1400_o1, mu_1 columns split
+        for cname, gname in (("iso31_o1", "ISO31"), ("iso1400_o1", "ISO1400")):
+            g, iso, grid, srcs, mk, lr, wts, mu1_v, dmu2_v = C.iso_main(gname, 1)
+            keys = ("Z", "density", "F.E./kT", "valid", "fail_code")
+            iso.make_grid(*grid)
+            single = {key: iso.data[key].copy() for key in keys}
+            _, n = driven(cuda_iso.iso_grid, lambda: parallel.sharded_make_grid(mesh, iso, *grid))
+            NX, NY, N = g["NX"], g["NY"], srcs[0].nbins
+            cols = sizes(NX, k)
+            lanes = [cuda_iso.lanes_per_cell(N, NY * b, n_sm) for b in cols]
+            g1 = cuda_iso.lanes_per_cell(N, NY * NX, n_sm)
+            if n != len(cols):
+                raise AssertionError(f"parallel {name} {cname}: {n} K3 launches for {len(cols)} column blocks")
+            bits, w = hold({key: iso.data[key] for key in keys}, single, all(G == g1 for G in lanes), f"parallel {name} {cname}")
+            record(name, cuda_iso.NAME, cname, dict(NX=NX, NY=NY, N=N, shards=k, columns=cols, launches=n, lanes=lanes, single_lanes=g1, bit_identical=bits, worst=w),
+                   lambda: parallel.sharded_make_grid(mesh, iso, *grid), lambda: iso.make_grid(*grid))
+
+        # the 2-D device sweeps at S = 1,024 (no kernel of their own)
+        for cname, (kind, jh, states) in cells2d.items():
+            if kind == "pore":
+                def one(**kw):
+                    return two_dim.pore_state_sweep(jh, fh, states[0], states[1], 1.0, nnebr=1, max_peaks=4, device=dev, **kw)
+
+                def sharded(**kw):
+                    return parallel.sharded_pore_state_sweep(mesh, jh, fh, states[0], states[1], 1.0, nnebr=1, max_peaks=4, **kw)
+
+                S = len(states[0])
+            else:
+                def one(**kw):
+                    return two_dim.joint_state_sweep(jh, TC.JOINT_BETA, TC.JOINT_MU_REF, states, nnebr=1, max_peaks=4, device=dev, **kw)
+
+                def sharded(**kw):
+                    return parallel.sharded_joint_state_sweep(mesh, jh, TC.JOINT_BETA, TC.JOINT_MU_REF, states, nnebr=1, max_peaks=4, **kw)
+
+                S = len(states)
+            before = torch.cuda.current_device()
+            got = sharded()
+            if torch.cuda.current_device() != before:
+                raise AssertionError(f"parallel {name} {cname}: the sharded call left another card current")
+            bits, w = hold(got, one(), False, f"parallel {name} {cname} S={S}")  # the per-phase averages are one einsum over a shard's states
+            record(name, None, f"{cname} S={S}", dict(S=S, shards=k, states=sizes(S, k), bit_identical=bits, worst=w),
+                   lambda: sharded(return_surfaces=False), lambda: one(return_surfaces=False))
+
+        # surface.py: the halo stencil and extrema on n1400's lnPI, the
+        # normalizations on it and on pore96's surface
+        for smooth in (2, 60):
+            fm, fn = segment.stencil_flags(x1400[None], smooth)
+            gm, gn = parallel.sharded_stencil_flags(mesh, x1400, smooth)
+            ext = segment.relextrema(x1400[None], smooth, 8)
+            got = parallel.sharded_relextrema(mesh, x1400, smooth, 8)
+            if not (torch.equal(torch.cat(gm), fm[0]) and torch.equal(torch.cat(gn), fn[0])):
+                raise AssertionError(f"parallel {name} n1400 smooth={smooth}: stencil flags differ")
+            for f in ("maxima", "n_max", "minima", "n_min", "valid"):
+                if not torch.equal(getattr(got, f), getattr(ext, f)[0]):
+                    raise AssertionError(f"parallel {name} n1400 smooth={smooth}: relextrema's {f} differs")
+            record(name, None, f"n1400 relextrema smooth={smooth}", dict(N=x1400.shape[0], shards=k, bins_per_shard=x1400.shape[0] // k, halo_fallback=smooth >= x1400.shape[0] // k,
+                                                                           bit_identical=True, worst=0.0, n_max=int(ext.n_max[0])),
+                   lambda: parallel.sharded_relextrema(mesh, x1400, smooth, 8), lambda: segment.relextrema(x1400[None], smooth, 8))
+        w_long = float((torch.cat(parallel.sharded_normalize_long(mesh, x1400)) - numerics.normalize_lnpi(x1400)).abs().max())
+        got2 = torch.cat(parallel.sharded_normalize_2d(mesh, pore_x, pore_valid))
+        w_2d = float((got2 - segment2d.normalize_2d(pore_x, pore_valid))[pore_valid].abs().max())
+        if not (w_long <= 1e-12 and w_2d <= 1e-12):
+            raise AssertionError(f"parallel {name}: normalize_long within {w_long:.3e}, normalize_2d within {w_2d:.3e} (bar 1e-12)")
+        record(name, None, "n1400 normalize_long", dict(N=x1400.shape[0], shards=k, bit_identical=w_long == 0.0, worst=w_long),
+               lambda: parallel.sharded_normalize_long(mesh, x1400), lambda: numerics.normalize_lnpi(x1400))
+        record(name, None, "pore96 normalize_2d", dict(rows=pore_x.shape[0], shards=k, rows_per_shard=pore_x.shape[0] // k, bit_identical=w_2d == 0.0, worst=w_2d),
+               lambda: parallel.sharded_normalize_2d(mesh, pore_x, pore_valid), lambda: segment2d.normalize_2d(pore_x, pore_valid))
+    return res, cells
+
+
 def run():
     C = Ctx()
     torch, np, TC = C.torch, C.np, C.TC
@@ -1507,6 +1755,12 @@ def run():
     # ---- 5d. window patching into a composite K1 sweeps (no kernel of its own) ----
     wp, runs["win800"] = win_patch_phase(C, worst)
     print(json.dumps({"win_patch": wp}))
+
+    # ---- 5e. parallel/: the mesh over the machine's cards and four shards of one ----
+    par, par_cells = parallel_phase(C)
+    print(json.dumps({"parallel": par}))
+    for cells_k, add_k in ((runs, par_cells[cuda_sweep.NAME]), (mb_runs, par_cells[cuda_mb.NAME]), (iso_runs, par_cells[cuda_iso.NAME])):
+        cells_k.update(add_k)
 
     # ---- 6. the kernels line and the last line ----
     def entry(kname, source, cells, err, **extra):

@@ -28,14 +28,18 @@ first use) as the reference-exact cross-check arm; and window patching
 (``win_patch``: FHMCSimulation, checkpoint and FEASST window files into
 one composite, host numpy over the native table reader
 ``native.read_table``), whose ``to_composite()`` hands the composite to
-``histogram.ntot.histogram.from_composite`` without a file.
+``histogram.ntot.histogram.from_composite`` without a file; and the
+multi-device split (``parallel``: a mesh over a list of devices, one
+contiguous block of each state-point grid per device through the
+single-device call and its kernel, behind ``make_grid(mesh=...)`` and the
+2-D sweeps' ``mesh=`` too, and the halo exchange of long surfaces).
 Tensors live on the CUDA card unless the caller passes ``device="cpu"``.
 Importing the package needs neither ``nvcc`` nor a GPU.
 """
 
 __version__ = "0.1.0"
 
-from . import binary, core, histogram, io, native, two_dim, utils, win_patch  # noqa: E402,F401
+from . import binary, core, histogram, io, native, parallel, two_dim, utils, win_patch  # noqa: E402,F401
 from .core import derivs, extrap, moments, numerics, ops, pipeline, segment, segment2d, solve, state  # noqa: F401
 from .core.state import Hist, HistMeta, from_host, make_hist, to_host  # noqa: F401
 
@@ -49,6 +53,7 @@ __all__ = [
     "histogram",
     "io",
     "native",
+    "parallel",
     "derivs",
     "extrap",
     "moments",

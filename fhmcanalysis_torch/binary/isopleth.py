@@ -34,6 +34,7 @@ import torch
 from ..core import cuda_iso, cuda_sweep, ops, pipeline, segment
 from ..core.state import HistMeta
 from ..histogram import ntot as gch
+from ..parallel.mesh import _blocks, _on, replicate
 
 __all__ = [
     "isopleth",
@@ -371,13 +372,15 @@ class isopleth(object):
         version; "torch" forces the plain version, "cuda" the kernel (it
         raises for CPU histograms).  mu1_chunk sizes only the plain
         version's mu_1 blocks (default: pipeline._PLAIN_CHUNK_ELEMS).
-        mesh: the multi-device split of the JAX package needs the port of
-        parallel/, which does not exist yet; passing one raises.
+        mesh: a parallel.grid_mesh; the mu_1 columns are split into one
+        contiguous block per mesh device (both axes flattened), the
+        sources go to each device once, and each device evaluates its
+        block through iso_grid (mu1_chunk per block); the bracket runs
+        once on the host.  Cells are independent, so the surface is the
+        single-device one.
         collect: optional segment.COLLECT_TRANSFORMS key ("janus")
         applied per cell.
         """
-        if mesh is not None:
-            raise NotImplementedError("make_grid(mesh=...) needs the port of parallel/, which does not exist yet; run on one device")
         mu1_v, dmu2_v = self._grids(mu1_bounds, dmu2_bounds, delta)
         self.data["X"], self.data["Y"] = np.meshgrid(mu1_v, dmu2_v)
 
@@ -393,12 +396,20 @@ class isopleth(object):
                 raise Exception("Isopleth source histograms must share the same order-parameter range")
 
         lr, wts = self._bracket(dmu2_v, m)
-        out = iso_grid(
-            [h._hist() for h in hs], [h._meta() for h in hs], mu1_v, dmu2_v, lr, wts,
-            self.meta["beta"], self.meta["order"], self.meta["cutoff"], collect=collect, engine=engine, mu1_chunk=mu1_chunk,
-        )
-        for key, v in zip(("Z", "density", "F.E./kT", "valid", "fail_code"), out):
-            self.data[key] = v.cpu().numpy()
+        srcs, metas = [h._hist() for h in hs], [h._meta() for h in hs]
+        if mesh is None:
+            shards = [(None, srcs, mu1_v)]
+        else:  # one column block per device, queued before any comes back
+            shards = list(zip(mesh.device_list(), replicate(mesh, srcs), _blocks(mu1_v, mesh.size)))
+        outs = []
+        for d, s, cols in shards:
+            with _on(d):
+                outs.append(iso_grid(
+                    s, metas, cols, dmu2_v, lr, wts,
+                    self.meta["beta"], self.meta["order"], self.meta["cutoff"], collect=collect, engine=engine, mu1_chunk=mu1_chunk,
+                ))
+        for k, key in enumerate(("Z", "density", "F.E./kT", "valid", "fail_code")):
+            self.data[key] = np.concatenate([o[k].cpu().numpy() for o in outs], axis=1)
         return self.data["Z"], (self.data["X"], self.data["Y"])
 
     # the chunked variant of the reference is subsumed by the batched path

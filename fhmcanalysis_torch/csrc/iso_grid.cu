@@ -55,6 +55,7 @@
 // at every G; the tail's sums, and so the floats, depend on G in the last
 // bits.
 
+#include "device_guard.cuh"
 #include "extrap_rows.cuh"
 #include "thermo_tail.cuh"
 
@@ -280,7 +281,8 @@ int iso_grid_staged_sources(int G, int W, int NX, int NY, int N, int R, int KG) 
 
 // Launches the kernel at G lanes per cell on `stream` and returns
 // cudaGetLastError() (0 on success; cudaErrorInvalidValue for a G the
-// library does not build: 1 and 32 only, cuda_sweep.LANES).  Does not
+// library does not build: 1 and 32 only, cuda_sweep.LANES) on `device`,
+// and leaves the thread's current device as it found it.  Does not
 // synchronise.  All pointers are device pointers; the caller has checked
 // shapes, dtypes and bounds (nspec 2: R = 2 or 5 x-rows and KG = 3 or 6
 // key-row groups at order 1 or 2).
@@ -289,8 +291,8 @@ int iso_grid_launch(int device, void* stream, int G, const double* lnpi, const d
                     const double* wts, const double* tg, const double* volume, int W, int NX, int NY, int N, int R,
                     int KG, int P, int smooth, int order, int janus, double cutoff, double* z, double* rho, double* fe,
                     unsigned char* ok, int* code) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const fhmc::DeviceGuard on(device);  // the caller's current device is back on every return
+  if (on.status() != cudaSuccess) return (int)on.status();
   const long long B = (long long)NX * NY;
   if (B <= 0) return 0;
   const Args g{lnpi, op, xrows, krows, a, edge, mu, lr, wts, tg, volume, W, NX, NY, N, R, KG, P, smooth, order, janus,

@@ -46,6 +46,7 @@
 // segmentation agrees bit for bit.  At identity targets every added term
 // is an exact zero and the kernel returns K1's output bit for bit.
 
+#include "device_guard.cuh"
 #include "extrap_rows.cuh"
 #include "thermo_tail.cuh"
 
@@ -178,7 +179,8 @@ const char* mb_sweep_thermo_error_string(int code) { return cudaGetErrorString((
 
 // Launches the kernel at G lanes per point on `stream` and returns
 // cudaGetLastError() (0 on success; cudaErrorInvalidValue for a G the
-// library does not build: 1 and 32 only, cuda_sweep.LANES).  Does not
+// library does not build: 1 and 32 only, cuda_sweep.LANES) on `device`,
+// and leaves the thread's current device as it found it.  Does not
 // synchronise.  All pointers are device pointers (krows may be null
 // without props; tix null selects the product mode, else the paired mode
 // over M points); the caller has checked shapes, dtypes and bounds.  A
@@ -191,8 +193,8 @@ int mb_sweep_thermo_launch(int device, void* stream, int G, const double* lnpi, 
                            int first_order_mom, int janus, double* fe, int* left, int* right, unsigned char* mask,
                            int* n_phases, unsigned char* valid, double* n_i, double* x_i, double* ntot, double* u,
                            double* density) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const fhmc::DeviceGuard on(device);  // the caller's current device is back on every return
+  if (on.status() != cudaSuccess) return (int)on.status();
   if (M <= 0 || A <= 0) return 0;
   const int khess = order >= 2 && !first_order_mom;
   const Args g{lnpi, op, xrows, krows, volume, mu, a, tg, tix, M, A, N, S, P, smooth, order, props, khess, janus,

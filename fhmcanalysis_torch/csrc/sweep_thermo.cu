@@ -29,6 +29,7 @@
 // with -fmad=false) so that it is bit-identical to torch's
 // `lnpi + a[:, None] * op`: segmentation compares x values exactly.
 
+#include "device_guard.cuh"
 #include "thermo_tail.cuh"
 
 namespace {
@@ -102,15 +103,16 @@ const char* sweep_thermo_error_string(int code) { return cudaGetErrorString((cud
 
 // Launches the kernel at G lanes per point on `stream` and returns
 // cudaGetLastError() (0 on success; cudaErrorInvalidValue for a G the
-// library does not build: 1 and 32 only, cuda_sweep.LANES).  Does not
+// library does not build: 1 and 32 only, cuda_sweep.LANES) on `device`,
+// and leaves the thread's current device as it found it.  Does not
 // synchronise.  All pointers are device pointers; the caller has checked
 // shapes, dtypes and bounds.
 int sweep_thermo_launch(int device, void* stream, int G, const double* lnpi, const double* op, const double* keys,
                         const double* volume, const double* a, int B, int N, int S, int P, int smooth, int props,
                         int janus, double* fe, int* left, int* right, unsigned char* mask, int* n_phases,
                         unsigned char* valid, double* n_i, double* x_i, double* ntot, double* u, double* density) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const fhmc::DeviceGuard on(device);  // the caller's current device is back on every return
+  if (on.status() != cudaSuccess) return (int)on.status();
   if (B <= 0) return 0;
   const Args g{lnpi, op, keys, volume, a, B, N, S, P, smooth, props, janus,
                {fe, left, right, mask, n_phases, valid, n_i, x_i, ntot, u, density}};

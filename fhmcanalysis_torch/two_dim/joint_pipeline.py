@@ -28,8 +28,7 @@ import numpy as np
 import torch
 
 from ..core import segment2d as _s2d
-from ..core.state import _device
-from .pore_pipeline import _check_mesh, _footprint, _props_inputs, _resolve_segment_engine, _run_sweep
+from .pore_pipeline import _devices, _footprint, _sharded_sweep
 
 __all__ = ["joint_state_sweep"]
 
@@ -49,10 +48,10 @@ def joint_state_sweep(
     mu_targets : f64[S, 2] absolute (mu_1, mu_2) targets
     nnebr, max_peaks : segmentation knobs (pore_hist.phase_average
                  semantics; the footprint scales with the surface shape)
-    mesh       : raises until the port of parallel/ exists
-    segment_engine, return_surfaces, tie_fallback, device : watershed
-                 engine, surface-fetch, exact-elevation-tie-fallback and
-                 device knobs, pore_state_sweep semantics ("device" = the
+    mesh, segment_engine, return_surfaces, tie_fallback, device : the
+                 state split over a parallel.grid_mesh, watershed engine,
+                 surface-fetch, exact-elevation-tie-fallback and device
+                 knobs, pore_state_sweep semantics ("device" = the
                  whole sweep on the card via the fixed-shape
                  steepest-ascent watershed; "host" = reference-exact
                  priority flood; "auto" = device on the card).
@@ -63,8 +62,7 @@ def joint_state_sweep(
     unresolved device-engine elevation tie), elev_tie, lnpi, labels,
     local_maxima.
     """
-    _check_mesh(mesh)
-    dev = _device(device)
+    devs = _devices(mesh, device)
     # a made histogram (or from_json load) is used read-only; only an
     # unmade one needs the deepcopy that shields the caller from make()'s
     # in-place assembly
@@ -88,15 +86,14 @@ def joint_state_sweep(
     assert mu_targets.ndim == 2 and mu_targets.shape[1] == 2, "mu_targets must be [S, 2] (mu_1, mu_2)"
     dmu1 = mu_targets[:, 0] - float(mu_ref[0])
     dmu2 = mu_targets[:, 1] - float(mu_ref[1])
-    prop_names, inputs = _props_inputs(hd, valid, edge_idx, dev)
 
     P = max_peaks + 1
     fp = _footprint(H, N, nnebr)
-    engine = _resolve_segment_engine(segment_engine, dev)
-    args = [torch.as_tensor(a, device=dev) for a in (lnpi_raw, op1, op2)] + [float(beta)] + [torch.as_tensor(a, device=dev) for a in (dmu1, dmu2)] + [inputs[1]]
-    seg = core = None
-    if engine == "device":
-        lnpi_dev, seg, core = _s2d.joint_sweep_fused(*args, inputs[2], inputs[3], tuple(fp.shape), P, boundary_engine=_s2d.BOUNDARY_SEGMENT_ENGINE)
-    else:
-        lnpi_dev, _ = _s2d.joint_surface_batch(*args)
-    return _run_sweep(engine, lnpi_dev, seg, core, inputs, fp, nnebr, P, prop_names, return_surfaces, tie_fallback)
+
+    def stage1(dev, inputs, engine, dmu1_b, dmu2_b):
+        args = [torch.as_tensor(a, device=dev) for a in (lnpi_raw, op1, op2)] + [float(beta)] + [torch.as_tensor(a, device=dev) for a in (dmu1_b, dmu2_b)] + [inputs[1]]
+        if engine == "device":
+            return _s2d.joint_sweep_fused(*args, inputs[2], inputs[3], tuple(fp.shape), P, boundary_engine=_s2d.BOUNDARY_SEGMENT_ENGINE)
+        return _s2d.joint_surface_batch(*args)[0], None, None
+
+    return _sharded_sweep(devs, (dmu1, dmu2), hd, valid, edge_idx, segment_engine, stage1, fp, nnebr, P, return_surfaces, tie_fallback)

@@ -31,6 +31,7 @@ import torch
 
 from ..core import segment2d as _s2d
 from ..core.state import _device
+from ..parallel.mesh import _blocks, _on
 from .imaging import peak_local_max, watershed
 
 __all__ = ["pore_state_sweep"]
@@ -51,9 +52,14 @@ def _resolve_segment_engine(segment_engine: str, device: torch.device) -> str:
     return segment_engine
 
 
-def _check_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError("mesh= needs the port of parallel/, which does not exist yet; run on one device")
+def _devices(mesh, device) -> list:
+    """The devices a sweep runs on: the mesh's in mesh order, or the one
+    ``device`` names (None: the card)."""
+    if mesh is None:
+        return [_device(device)]
+    if device is not None:
+        raise ValueError("pass device= or mesh=, not both: a mesh names the devices the sweep runs on")
+    return mesh.device_list()
 
 
 def _footprint(len_H: int, len_N: int, nnebr: int):
@@ -222,6 +228,49 @@ def _run_sweep(engine, lnpi_dev, seg, core, inputs, fp, nnebr, P, prop_names, re
     return out
 
 
+def _join(outs: list) -> dict:
+    """Per-shard sweep dicts joined along the state axis: numpy arrays
+    concatenated on the host, tensors on the first shard's device,
+    local_maxima lists chained."""
+    if len(outs) == 1:
+        return outs[0]
+    out = {}
+    for k, v in outs[0].items():
+        if k == "prop_names":
+            out[k] = v
+        elif k == "local_maxima":
+            out[k] = [lm for o in outs for lm in o[k]]
+        elif torch.is_tensor(v):
+            out[k] = torch.cat([o[k].to(v.device) for o in outs])
+        else:
+            out[k] = np.concatenate([o[k] for o in outs])
+    return out
+
+
+def _sharded_sweep(devs, states, hd, valid, edge_idx, segment_engine, stage1, fp, nnebr, P, return_surfaces, tie_fallback):
+    """The pore and joint sweeps over S states split into one contiguous
+    block per device: stage 1 (the device engine's whole sweep) of every
+    block is queued first, each under its device, then each block's back
+    half (_run_sweep) runs, and the blocks are joined.  ``states`` are the
+    per-state host arrays; stage1(dev, inputs, engine, *blocks) returns
+    (lnpi_dev, seg, core)."""
+    n = len(devs)
+    blocks = [_blocks(a, n) for a in states]
+    inputs, staged = {}, []
+    for i, d in enumerate(devs[: len(blocks[0])]):
+        if d not in inputs:  # the surface and its properties go to each device once
+            inputs[d] = _props_inputs(hd, valid, edge_idx, d)
+        engine = _resolve_segment_engine(segment_engine, d)
+        with _on(d):
+            staged.append((d, engine, stage1(d, inputs[d][1], engine, *(b[i] for b in blocks))))
+    outs = []
+    for d, engine, (lnpi_dev, seg, core) in staged:
+        prop_names, inp = inputs[d]
+        with _on(d):
+            outs.append(_run_sweep(engine, lnpi_dev, seg, core, inp, fp, nnebr, P, prop_names, return_surfaces, tie_fallback))
+    return _join(outs)
+
+
 def _props_inputs(hd, valid, edge_idx, dev):
     """(prop_names, (valid, valid, edge_idx, props) with the last three on
     the card) of a made joint histogram's data."""
@@ -244,8 +293,12 @@ def pore_state_sweep(
     beta_vals  : f64[S] inverse temperatures (paired with p_vals)
     A          : cross-sectional area
     nnebr, max_peaks : segmentation knobs (pore_hist.phase_average)
-    mesh       : the multi-device split of the JAX package; raises until
-                 the port of parallel/ exists
+    mesh       : a parallel.grid_mesh; the S states are split into one
+                 contiguous block per mesh device (both axes flattened)
+                 and each block runs this sweep on its device (the
+                 device stages of every block are queued first); states
+                 are independent, so the outputs are the one-device
+                 sweep's.  Give ``mesh`` or ``device``, not both.
     segment_engine : "auto" | "device" | "host" — "device" runs the whole
                  sweep (surfaces + watershed + phase analysis) on the card
                  via the fixed-shape steepest-ascent watershed
@@ -266,9 +319,9 @@ def pore_state_sweep(
                  spliced over the device results; fail_code 4 is then
                  never raised.  When False (default) flagged states keep
                  the device answer and report fail_code 4.
-    device     : where the numerics run; None means the CUDA card and
-                 raises where there is none (pass ``device="cpu"`` for the
-                 CPU)
+    device     : where the numerics run without a mesh; None means the
+                 CUDA card and raises where there is none (pass
+                 ``device="cpu"`` for the CPU)
 
     Returns a dict of slot-padded host arrays (P = max_peaks + 1 slots):
       prop_names   list[K]
@@ -301,8 +354,7 @@ def pore_state_sweep(
       labels       i32[S, H, N]   watershed labels
       local_maxima list[S] of i64[n_phases_s, 2] peak coordinates
     """
-    _check_mesh(mesh)
-    dev = _device(device)
+    devs = _devices(mesh, device)
     # a made histogram (or from_json load) is used read-only; only an
     # unmade one needs the deepcopy that shields the caller from make()'s
     # in-place assembly
@@ -324,15 +376,14 @@ def pore_state_sweep(
     h_vals = np.asarray(hd["op_1"], dtype=np.float64)
     fh_vals = np.array([fh(h) for h in h_vals], dtype=np.float64)
     valid = np.arange(N)[None, :] <= edge_idx[:, None]  # segment2d.valid_mask_2d
-    prop_names, inputs = _props_inputs(hd, valid, edge_idx, dev)
 
     P = max_peaks + 1  # background slot convention of pore_hist.phase_average
     fp = _footprint(H, N, nnebr)
-    engine = _resolve_segment_engine(segment_engine, dev)
-    args = [torch.as_tensor(a, device=dev) for a in (lnpi_raw, h_vals, fh_vals, p_vals)] + [float(A), torch.as_tensor(beta_vals, device=dev), inputs[1]]
-    seg = core = None
-    if engine == "device":
-        lnpi_dev, seg, core = _s2d.pore_sweep_fused(*args, inputs[2], inputs[3], tuple(fp.shape), P, boundary_engine=_s2d.BOUNDARY_SEGMENT_ENGINE)
-    else:
-        lnpi_dev, _ = _s2d.pore_surface_batch(*args)
-    return _run_sweep(engine, lnpi_dev, seg, core, inputs, fp, nnebr, P, prop_names, return_surfaces, tie_fallback)
+
+    def stage1(dev, inputs, engine, p_b, beta_b):
+        args = [torch.as_tensor(a, device=dev) for a in (lnpi_raw, h_vals, fh_vals, p_b)] + [float(A), torch.as_tensor(beta_b, device=dev), inputs[1]]
+        if engine == "device":
+            return _s2d.pore_sweep_fused(*args, inputs[2], inputs[3], tuple(fp.shape), P, boundary_engine=_s2d.BOUNDARY_SEGMENT_ENGINE)
+        return _s2d.pore_surface_batch(*args)[0], None, None
+
+    return _sharded_sweep(devs, (p_vals, beta_vals), hd, valid, edge_idx, segment_engine, stage1, fp, nnebr, P, return_surfaces, tie_fallback)

@@ -654,3 +654,135 @@ def test_2d_boundary_engines_on_card(cuda, engine):
         assert b.is_cuda
         _same_2d(a, b, f"{engine} {k}")
     assert (cpu[0] > S2._BIGNEG).any()
+
+
+# ---------------------------------------------------------------------------
+# parallel/ on the card: four shards of card 0 (grid_mesh(4, devices=
+# ["cuda:0"] * 4)) and every card of the machine (grid_mesh()), each
+# sharded route against its one-device call on the same card.  Each shard
+# launches its kernel once; segmentation (and fail codes, labels, peaks,
+# flags) equal; floats bit for bit where every shard ran the one-device
+# call's G, else within 1e-10; the thread's current device unchanged.
+# ---------------------------------------------------------------------------
+
+
+def _meshes(cuda):
+    from fhmcanalysis_torch.parallel import grid_mesh
+
+    return {"4 shards of card 0": grid_mesh(4, devices=[cuda] * 4), "every card": grid_mesh()}
+
+
+def _close(got, want, same_g, where, atol=1e-10):
+    """Dicts of tensors: integers equal; floats equal when same_g, else
+    within atol with NaN and +-inf in the same places."""
+    assert set(got) == set(want), where
+    for k in want:
+        if same_g or not want[k].is_floating_point():
+            assert torch.equal(got[k].to(want[k].device), want[k]), (where, k)
+        else:
+            _same_2d(got[k], want[k], f"{where}: {k}", atol)
+
+
+def _counted(counter, fn):
+    """(fn(), launches it made, the current device unchanged)"""
+    before, n0 = torch.cuda.current_device(), counter.launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert torch.cuda.current_device() == before, "a sharded call left another card current"
+    return out, counter.launches - n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_name", ["4 shards of card 0", "every card"])
+def test_parallel_mu_sweeps_on_card(cuda, mesh_name):
+    from fhmcanalysis_torch import parallel
+
+    mesh = _meshes(cuda)[mesh_name]
+    d, mk, mus = cell("n31", 2048, max_order=3)
+    h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
+    n_sm = CS.sm_count(cuda.index)
+    same_g = CS.lanes_per_point(h.nbins, 2048 // mesh.size, n_sm) == CS.lanes_per_point(h.nbins, 2048, n_sm)
+    (got, fe_min), n = _counted(CS.sweep_thermo, lambda: parallel.shard_map_mu_sweep(mesh, h, meta, mus))
+    want = TP.mu_sweep_thermo(h, meta, mus)
+    assert n == mesh.size
+    _close(got, want, same_g, "K1 sharded")
+    assert float(fe_min) == float(torch.where(want["mask"], want["fe"], torch.inf).min()) or not same_g
+    betas = np.linspace(0.92, 1.08, 8)
+    dmus = (d["curr_mu"][1:] - d["curr_mu"][0]) + np.linspace(-0.5, 0.5, 8)[:, None]
+    same_g = CS.lanes_per_point(h.nbins, 2048 // mesh.size * 8, n_sm) == CS.lanes_per_point(h.nbins, 2048 * 8, n_sm)
+    for order in (1, 2):
+        (got, _), n = _counted(CM.mb_sweep_thermo, lambda: parallel.sharded_mu_beta_sweep(mesh, h, meta, mus, betas, dmus, order=order))
+        assert n == mesh.size
+        _close(got, TP.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order), same_g, f"K2 sharded order {order}")
+
+
+@pytest.mark.gpu
+def test_parallel_trace_on_card(cuda):
+    from fhmcanalysis_torch import parallel
+
+    d, mk, _ = cell("n31", 1, max_order=3)
+    d, mk = dict(d, lnpi=np.array([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 9, 8, 7, 6, 5, 4, 3, 2, 1, 0, 1, 2, 3, 4, 5, 4, 3, 2, 1, 0], dtype=float)), dict(mk, max_phases=8)
+    h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
+    betas = np.linspace(0.99, 1.01, 8)
+    want = TSV.trace_coexistence(h, meta, betas, 5.0, lnZ_tol=1e-6, min_width=2)
+    for mesh in _meshes(cuda).values():
+        got, n = _counted(CM.mb_sweep_thermo, lambda: parallel.sharded_trace_coexistence(mesh, h, meta, betas, 5.0, lnZ_tol=1e-6, min_width=2))
+        assert n >= 3 * mesh.size  # each shard: the start, its steps, the properties
+        _close(got, want, True, "trace")  # a step's points stay at G = 32 in every shard
+
+
+@pytest.mark.gpu
+def test_parallel_make_grid_on_card(cuda):
+    from fhmcanalysis_torch import parallel
+
+    ds, mk = iso_sources("n31")
+    grid = iso_grid_args(ISO31, NX=64, NY=32)
+    one = isopleth([port_histogram(d, mk, device=cuda) for d in ds], ISO31["beta"], order=1)
+    one.make_grid(*grid)
+    for name, mesh in _meshes(cuda).items():
+        iso = isopleth([port_histogram(d, mk, device=cuda) for d in ds], ISO31["beta"], order=1)
+        _, n = _counted(CI.iso_grid, lambda: parallel.sharded_make_grid(mesh, iso, *grid))
+        assert n == min(mesh.size, 64)
+        for k in ("Z", "density", "F.E./kT", "valid", "fail_code"):
+            assert np.array_equal(iso.data[k], one.data[k]) or (k in ("Z", "density", "F.E./kT") and np.abs(iso.data[k] - one.data[k]).max() <= 1e-10), (name, k)
+
+
+@pytest.mark.gpu
+def test_parallel_2d_sweeps_on_card(cuda):
+    from fhmcanalysis_torch import parallel, two_dim
+    from torch_composites import FH_COEFFS, JOINT_BETA, JOINT_MU_REF, joint, joint_prod_entries, joint_states, pore13_entries, pore_states
+
+    jh, fh = joint(pore13_entries()), two_dim.free_energy_profile.polynomial(FH_COEFFS)
+    ps, bs = pore_states(18)
+    jj = joint(joint_prod_entries(24, 97))
+    for name, mesh in _meshes(cuda).items():
+        got = parallel.sharded_pore_state_sweep(mesh, jh, fh, ps, bs, 1.0, nnebr=1, max_peaks=4)
+        _same_sweep_2d(two_dim.pore_state_sweep(jh, fh, ps, bs, 1.0, nnebr=1, max_peaks=4, device=cuda), got, f"pore {name}")
+        got = parallel.sharded_joint_state_sweep(mesh, jj, JOINT_BETA, JOINT_MU_REF, joint_states(18), nnebr=1, max_peaks=4)
+        _same_sweep_2d(two_dim.joint_state_sweep(jj, JOINT_BETA, JOINT_MU_REF, joint_states(18), nnebr=1, max_peaks=4, device=cuda), got, f"joint {name}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("smooth", [2, 60])
+def test_parallel_surfaces_on_card(cuda, smooth):
+    import fhmcanalysis_torch.core.numerics as TN
+    import fhmcanalysis_torch.core.segment as TSg
+    import fhmcanalysis_torch.core.segment2d as S2
+    from fhmcanalysis_torch import parallel
+
+    d, _, _ = cell("n1400", 1)
+    x = torch.as_tensor(d["lnpi"], device=cuda)
+    fm, fn = TSg.stencil_flags(x[None], smooth)
+    ext = TSg.relextrema(x[None], smooth, 8)
+    rng = np.random.default_rng(smooth)
+    x2 = torch.as_tensor(rng.normal(size=(96, 120)) * 3.0, device=cuda)
+    m2 = torch.as_tensor(np.arange(120)[None, :] <= rng.integers(60, 120, size=96)[:, None], device=cuda)
+    for mesh in _meshes(cuda).values():
+        gm, gn = parallel.sharded_stencil_flags(mesh, x, smooth)
+        assert torch.equal(torch.cat(gm), fm[0]) and torch.equal(torch.cat(gn), fn[0])
+        got = parallel.sharded_relextrema(mesh, x, smooth, 8)
+        for f in ("maxima", "n_max", "minima", "n_min", "valid"):
+            assert torch.equal(getattr(got, f), getattr(ext, f)[0]), f
+        assert (torch.cat(parallel.sharded_normalize_long(mesh, x)) - TN.normalize_lnpi(x)).abs().max() <= 1e-12
+        got2 = torch.cat(parallel.sharded_normalize_2d(mesh, x2, m2))
+        assert (got2 - S2.normalize_2d(x2, m2))[m2].abs().max() <= 1e-12

@@ -37,6 +37,7 @@ from fhmcanalysis_torch.binary.isopleth import (
 )
 from fhmcanalysis_torch.histogram.ntot import histogram
 from fhmcanalysis_torch.io import write_composite
+from fhmcanalysis_torch.parallel import grid_mesh
 from fhmcanalysis_tpu.binary import isopleth as jax_isopleth
 from fhmcanalysis_tpu.histogram.ntot import histogram as jax_histogram
 from torch_composites import ISO31, ISO1400, ISO_FIVE_DMU2, ISO_NARROW, iso_grid_args, iso_sources, port_histogram
@@ -249,18 +250,21 @@ def test_helper_built_sources_equal_file_sources(sources):
 
 def test_engines_on_the_cpu(sources):
     """A CPU histogram never reaches K3: engine='cuda' raises, the launch
-    counter stays at 0, 'torch' equals 'auto'; mesh= raises until
-    parallel/ is ported."""
+    counter stays at 0, 'torch' equals 'auto', and so does a mesh of CPU
+    devices (mesh=; tests/test_torch_parallel.py holds it against JAX)."""
     iso = isopleth(sources()[0], 1.02, order=1)
     with pytest.raises(ValueError, match="CUDA tensors"):
         iso.make_grid(*GRID31, engine="cuda")
-    with pytest.raises(NotImplementedError, match="parallel"):
-        iso.make_grid(*GRID31, mesh=object())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        iso.make_grid(*GRID31, mesh=grid_mesh(2, devices=["cpu"] * 2), engine="cuda")
     with pytest.raises(ValueError, match="engine"):
         iso.make_grid(*GRID31, engine="xla")
     iso.make_grid(*GRID31, engine="auto")
     auto = {k: iso.data[k] for k in ("Z", "valid", "fail_code")}
     iso.make_grid(*GRID31, engine="torch")
+    for k, v in auto.items():
+        np.testing.assert_array_equal(v, iso.data[k], err_msg=k)
+    iso.make_grid(*GRID31, mesh=grid_mesh(3, devices=["cpu"] * 3))
     for k, v in auto.items():
         np.testing.assert_array_equal(v, iso.data[k], err_msg=k)
     with pytest.raises(KeyError):

@@ -23,6 +23,7 @@ import fhmcanalysis_torch.two_dim as T2
 import fhmcanalysis_torch.two_dim.imaging as TI
 import fhmcanalysis_tpu.two_dim as J2
 import fhmcanalysis_tpu.two_dim.imaging as JI
+from fhmcanalysis_torch.parallel import grid_mesh
 from test_segment2d import _random_joint
 from torch_composites import (
     FH_COEFFS, JOINT_BETA, JOINT_MU_REF, TWO_BASIN_BETA, TWO_BASIN_MU_REF, joint, joint_class_oracle, joint_prod_entries,
@@ -220,16 +221,22 @@ def test_empty_state_batch(engine):
 
 
 def test_engine_device_and_mesh_rules(monkeypatch):
-    """"auto" is the host flood on the CPU; mesh= raises until parallel/ is
-    ported; no device means the card, which raises where there is none."""
+    """"auto" is the host flood on the CPU; mesh= names the devices, so it
+    raises beside device= (a mesh of CPU devices runs the host flood too;
+    tests/test_torch_parallel.py holds it against JAX); no device means
+    the card, which raises where there is none."""
     jt = tie_joint(joint(pore13_entries()))
     fh = T2.free_energy_profile.polynomial(FH_COEFFS)
     out = T2.pore_state_sweep(jt, fh, *P5, 1.0, nnebr=1, max_peaks=4, device="cpu")
     assert not out["elev_tie"].any()  # the host flood never flags
-    with pytest.raises(NotImplementedError):
-        T2.pore_state_sweep(jt, fh, *P5, 1.0, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        T2.joint_state_sweep(joint(two_basin_entries()), 1.1, (0.2, -0.3), TARGETS, mesh=object(), device="cpu")
+    mesh = grid_mesh(2, devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="not both"):
+        T2.pore_state_sweep(jt, fh, *P5, 1.0, mesh=mesh, device="cpu")
+    with pytest.raises(ValueError, match="not both"):
+        T2.joint_state_sweep(joint(two_basin_entries()), 1.1, (0.2, -0.3), TARGETS, mesh=mesh, device="cpu")
+    on_mesh = T2.pore_state_sweep(jt, fh, *P5, 1.0, nnebr=1, max_peaks=4, mesh=mesh)
+    assert not on_mesh["elev_tie"].any()
+    np.testing.assert_array_equal(on_mesh["labels"], out["labels"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         T2.pore_state_sweep(jt, fh, *P5, 1.0)
