@@ -109,11 +109,29 @@ Phases (each raises on failure, so any failure exits non-zero):
      1e-10; the normalizations within 1e-12); the G of each shard, sharded
      and one-device times (CUDA events, warm, median of 3), and a
      {"parallel": ...} line;
+  5f. capacity: the kernels' wide builds (64 phase slots, and K1's 6
+     per-phase sums for nspec 3-4; cuda_sweep.capacity / accumulators pick
+     them) through the entry points, each launch counter set to 0 just
+     before the path and read just after, each against its plain version
+     on the card (segmentation, ok and fail_code equal; floats within
+     1e-10): mu_sweep_thermo on multi573 (N=573, a rippled surface with
+     11-25 maxima) over 524,288 mu at 8 (every point overflows), 16, 32 and
+     64 slots, and on tern573 / quat573 (three and four species) at 4 slots
+     with and without janus; mu_beta_sweep_thermo on multi573 over 4,096
+     mu x 64 targets at orders 1-2 and 16 and 64 slots;
+     find_phase_eq_state over 256 betas at 16 slots (K2's paired mode);
+     make_grid on overflow31 (the fail-code test's ten-peak sources,
+     301 x 834 cells) at 8 slots (fail code 3 everywhere) and, with the
+     sources' _meta raised, at 16 (every cell ok); kernel ms (median of 3),
+     plain ms (one run), launches, bound, peak GiB, and layout lines of K1,
+     K2 and K3 at 16 and 64 slots; a {"capacity": ...} line.  The ptxas
+     lines of phase 2 cover each build, and each build's static shared
+     memory is held to cuda_sweep.slot_bytes;
   6. a {"kernels": [...]} line with each kernel's launches, worst error,
      times and bound (the 2-D path and window patching add none; the
      sharded routes add cells "<cell> mesh cards" / "<cell> mesh x4"
-     with their launches), then the last line: {"ok": true, "device":
-     {...}}.
+     with their launches, phase 5f its capacity cells), then the last
+     line: {"ok": true, "device": {...}}.
 
 --dump PATH runs only phases 1-2 and the main paths of K1, K2 and K3 (a
 strided sample of the sweeps' points, every isopleth cell) and K3's parity
@@ -151,6 +169,8 @@ ISO_CELLS = (("iso31_o1", "ISO31", 1), ("iso31_o2", "ISO31", 2), ("iso1400_o1", 
 LAYOUT_NS = (31, 63, 127, 255, 573, 1400)  # K1's layout timing, smooth 1, plus the n573 and n1400 cells
 LAYOUT_POINTS = 262_144
 DUMP_POINTS = 131_072  # per sweep cell in --dump
+CAP_MB = (4096, 64)  # phase 5f: K2's mu values x targets on multi573
+WIDE_PER_SM = (4, 8, 16, 32, 64, 128, 384)  # phase 5f: points per SM of the wide builds' layout lines
 REPLACES = {
     "sweep_thermo": "fhmcanalysis_tpu/core/pallas_sweep.py:758",  # _sweep_ds_pallas (pl.pallas_call at :773)
     "mb_sweep_thermo": "fhmcanalysis_tpu/core/pallas_mb.py:482",  # _mb_ds_pallas (pl.pallas_call at :496)
@@ -275,9 +295,12 @@ def compare_iso(got, want, where, min_ok=0.0):
 
 
 def ptxas_report(text):
-    """[(kernel, G or None, registers, stack bytes, spill store bytes)] from
-    nvcc --ptxas-options=-v output; G from the kernel's template argument,
-    and " paired" after the name of K2's paired-mode instantiation."""
+    """[(kernel, G or None, capacity or None, sums or None, registers, stack
+    bytes, spill store bytes, static shared bytes)] from nvcc
+    --ptxas-options=-v output: G, the phase-slot capacity and (K1) the
+    per-phase sums from the kernel's template arguments, and " paired" after
+    the name of K2's paired-mode instantiation.  A tree from before the
+    capacities has G only (capacity None)."""
     rows, fn, stack, spill = [], None, 0, 0
     for line in text.splitlines():
         if m := re.search(r"Function properties for (\S+)", line):
@@ -286,10 +309,14 @@ def ptxas_report(text):
             stack, spill = int(m.group(1)), int(m.group(2))
         elif (m := re.search(r"Used (\d+) registers", line)) and fn:
             kname = re.search(r"\d+([a-z_]+_kernel)", fn)
-            lanes = re.search(r"ILi(\d+)E", fn)
-            paired = re.search(r"ILi\d+ELb1E", fn)
+            targs = re.search(r"_kernelI((?:L[ib]\d+E)+)E", fn)
+            args = re.findall(r"L([ib])(\d+)E", targs.group(1)) if targs else []
+            ints = [int(v) for t, v in args if t == "i"]
+            paired = ("b", "1") in args
             name = (kname.group(1) if kname else fn) + (" paired" if paired else "")
-            rows.append((name, int(lanes.group(1)) if lanes else None, int(m.group(1)), stack, spill))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((name, ints[0] if ints else None, ints[1] if len(ints) > 1 else None, ints[2] if len(ints) > 2 else None,
+                         int(m.group(1)), stack, spill, int(smem.group(1)) if smem else 0))
             fn = None
     return rows
 
@@ -341,13 +368,20 @@ class Ctx:
         log(f"build: {', '.join(mod.NAME for mod in libs)} ready in {time.perf_counter() - t0:.1f} s; native flood (native/imaging.cpp, g++) {'built' if flood else 'not built'}; "
             f"native table reader (native/fast_table.cpp, g++) {'built' if table else 'not built'}")
         report = {}
+        slots = getattr(self.cuda_sweep, "slot_bytes", None)  # None: a tree from before the capacities
         for mod in libs:
             info = self._build.BUILD_INFO.get(mod.NAME, {})
             rows = ptxas_report(info.get("log", ""))
-            report[mod.NAME] = [dict(kernel=k, lanes=g, registers=r, stack=st, spill_stores=sp) for k, g, r, st, sp in rows]
+            report[mod.NAME] = [dict(kernel=k, lanes=g, capacity=c, sums=a, registers=r, stack=st, spill_stores=sp, smem=sm) for k, g, c, a, r, st, sp, sm in rows]
             log(f"  {mod.NAME}: nvcc {info.get('seconds', 0.0):.1f} s")
-            for k, g, r, st, sp in rows:
-                log(f"  ptxas: {k}" + (f" G={g}" if g else "") + f": {r} registers, {st} bytes stack, {sp} bytes spill stores")
+            for k, g, c, a, r, st, sp, sm in rows:
+                log(f"  ptxas: {k}" + (f" G={g}" if g else "") + (f" cap={c}" if c else "") + (f" sums={a}" if a else "") +
+                    f": {r} registers, {st} bytes stack, {sp} bytes spill stores, {sm} bytes smem")
+                if slots is not None and c is not None:
+                    # the block's static shared memory is its index slots (K3: and its staged-source list)
+                    want = slots(g, c) + (self.cuda_iso.LIST_BYTES if mod is self.cuda_iso and g < 32 else 0)
+                    if sm != want:
+                        raise AssertionError(f"ptxas: {k} G={g} cap={c} reserves {sm} bytes of static shared memory; cuda_sweep.slot_bytes counts {want}")
         return report
 
     def hist(self, d):
@@ -1139,6 +1173,278 @@ def parallel_phase(C):
     return res, cells
 
 
+# K2's and K3's operation counts as extrap_rows.cuh forms them (see the main paths)
+def k2_ops(S, order):
+    """(x_ops, key_ops) of K2: reweight, dB term, dd term, order-2 terms
+    (3 products, 2 sums, the half); key' per row, then its multiply-add."""
+    x_ops = 2 + 4 + (2 if S == 2 else 0) + (7 if order == 2 else 0)
+    return x_ops, (S + 1) * (2 + 2 + 2 + (7 if order == 2 else 0))
+
+
+def k3_ops(order):
+    """(x_ops, key_ops) of K3: two sides' x' (as K2) and the mix (2
+    products, a sum, a divide); per key row two sides' key', the mix and
+    the multiply-add."""
+    return 2 * (2 + 4 + 2 + (7 if order == 2 else 0)) + 4, 3 * (2 * (4 + (7 if order == 2 else 0)) + 4 + 2)
+
+
+def once_ms(fn):
+    """(fn(), its time on the device with CUDA events): one run, for the
+    plain versions that take seconds at these sizes."""
+    import torch
+
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def capacity_phase(C):
+    """Phase 5f: the kernels' wide builds (64 phase slots; K1's 6 per-phase
+    sums for nspec 3-4) through the entry points, each launch counter set
+    to 0 just before the path and read just after, each run held against
+    its plain version on the card (segmentation, K3's ok and fail_code
+    equal; floats within 1e-10): K1 over multi573's 524,288 mu at 8, 16, 32
+    and 64 slots and over tern573 / quat573 at 4 (None and janus); K2 over
+    multi573's 4,096 mu x 64 targets at orders 1 and 2 and 16 and 64 slots,
+    and its paired mode through one batched find_phase_eq_state at 16;
+    make_grid on overflow31's 301 x 834 cells at 8 slots (fail code 3) and
+    at 16 (the sources' _meta raised: every cell ok); layout lines at 16
+    and 64 slots.  Returns (record, {kernel: {cell: run}}, {kernel: worst
+    abs diff}, {kernel: layout lines})."""
+    torch, np, TC = C.torch, C.np, C.TC
+    cuda_sweep, cuda_mb, cuda_iso, pipeline, segment, state, IB = C.cuda_sweep, C.cuda_mb, C.cuda_iso, C.pipeline, C.segment, C.state, C.IB
+    from fhmcanalysis_torch.core import solve as SV
+
+    dev, smi = C.dev, C.smi
+    n_sm = cuda_sweep.sm_count(dev.index)
+    t0 = time.perf_counter()
+    K1, K2, K3 = cuda_sweep.NAME, cuda_mb.NAME, cuda_iso.NAME
+    cells = {K1: {}, K2: {}, K3: {}}
+    worst = {K1: 0.0, K2: 0.0, K3: 0.0}
+    layouts = {K1: [], K2: [], K3: []}
+
+    def note(kname, w):
+        worst[kname] = max([worst[kname], *w.values()])
+
+    def layout(kname, key, N, B, P, time_g, rule, switch):
+        row = {G: cuda_ms(lambda G=G: time_g(G)) for G in cuda_sweep.LANES}
+        g = rule(N, B, n_sm, P)
+        log(f"layout {key} P={P} B={B}: " + ", ".join(f"G={G} {t:.3f} ms" for G, t in row.items()) +
+            f" | switch at B={switch}, rule G={g}: {row[g] / row[32 if g == 1 else 1]:.3f}x the time of G={32 if g == 1 else 1} | {smi}")
+        layouts[kname].append(dict(key=key, max_phases=P, B=B, rule=g, ms=row))
+
+    # ---- K1: multi573 at 8-64 slots, tern573 / quat573 (6 sums) ----
+    k1_cases = [("multi573", P, None) for P in (8, 16, 32, 64)] + [(n, 4, c) for n in ("tern573", "quat573") for c in (None, "janus")]
+    for name, P, collect in k1_cases:
+        d, mk, mus_np = TC.capacity_cell(name, max_phases=P)
+        h, meta = C.hist(d), state.HistMeta(**mk)
+        mus = torch.as_tensor(mus_np, device=dev)
+        B, N, S = mus.shape[0], h.nbins, meta.nspec
+        cname = f"{name} P={P}" + (" janus" if collect else "")
+        cuda_sweep.sweep_thermo.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out = pipeline.mu_sweep_thermo(h, meta, mus, props=True, collect=collect)
+        torch.cuda.synchronize()
+        launches = cuda_sweep.sweep_thermo.launches
+        k_peak = torch.cuda.max_memory_allocated() / 2**30
+        if launches != 1:
+            raise AssertionError(f"capacity {cname}: mu_sweep_thermo launched K1 {launches} times")
+        if out["fe"].shape != (B, P) or out["n_i"].shape != (B, P, S):
+            raise AssertionError(f"capacity {cname}: unexpected output shapes")
+        torch.cuda.reset_peak_memory_stats()
+        want, p_ms = once_ms(lambda: pipeline.mu_sweep_thermo(h, meta, mus, props=True, collect=collect, engine="torch"))
+        p_peak = torch.cuda.max_memory_allocated() / 2**30
+        w = compare(out, want, True, f"capacity {cname}")
+        note(K1, w)
+        del want
+        share = float(out["valid"].double().mean())
+        nph = torch.bincount(out["n_phases"][out["valid"]].long(), minlength=P + 1).nonzero()[:, 0].tolist()
+        expect = {8: share == 0.0, 16: 0.0 < share < 1.0, 32: share == 1.0, 64: share == 1.0} if name == "multi573" else {4: share == 1.0 and nph == [1, 2]}
+        if not expect[P]:
+            raise AssertionError(f"capacity {cname}: valid share {share}, phase counts {nph}")
+        a = pipeline._reweight_coeff(h, mus)
+        keys = segment.key_rows(h.mom, meta).contiguous()
+        k_ms = cuda_ms(lambda: cuda_sweep.sweep_thermo(h.lnpi, h.op, keys, h.volume, a, meta.smooth, P, True, collect))
+        ops = tail_ops(out, B, N, meta.smooth, 2, 2 * (S + 1))
+        b_ms, b_by = bound([h.lnpi, h.op, keys, h.volume, a], out.values(), ops)
+        G = cuda_sweep.lanes_per_point(N, B, n_sm, P)
+        cells[K1][cname] = dict(B=B, N=N, nspec=S, max_phases=P, capacity=cuda_sweep.capacity(P), sums=cuda_sweep.accumulators(S), lanes=G, launches=launches,
+                                kernel_ms=k_ms, plain_ms=p_ms, plain_ms_from="one run", bound_ms=b_ms, bound_by=b_by, ops=ops, covered_bins=covered_bins(out),
+                                valid_share=share, phases=nph, peak_gib=k_peak, plain_peak_gib=p_peak, worst=w)
+        log(f"capacity K1 {cname}: N={N} nspec={S} B={B} build cap={cuda_sweep.capacity(P)} sums={cuda_sweep.accumulators(S)} G={G} launches={launches} valid share {share:.6f} "
+            f"phases {nph[0] if nph else '-'}-{nph[-1] if nph else '-'} | kernel {k_ms:.3f} ms = {B / k_ms * 1e3:.4g} points/s (peak {k_peak:.2f} GiB) | "
+            f"plain {p_ms:.1f} ms (one run, peak {p_peak:.2f} GiB) | bound {b_ms:.4f} ms by {b_by} ({ops:.4g} f64 ops) | worst", json.dumps({k: float(f"{v:.3e}") for k, v in w.items()}), f"| {smi}")
+        del out
+
+    # ---- K2: multi573, 4,096 mu x 64 targets, orders 1-2, 16 and 64 slots ----
+    M, A = CAP_MB
+    for P in (16, 64):
+        d, mk, mus_np = TC.capacity_cell("multi573", M, max_order=3, max_phases=P)
+        h, meta = C.hist(d), state.HistMeta(**mk)
+        mus = torch.as_tensor(mus_np, device=dev)
+        betas = d["curr_beta"] * np.linspace(0.98, 1.02, A)
+        dmus = (d["curr_mu"][1:] - d["curr_mu"][0]) + np.linspace(-0.5, 0.5, A)[:, None]
+        M, N, S = mus.shape[0], h.nbins, meta.nspec
+        for order in (1, 2):
+            cname = f"multi573 P={P} o{order}"
+            cuda_mb.mb_sweep_thermo.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            out = pipeline.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order, props=True)
+            torch.cuda.synchronize()
+            launches = cuda_mb.mb_sweep_thermo.launches
+            k_peak = torch.cuda.max_memory_allocated() / 2**30
+            if launches != 1 or out["fe"].shape != (M, A, P):
+                raise AssertionError(f"capacity K2 {cname}: {launches} launches, fe {tuple(out['fe'].shape)}")
+            torch.cuda.reset_peak_memory_stats()
+            want, p_ms = once_ms(lambda: pipeline.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order, props=True, engine="torch"))
+            p_peak = torch.cuda.max_memory_allocated() / 2**30
+            flat = lambda o: {k: v.reshape((-1,) + v.shape[2:]) for k, v in o.items()}  # noqa: E731
+            w = compare(flat(out), flat(want), True, f"capacity K2 {cname}")
+            note(K2, w)
+            del want
+            share = float(out["valid"].double().mean())
+            if not (0.0 < share < 1.0 if P == 16 else share == 1.0):
+                raise AssertionError(f"capacity K2 {cname}: valid share {share} (16 slots hold some points, 64 every point)")
+            mu_t, a, xrows, krows, tg = pipeline._mb_inputs(h, meta, mus, betas, dmus, order, True, False)
+            k2 = lambda G=None: cuda_mb.mb_sweep_thermo(h.lnpi, h.op, xrows, krows, h.volume, mu_t, a, tg, S, meta.smooth, P, order, True, _lanes=G)  # noqa: E731
+            k_ms = cuda_ms(k2)
+            x_ops, key_ops = k2_ops(S, order)
+            ops = tail_ops(flat(out), M * A, N, meta.smooth, x_ops, key_ops)
+            b_ms, b_by = bound([h.lnpi, h.op, xrows, krows, h.volume, mu_t, a, tg], out.values(), ops)
+            G = cuda_mb.lanes_per_point(N, M * A, n_sm, P)
+            cells[K2][cname] = dict(M=M, A=A, B=M * A, N=N, order=order, max_phases=P, capacity=cuda_sweep.capacity(P), lanes=G, launches=launches, kernel_ms=k_ms,
+                                    plain_ms=p_ms, plain_ms_from="one run", bound_ms=b_ms, bound_by=b_by, ops=ops, covered_bins=covered_bins(flat(out)),
+                                    valid_share=share, peak_gib=k_peak, plain_peak_gib=p_peak, worst=w)
+            log(f"capacity K2 {cname}: N={N} M={M} A={A} B={M * A} build cap={cuda_sweep.capacity(P)} G={G} launches={launches} valid share {share:.6f} | "
+                f"kernel {k_ms:.3f} ms = {M * A / k_ms * 1e3:.4g} points/s (peak {k_peak:.2f} GiB) | plain {p_ms:.1f} ms (one run, peak {p_peak:.2f} GiB) | "
+                f"bound {b_ms:.4f} ms by {b_by} ({ops:.4g} f64 ops) | worst", json.dumps({k: float(f"{v:.3e}") for k, v in w.items()}), f"| {smi}")
+            del out
+
+    # ---- K2's paired mode: one batched find_phase_eq_state at 16 slots ----
+    d, mk, _, kw = TC.coex31_guesses()
+    mk = dict(mk, max_phases=16)
+    h, meta = C.hist(d), state.HistMeta(**mk)
+    betas = np.linspace(0.98, 1.02, 256)
+    dmu = h.curr_mu[1:] - h.curr_mu[0]
+    solve = lambda engine="auto": SV.find_phase_eq_state(h, meta, kw["lnZ_tol"], 5.6, beta=betas, dmu=dmu, order=1, min_width=kw["min_width"], extrapolate=True, engine=engine)  # noqa: E731
+    cuda_mb.mb_sweep_thermo.launches = 0
+    (st, mus, err, conv), a_ms = once_ms(solve)
+    launches = cuda_mb.mb_sweep_thermo.launches
+    (_, mus_p, err_p, conv_p), p_ms = once_ms(lambda: solve("torch"))
+    d_mu = float((mus - mus_p).abs().max())
+    if launches < 2 or not bool(conv.all()) or not torch.equal(conv, conv_p) or not d_mu <= 1e-9:
+        raise AssertionError(f"capacity coex31 P=16: {launches} K2 launches, converged {int(conv.sum())}/256 (torch {int(conv_p.sum())}), mu_star apart by {d_mu:.3e}")
+    objs = {e: SV._Objective(h, meta, torch.as_tensor(betas, device=dev), dmu[None].expand(256, -1), 1, kw["min_width"], True, None, e) for e in ("cuda", "torch")}
+    obj = objs["cuda"]
+    step_mu = mus.repeat(5) + torch.linspace(-1e-3, 1e-3, 5, device=dev, dtype=torch.float64).repeat_interleave(256)
+    step_tix = torch.arange(256, dtype=torch.int32, device=dev).repeat(5)
+    step_a = pipeline._reweight_coeff(h, step_mu).contiguous()
+    paired = lambda: cuda_mb.mb_sweep_thermo(h.lnpi, h.op, obj.xrows, None, h.volume, step_mu, step_a, obj.tg, meta.nspec, meta.smooth, 16, 1, False, tix=step_tix)  # noqa: E731
+    step_out = paired()
+    want = objs["torch"].segment(step_mu, step_tix)
+    w = compare(step_out, want, False, "capacity coex31 P=16 paired step")
+    note(K2, w)
+    s_ms = device_ms(paired, "mb_sweep_thermo_kernel") or cuda_ms(paired)
+    ops = tail_ops(step_out, 1280, h.nbins, meta.smooth, k2_ops(meta.nspec, 1)[0], 0)
+    b_ms, b_by = bound([h.lnpi, h.op, obj.xrows, h.volume, step_mu, step_a, obj.tg, step_tix], step_out.values(), ops)
+    cells[K2]["coex31 P=16 paired step"] = dict(B=1280, N=h.nbins, paired=True, props=False, max_phases=16, capacity=cuda_sweep.capacity(16),
+                                                 lanes=cuda_mb.lanes_per_point(h.nbins, 1280, n_sm, 16), launches=launches, kernel_ms=s_ms,
+                                                 plain_ms=cuda_ms(lambda: objs["torch"].segment(step_mu, step_tix)),
+                                                 bound_ms=b_ms, bound_by=b_by, ops=ops, solve_auto_ms=a_ms, solve_torch_ms=p_ms, d_mu_vs_torch=d_mu, worst=w)
+    log(f"capacity coex31 P=16: find_phase_eq_state over 256 betas (extrapolating, K2 paired) K2 launches={launches} converged {int(conv.sum())}/256, "
+        f"mu_star within {d_mu:.3e} of engine='torch' | solve (one run, the host building 256 states included) auto {a_ms:.2f} ms, torch {p_ms:.2f} ms | "
+        f"one step (1,280 points) {s_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} | {smi}")
+
+    # ---- K3: overflow31 on the iso31 grid size, 8 and 16 slots ----
+    NX, NY = TC.ISO31["NX"], TC.ISO31["NY"]
+    mu1_b, dmu2_b = (4.9, 5.1), (-4.9, -4.1)
+    grid = (mu1_b, dmu2_b, ((mu1_b[1] - mu1_b[0]) / (NX - 1) * (1 + 1e-9), (dmu2_b[1] - dmu2_b[0]) / (NY - 1) * (1 + 1e-9)))
+    ds, mk3 = TC.iso_sources("n31", lnpi=TC.ten_peak())
+    for P in (8, 16):
+        hs = [TC.port_histogram(dd, mk3, device=dev) for dd in ds]
+        for hh in hs:  # the remedy fail code 3 names: a larger max_phases in _meta()
+            hh._meta = lambda max_phases=P, _m=type(hh)._meta, _h=hh: _m(_h, max_phases)
+        iso = C.iso_cls(hs, 1.001, order=1)
+        cname = f"overflow31 P={P}"
+        cuda_iso.iso_grid.launches = 0
+        iso.make_grid(*grid)
+        torch.cuda.synchronize()
+        launches = cuda_iso.iso_grid.launches
+        got = tuple(torch.as_tensor(np.asarray(iso.data[k]), device=dev) for k in ("Z", "density", "F.E./kT", "valid", "fail_code"))
+        if launches != 1 or got[4].shape != (NY, NX):
+            raise AssertionError(f"capacity K3 {cname}: {launches} launches, grid {tuple(got[4].shape)}")
+        mu1_v, dmu2_v = iso.data["X"][0], iso.data["Y"][:, 0]
+        lr, wts = iso._bracket(dmu2_v, 2.5)
+        srcs, metas = [hh._hist() for hh in hs], [hh._meta() for hh in hs]
+        args = (srcs, metas, mu1_v, dmu2_v, lr, wts, 1.001, 1, CUTOFF)
+        want, p_ms = once_ms(lambda: IB.iso_grid(*args, engine="torch"))
+        w = compare_iso(got, want, f"capacity K3 {cname}")
+        note(K3, w)
+        codes = torch.bincount(got[4].reshape(-1).long(), minlength=4).tolist()
+        if codes[3 if P == 8 else 0] != NX * NY:
+            raise AssertionError(f"capacity K3 {cname}: fail codes {codes} (expected code {3 if P == 8 else 0} on every cell)")
+        pro = IB._iso_prologue(srcs, metas[0], mu1_v, dmu2_v, lr, wts, 1.001, 1, CUTOFF)
+        kin = [pro[k] for k in ("lnpi", "op", "xrows", "krows", "a", "edge", "mu", "lr", "wts", "tg", "volume")]
+        k3 = lambda G=None: cuda_iso.iso_grid(*kin, mk3["smooth"], P, 1, CUTOFF, _lanes=G)  # noqa: E731
+        k_ms = cuda_ms(k3)
+        full_x, _ = IB._iso_surfaces(pro, slice(None), 1)
+        ext = segment.relextrema(full_x, mk3["smooth"], P)
+        lefts, rights, pmask = segment.phase_bounds(ext, full_x.shape[-1], P)
+        del full_x, ext
+        cov = {"left": lefts, "right": rights, "mask": pmask}
+        ops = tail_ops(cov, NX * NY, srcs[0].nbins, mk3["smooth"], *k3_ops(1))
+        b_ms, b_by = bound(kin, k3(), ops)
+        N = srcs[0].nbins
+        G = cuda_iso.lanes_per_cell(N, NX * NY, n_sm, P)
+        m_ms = cuda_ms(lambda: iso.make_grid(*grid))
+        cells[K3][cname] = dict(NX=NX, NY=NY, B=NX * NY, N=N, order=1, max_phases=P, capacity=cuda_sweep.capacity(P), lanes=G,
+                                staged_sources=cuda_iso.staged_sources(G, len(srcs), NX, NY, N, 1, P), launches=launches, kernel_ms=k_ms, plain_ms=p_ms,
+                                plain_ms_from="one run", make_grid_ms=m_ms, bound_ms=b_ms, bound_by=b_by, ops=ops, covered_bins=covered_bins(cov), fail_codes=codes, worst=w)
+        log(f"capacity K3 {cname}: N={N} {NY}x{NX} cells build cap={cuda_sweep.capacity(P)} G={G} launches={launches} fail codes {codes} | kernel {k_ms:.3f} ms | "
+            f"make_grid {m_ms:.3f} ms | plain {p_ms:.1f} ms (one run) | bound {b_ms:.4f} ms by {b_by} ({ops:.4g} f64 ops) | worst",
+            json.dumps({k: float(f"{v:.3e}") for k, v in w.items()}), f"| {smi}")
+
+    # ---- the wide builds' layout lines: G = 1 against G = 32 at 16 and 64
+    # slots, from a few points per SM up (the data behind G1_PER_SM_CAP_WIDE) ----
+    for name in ("ten31", "ripple121", "multi573"):
+        for P in (16, 64):
+            d, mk, mus_np = TC.capacity_cell(name, 2, max_order=3, max_phases=P)
+            h, meta = C.hist(d), state.HistMeta(**mk)
+            N, S = h.nbins, meta.nspec
+            keys = segment.key_rows(h.mom, meta).contiguous()
+            switch = n_sm * min(N, cuda_sweep.G1_PER_SM_CAP_WIDE)
+            betas = d["curr_beta"] * np.linspace(0.98, 1.02, A)
+            dmus = (d["curr_mu"][1:] - d["curr_mu"][0]) + np.linspace(-0.5, 0.5, A)[:, None]
+            counts = sorted({n_sm * k for k in WIDE_PER_SM} | ({TC.CAPACITY[name]["B"]} if name == "multi573" else set()))
+            for B in counts:
+                mus = torch.as_tensor(np.linspace(mus_np[0], mus_np[-1], B), device=dev)
+                a = pipeline._reweight_coeff(h, mus)
+                layout(K1, f"K1 {name} N={N}", N, B, P, lambda G: cuda_sweep.sweep_thermo(h.lnpi, h.op, keys, h.volume, a, meta.smooth, P, True, _lanes=G),
+                       cuda_sweep.lanes_per_point, switch)
+                Mk = max(1, B // A)
+                sub = pipeline._mb_inputs(h, meta, mus[:: max(1, B // Mk)][:Mk].contiguous(), betas, dmus, 1, True, False)
+                layout(K2, f"K2 {name} o1 M={Mk} A={A}", N, Mk * A, P, lambda G: cuda_mb.mb_sweep_thermo(
+                    h.lnpi, h.op, sub[2], sub[3], h.volume, sub[0], sub[1], sub[4], S, meta.smooth, P, 1, True, _lanes=G), cuda_mb.lanes_per_point, switch)
+    hs = [TC.port_histogram(dd, mk3, device=dev) for dd in ds]
+    iso = C.iso_cls(hs, 1.001, order=1)
+    srcs, N = [hh._hist() for hh in hs], hs[0]._hist().nbins
+    for NXl, NYl in sorted({(n_sm * k // 31, 31) for k in WIDE_PER_SM} | {(NX, NY)}):
+        mu1_v, dmu2_v = np.linspace(*mu1_b, NXl), np.linspace(*dmu2_b, NYl)
+        lr, wts = iso._bracket(dmu2_v, 2.5)
+        for P in (16, 64):
+            pro = IB._iso_prologue(srcs, state.HistMeta(**dict(mk3, max_phases=P)), mu1_v, dmu2_v, lr, wts, 1.001, 1, CUTOFF)
+            kin = [pro[k] for k in ("lnpi", "op", "xrows", "krows", "a", "edge", "mu", "lr", "wts", "tg", "volume")]
+            layout(K3, f"K3 overflow31 {NYl}x{NXl}", N, NXl * NYl, P, lambda G: cuda_iso.iso_grid(*kin, mk3["smooth"], P, 1, CUTOFF, _lanes=G),
+                   cuda_iso.lanes_per_cell, cuda_iso.g1_switch(N, n_sm, P))
+    record = dict(seconds=time.perf_counter() - t0, cells={k: list(v) for k, v in cells.items()}, worst=worst)
+    log(f"capacity phase: {record['seconds']:.1f} s, worst abs diff by kernel", json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
+    return record, cells, worst, layouts
+
+
 def run():
     C = Ctx()
     torch, np, TC = C.torch, C.np, C.TC
@@ -1762,6 +2068,12 @@ def run():
     for cells_k, add_k in ((runs, par_cells[cuda_sweep.NAME]), (mb_runs, par_cells[cuda_mb.NAME]), (iso_runs, par_cells[cuda_iso.NAME])):
         cells_k.update(add_k)
 
+    # ---- 5f. capacity: the kernels' wide builds (64 phase slots, K1's nspec 3-4) ----
+    cap_rec, cap_cells, cap_worst, cap_layouts = capacity_phase(C)
+    print(json.dumps({"capacity": cap_rec}))
+    for cells_k, kname in ((runs, cuda_sweep.NAME), (mb_runs, cuda_mb.NAME), (iso_runs, cuda_iso.NAME)):
+        cells_k.update(cap_cells[kname])
+
     # ---- 6. the kernels line and the last line ----
     def entry(kname, source, cells, err, **extra):
         head = cells[next(iter(cells))]
@@ -1783,9 +2095,10 @@ def run():
         }
 
     kernels = [
-        entry(cuda_sweep.NAME, "fhmcanalysis_torch/csrc/sweep_thermo.cu", runs, max(worst.values()), layouts=layout_k1),
-        entry(cuda_mb.NAME, "fhmcanalysis_torch/csrc/mb_sweep_thermo.cu", mb_runs, max(worst_mb.values()), layouts=layout_k2, profile_mb31_o2=profile_mb),
-        entry(cuda_iso.NAME, "fhmcanalysis_torch/csrc/iso_grid.cu", iso_runs, max(worst_iso.values()), layouts=layout_k3),
+        entry(cuda_sweep.NAME, "fhmcanalysis_torch/csrc/sweep_thermo.cu", runs, max(*worst.values(), cap_worst[cuda_sweep.NAME]), layouts=layout_k1 + cap_layouts[cuda_sweep.NAME]),
+        entry(cuda_mb.NAME, "fhmcanalysis_torch/csrc/mb_sweep_thermo.cu", mb_runs, max(*worst_mb.values(), cap_worst[cuda_mb.NAME]), layouts=layout_k2 + cap_layouts[cuda_mb.NAME],
+              profile_mb31_o2=profile_mb),
+        entry(cuda_iso.NAME, "fhmcanalysis_torch/csrc/iso_grid.cu", iso_runs, max(*worst_iso.values(), cap_worst[cuda_iso.NAME]), layouts=layout_k3 + cap_layouts[cuda_iso.NAME]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": C.name, "count": torch.cuda.device_count()}}))

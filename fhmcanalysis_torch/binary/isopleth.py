@@ -61,7 +61,8 @@ FAIL_EDGE_UNSAFE = 1  # segmentation fine, but an edge guard failed: the
 FAIL_SEGMENTATION = 2  # extrema alternation/order checks failed on the
 #                        mixed surface (relextrema repairs could not fix it)
 FAIL_PHASE_OVERFLOW = 3  # more maxima than max_phases padding slots; retry
-#                          with a larger max_phases in _meta()
+#                          with a larger max_phases in _meta() (K3 holds up
+#                          to 64 on the card, cuda_sweep.MAX_PHASES)
 
 
 def _find_left_right(ordered_dmu2, val, bound=False):

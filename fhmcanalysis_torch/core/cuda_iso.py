@@ -38,26 +38,33 @@ import torch
 
 from .. import _build
 from .cuda_mb import n_groups, n_xrows
-from .cuda_sweep import check_lanes, sm_count
+from .cuda_sweep import CAPACITIES, G1_PER_SM_CAP_WIDE, MAX_PHASES, THREADS, capacity, check_capacities, check_lanes, sm_count, stages_rows  # noqa: F401  (MAX_PHASES: the kernel's, as cuda_sweep's)
 
 NAME = "iso_grid"
-MAX_PHASES = 8  # the kernel's per-cell arrays; csrc/thermo_tail.cuh MAXP
 S = 2  # the isopleth class takes binary mixtures only
+MAX_STAGED = 32  # sources a block may stage (csrc/iso_grid.cu)
+# static shared bytes of K3's staged-source list (csrc/iso_grid.cu
+# LIST_BYTES): 33 ints, rounded up to 16 as ptxas rounds the static area
+LIST_BYTES = (4 * (MAX_STAGED + 1) + 15) // 16 * 16
 # G = 1 from min(G1_PER_BIN * N, G1_PER_SM_CAP) cells per SM: fitted on one
 # H100 SXM (132 SMs) to K3's layout lines in chip_smoke.py (PERF.md)
 G1_PER_BIN = 3
 G1_PER_SM_CAP = 1024
 
 
-def g1_switch(N: int, n_sm: int) -> int:
+def g1_switch(N: int, n_sm: int, max_phases: int = 8) -> int:
     """The least cell count at which K3 runs one cell per lane, for N bins
-    on a card of n_sm SMs."""
+    and max_phases phase slots on a card of n_sm SMs: the build of 64 slots
+    switches where K1's and K2's do (cuda_sweep.G1_PER_SM_CAP_WIDE; its
+    layout lines at N = 31 crossed between 16 and 32 cells per SM)."""
+    if capacity(max_phases) != CAPACITIES[0]:
+        return n_sm * min(N, G1_PER_SM_CAP_WIDE)
     return n_sm * min(G1_PER_BIN * N, G1_PER_SM_CAP)
 
 
-def lanes_per_cell(N: int, B: int, n_sm: int) -> int:
+def lanes_per_cell(N: int, B: int, n_sm: int, max_phases: int = 8) -> int:
     """G, the lanes of a warp that K3 gives one cell, for B cells of N bins
-    on a card of n_sm SMs.
+    and max_phases phase slots on a card of n_sm SMs.
 
     K1's and K2's rule in form (``cuda_sweep.lanes_per_point``: G = 1 needs
     enough cells in flight to hide one lane walking a cell's N bins) with
@@ -66,9 +73,10 @@ def lanes_per_cell(N: int, B: int, n_sm: int) -> int:
     on one H100 its layout lines crossed later than K1's, and G = 1 won
     from about 3N cells per SM at N = 31 and from about 1,024 (two such
     waves) at N = 1400.  K3 is not bound to K1's bits (K2 is), so it may
-    switch elsewhere.
+    switch elsewhere (``g1_switch`` gives the build of 64 phase slots
+    K1's and K2's switch).
     """
-    return 1 if B >= g1_switch(N, n_sm) else 32
+    return 1 if B >= g1_switch(N, n_sm, max_phases) else 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,24 +84,30 @@ def _lib() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load(NAME)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.iso_grid_launch.argtypes = [i, p, i] + [p] * 11 + [i] * 10 + [ctypes.c_double] + [p] * 5
+    lib.iso_grid_launch.argtypes = [i, p, i, i] + [p] * 11 + [i] * 10 + [ctypes.c_double] + [p] * 5
     lib.iso_grid_launch.restype = i
-    lib.iso_grid_staged_sources.argtypes = [i] * 7
+    lib.iso_grid_staged_sources.argtypes = [i] * 8
     lib.iso_grid_staged_sources.restype = i
     lib.iso_grid_error_string.argtypes = [i]
     lib.iso_grid_error_string.restype = ctypes.c_char_p
-    lib.iso_grid_max_phases.argtypes = []
-    lib.iso_grid_max_phases.restype = i
-    if lib.iso_grid_max_phases() != MAX_PHASES:
-        raise RuntimeError("thermo_tail.cuh MAXP disagrees with cuda_iso.MAX_PHASES")
+    check_capacities(lib, NAME)
     return lib
 
 
-def staged_sources(G: int, W: int, NX: int, NY: int, N: int, order: int) -> int:
+def staged_sources(G: int, W: int, NX: int, NY: int, N: int, order: int, max_phases: int = 8) -> int:
     """Sources a block of K3 stages in shared memory at G lanes per cell
-    on this grid (0: its rows stay in global memory); csrc/iso_grid.cu
-    decides, this reports it (tests, chip_smoke.py)."""
-    return _lib().iso_grid_staged_sources(G, W, NX, NY, N, n_xrows(S, order), n_groups(S, order, False))
+    on this grid (0: its rows stay in global memory): a block's THREADS/G
+    cells span at most (THREADS/G - 1) // NX + 2 rows of 2 sources each,
+    staged where they fit beside the build's index slots and the list of
+    staged sources (cuda_sweep.stages_rows).  csrc/iso_grid.cu decides;
+    this counts it the same way on the host (a GPU test holds the two
+    equal)."""
+    if G >= 32:
+        return 0
+    span = (THREADS // G - 1) // NX + 2
+    k = min(2 * min(span, NY), W)
+    nbytes = k * (2 + n_xrows(S, order) + (S + 1) * n_groups(S, order, False)) * N * 8 + LIST_BYTES
+    return k if k <= MAX_STAGED and stages_rows(G, capacity(max_phases), nbytes) else 0
 
 
 def iso_grid(lnpi, op, xrows, krows, a, edge, mu, lr, wts, tg, volume, smooth: int, max_phases: int, order: int, cutoff: float, collect=None, *, _lanes=None):
@@ -135,8 +149,7 @@ def iso_grid(lnpi, op, xrows, krows, a, edge, mu, lr, wts, tg, volume, smooth: i
         raise ValueError(f"iso_grid: need mu [NX] and a, edge [{W}, NX]")
     if lr.shape != (NY, 2) or wts.shape != (NY, 2) or tg.shape != (NY, 2, T):
         raise ValueError(f"iso_grid: need lr, wts [NY, 2] and tg [NY, 2, {T}]")
-    if not 1 <= max_phases <= MAX_PHASES:
-        raise ValueError(f"iso_grid: max_phases={max_phases} outside the kernel's 1..{MAX_PHASES}")
+    cap = capacity(max_phases)
     if smooth < 1:
         raise ValueError("smooth must be >= 1 to find relative extrema (scipy argrelextrema rejects order 0 too)")
     if collect not in (None, "janus"):
@@ -146,7 +159,7 @@ def iso_grid(lnpi, op, xrows, krows, a, edge, mu, lr, wts, tg, volume, smooth: i
 
     dev = lnpi.device
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    G = lanes_per_cell(N, NX * NY, sm_count(index)) if _lanes is None else _lanes
+    G = lanes_per_cell(N, NX * NY, sm_count(index), max_phases) if _lanes is None else _lanes
     out = {
         "z": torch.empty((NY, NX), dtype=torch.float64, device=dev),
         "rho": torch.empty((NY, NX), dtype=torch.float64, device=dev),
@@ -159,6 +172,7 @@ def iso_grid(lnpi, op, xrows, krows, a, edge, mu, lr, wts, tg, volume, smooth: i
         index,
         torch.cuda.current_stream(dev).cuda_stream,
         G,
+        cap,
         *(t.data_ptr() for t in tensors.values()),
         W, NX, NY, N, R, KG, max_phases, smooth, order, int(collect == "janus"), float(cutoff),
         *(t.data_ptr() for t in out.values()),

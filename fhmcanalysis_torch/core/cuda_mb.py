@@ -34,10 +34,9 @@ import functools
 import torch
 
 from .. import _build
-from .cuda_sweep import check_lanes, lanes_per_point, sm_count
+from .cuda_sweep import MAX_PHASES, capacity, check_capacities, check_lanes, lanes_per_point, sm_count  # noqa: F401  (MAX_PHASES: the kernel's, as cuda_sweep's)
 
 NAME = "mb_sweep_thermo"
-MAX_PHASES = 8  # the kernel's per-point arrays; csrc/thermo_tail.cuh MAXP
 
 
 def n_xrows(S: int, order: int) -> int:
@@ -54,14 +53,11 @@ def _lib() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load(NAME)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mb_sweep_thermo_launch.argtypes = [i, p, i] + [p] * 9 + [i] * 10 + [p] * 11
+    lib.mb_sweep_thermo_launch.argtypes = [i, p, i, i] + [p] * 9 + [i] * 10 + [p] * 11
     lib.mb_sweep_thermo_launch.restype = i
     lib.mb_sweep_thermo_error_string.argtypes = [i]
     lib.mb_sweep_thermo_error_string.restype = ctypes.c_char_p
-    lib.mb_sweep_thermo_max_phases.argtypes = []
-    lib.mb_sweep_thermo_max_phases.restype = i
-    if lib.mb_sweep_thermo_max_phases() != MAX_PHASES:
-        raise RuntimeError("thermo_tail.cuh MAXP disagrees with cuda_mb.MAX_PHASES")
+    check_capacities(lib, NAME)
     return lib
 
 
@@ -144,8 +140,7 @@ def mb_sweep_thermo(
         raise ValueError(f"mb_sweep_thermo: krows must be [{n_groups(S, order, first_order_mom)}, {S + 1}, {N}], got {tuple(krows.shape)}")
     if mu.dim() != 1 or a.shape != mu.shape or tg.dim() != 2 or tg.shape[1] != n_xrows(S, order):
         raise ValueError(f"mb_sweep_thermo: need mu, a [M] and tg [A, {n_xrows(S, order)}]")
-    if not 1 <= max_phases <= MAX_PHASES:
-        raise ValueError(f"mb_sweep_thermo: max_phases={max_phases} outside the kernel's 1..{MAX_PHASES}")
+    cap = capacity(max_phases)
     if smooth < 1:
         raise ValueError("smooth must be >= 1 to find relative extrema (scipy argrelextrema rejects order 0 too)")
     if collect not in (None, "janus"):
@@ -158,7 +153,7 @@ def mb_sweep_thermo(
         _check_tix(tix, mu, A, dev)
 
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    G = lanes_per_point(N, B, sm_count(index)) if _lanes is None else _lanes
+    G = lanes_per_point(N, B, sm_count(index), P) if _lanes is None else _lanes
     f64 = dict(dtype=torch.float64, device=dev)
     out = {
         "fe": torch.empty((B, P), **f64),
@@ -179,7 +174,7 @@ def mb_sweep_thermo(
     ptr = {k: v.data_ptr() for k, v in out.items()}
     lib = _lib()
     rc = lib.mb_sweep_thermo_launch(
-        index, torch.cuda.current_stream(dev).cuda_stream, G,
+        index, torch.cuda.current_stream(dev).cuda_stream, G, cap,
         lnpi.data_ptr(), op.data_ptr(), xrows.data_ptr(), krows.data_ptr() if props else None,
         volume.data_ptr(), mu.data_ptr(), a.data_ptr(), tg.data_ptr(), None if tix is None else tix.data_ptr(),
         M, A, N, S, P, smooth, order, int(props), int(first_order_mom and order >= 2), int(collect == "janus"),

@@ -10,6 +10,15 @@ point) and the serial segmentation logic, not by bytes: the composite's
 rows are a few KB shared by every point.  The source's header says how the
 layout answers that.
 
+Capacities: every kernel has two builds by the phase slots a point holds,
+``CAPACITIES`` = (8, 64), and K1 two more by its per-phase sums (nspec
+1-2 and 3-4).  ``capacity`` and ``accumulators`` pick the smallest build
+that holds a run, so max_phases <= 8 at nspec <= 2 runs the kernels'
+first build, where all of their speed is; above 64 phase slots or 4
+species the wrappers raise.  64 is the JAX package's own cap of its padded
+device representation (``histogram/ntot.py``), and K2 and K3 keep its
+nspec limit of 2.
+
 The plain version of this kernel is ``segment.py`` + ``pipeline._point_thermo``;
 nothing on the CUDA path calls it.  ``pipeline.mu_sweep_thermo`` picks
 between the two by the tensors' device.
@@ -25,16 +34,58 @@ import torch
 from .. import _build
 
 NAME = "sweep_thermo"
-MAX_PHASES = 8  # the kernel's per-point arrays; csrc/thermo_tail.cuh MAXP
+CAPACITIES = (8, 64)  # phase slots of the kernels' builds: csrc/thermo_tail.cuh SMALL, WIDE
+MAX_PHASES = CAPACITIES[-1]  # the widest build's per-point arrays
+MAX_NSPEC = 4  # K1's widest per-phase sums: 1 + nspec + 1 <= 6
 LANES = (1, 32)  # the layouts the kernels build (csrc/thermo_tail.cuh is a template on any power of two dividing 32)
+THREADS = 256  # threads per block, every kernel and layout (thermo_tail.cuh)
+STATIC_SMEM = 48 * 1024  # shared memory a block gets without opting in
 # G = 1 from min(N, G1_PER_SM_CAP) points per SM up: fitted on one H100 SXM
-# (132 SMs) to the layout lines chip_smoke.py prints (PERF.md)
+# (132 SMs) to the layout lines chip_smoke.py prints (PERF.md).  The builds
+# of 64 phase slots switch at min(N, G1_PER_SM_CAP_WIDE): their per-point
+# arrays live in local memory, which G = 32 replicates on every lane of a
+# point, so one lane per point wins from far fewer points (phase 5f's
+# lines crossed between 16 and 64 points per SM at N = 31-573)
 G1_PER_SM_CAP = 384
+G1_PER_SM_CAP_WIDE = 64
 
 
-def lanes_per_point(N: int, B: int, n_sm: int) -> int:
+def capacity(max_phases: int) -> int:
+    """The phase slots of the smallest build of K1, K2 and K3 that holds
+    max_phases; ValueError above the widest."""
+    if not 1 <= max_phases <= MAX_PHASES:
+        raise ValueError(f"max_phases={max_phases!r} outside the kernels' 1..{MAX_PHASES}: their widest build holds {MAX_PHASES} phase "
+                         "slots a point, the JAX package's cap of its padded device representation")
+    return next(c for c in CAPACITIES if max_phases <= c)
+
+
+def accumulators(nspec: int) -> int:
+    """K1's per-phase sums for nspec species: the weight, each <N_i> and
+    <U>, built for nspec <= 2 (4) and nspec <= 4 (6); ValueError above."""
+    if not 1 <= nspec <= MAX_NSPEC:
+        raise ValueError(f"nspec={nspec!r} outside K1's 1..{MAX_NSPEC}: its widest build sums {MAX_NSPEC + 2} key rows a phase "
+                         "(the weight, each <N_i> and <U>)")
+    return 4 if nspec <= 2 else MAX_NSPEC + 2
+
+
+def slot_bytes(G: int, cap: int) -> int:
+    """Shared-memory bytes of a block's index slots (cap maxima and cap+1
+    minima a point, THREADS/G points), as csrc/thermo_tail.cuh slot_bytes
+    counts them: the wide build at G < 32 keeps them in each lane's local
+    memory instead (132 KB a block would need opting in), so 0."""
+    shared = G == 32 or cap <= CAPACITIES[0]
+    return (2 * cap + 1) * 4 * (THREADS // G) if shared else 0
+
+
+def stages_rows(G: int, cap: int, nbytes: int) -> bool:
+    """Whether a block stages nbytes of mu-independent rows in shared
+    memory beside its index slots (csrc/thermo_tail.cuh stages_rows)."""
+    return G < 32 and nbytes + slot_bytes(G, cap) <= STATIC_SMEM
+
+
+def lanes_per_point(N: int, B: int, n_sm: int, max_phases: int = 8) -> int:
     """G, the lanes of a warp that K1 and K2 give one state point, for B
-    points of N bins on a card of n_sm SMs.
+    points of N bins and max_phases phase slots on a card of n_sm SMs.
 
     G = 1 (a point per lane, its bins walked serially, 32 points to a warp
     instruction) runs the per-point segmentation logic once instead of on
@@ -45,9 +96,12 @@ def lanes_per_point(N: int, B: int, n_sm: int) -> int:
     SM at small N and near 384 per SM from N ~ 400 up; chip_smoke.py
     times both layouts at half and twice the switch.  K1 and K2 share
     this rule so that K2 at identity targets (A = 1, so K1's B) returns
-    K1's output bit for bit: the sums' order depends on G.
+    K1's output bit for bit: the sums' order depends on G (and both take
+    their phase-slot build from max_phases alone).  The builds of 64 phase slots
+    (max_phases > 8) switch from min(N, G1_PER_SM_CAP_WIDE) points per SM.
     """
-    return 1 if B >= n_sm * min(N, G1_PER_SM_CAP) else 32
+    per_sm = G1_PER_SM_CAP if capacity(max_phases) == CAPACITIES[0] else G1_PER_SM_CAP_WIDE
+    return 1 if B >= n_sm * min(N, per_sm) else 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,15 +122,25 @@ def _lib() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load(NAME)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.sweep_thermo_launch.argtypes = [i, p, i, p, p, p, p, p] + [i] * 7 + [p] * 11
+    lib.sweep_thermo_launch.argtypes = [i, p, i, i, i, p, p, p, p, p] + [i] * 7 + [p] * 11
     lib.sweep_thermo_launch.restype = i
     lib.sweep_thermo_error_string.argtypes = [i]
     lib.sweep_thermo_error_string.restype = ctypes.c_char_p
-    lib.sweep_thermo_max_phases.argtypes = []
-    lib.sweep_thermo_max_phases.restype = i
-    if lib.sweep_thermo_max_phases() != MAX_PHASES:
-        raise RuntimeError("sweep_thermo.cu MAXP disagrees with cuda_sweep.MAX_PHASES")
+    check_capacities(lib, NAME)
+    lib.sweep_thermo_max_nspec.argtypes = []
+    lib.sweep_thermo_max_nspec.restype = i
+    if lib.sweep_thermo_max_nspec() != MAX_NSPEC:
+        raise RuntimeError("sweep_thermo.cu's widest build disagrees with cuda_sweep.MAX_NSPEC")
     return lib
+
+
+def check_capacities(lib, name: str) -> None:
+    """Raise unless a kernel library's <name>_max_phases agrees with
+    MAX_PHASES (chip_smoke.py holds slot_bytes to the ptxas lines)."""
+    top = getattr(lib, f"{name}_max_phases")
+    top.argtypes, top.restype = [], ctypes.c_int
+    if top() != MAX_PHASES:
+        raise RuntimeError(f"{name}: the library's widest build holds {top()} phase slots, cuda_sweep.MAX_PHASES says {MAX_PHASES}")
 
 
 def sweep_thermo(lnpi, op, keys, volume, a, smooth: int, max_phases: int, props: bool = True, collect=None, *, _lanes=None) -> dict:
@@ -110,10 +174,10 @@ def sweep_thermo(lnpi, op, keys, volume, a, smooth: int, max_phases: int, props:
         raise ValueError("sweep_thermo: need lnpi, op [N], a [B], scalar volume")
     N = lnpi.shape[0]
     S = keys.shape[0] - 1
-    if keys.dim() != 2 or keys.shape[1] != N or S not in (1, 2):
-        raise ValueError(f"sweep_thermo: keys must be [S+1, N] with nspec S in (1, 2), got {tuple(keys.shape)}")
-    if not 1 <= max_phases <= MAX_PHASES:
-        raise ValueError(f"sweep_thermo: max_phases={max_phases} outside the kernel's 1..{MAX_PHASES}")
+    if keys.dim() != 2 or keys.shape[1] != N:
+        raise ValueError(f"sweep_thermo: keys must be [S+1, N], got {tuple(keys.shape)}")
+    kacc = accumulators(S)
+    cap = capacity(max_phases)
     if smooth < 1:
         raise ValueError("smooth must be >= 1 to find relative extrema (scipy argrelextrema rejects order 0 too)")
     if N < 1 or N >= 2**31 - 1:
@@ -123,7 +187,7 @@ def sweep_thermo(lnpi, op, keys, volume, a, smooth: int, max_phases: int, props:
 
     B, P, dev = a.shape[0], max_phases, lnpi.device
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    G = lanes_per_point(N, B, sm_count(index)) if _lanes is None else _lanes
+    G = lanes_per_point(N, B, sm_count(index), P) if _lanes is None else _lanes
     f64 = dict(dtype=torch.float64, device=dev)
     out = {
         "fe": torch.empty((B, P), **f64),
@@ -147,6 +211,8 @@ def sweep_thermo(lnpi, op, keys, volume, a, smooth: int, max_phases: int, props:
         index,
         torch.cuda.current_stream(dev).cuda_stream,
         G,
+        cap,
+        kacc,
         lnpi.data_ptr(),
         op.data_ptr(),
         keys.data_ptr(),

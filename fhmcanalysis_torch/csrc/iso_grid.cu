@@ -49,6 +49,14 @@
 // a wide grid take 6.4 KB at order 1 and 12.4 KB at order 2; at N = 1400
 // one source takes 146 KB and the rows stay in global memory.
 //
+// Capacities: a second template argument, CAP, is the phase slots a cell
+// holds (8 or 64; thermo_tail.cuh), so that K3 answers every max_phases up
+// to 64 as the JAX kernel does -- the remedy binary/isopleth.py gives for
+// fail code 3; cuda_sweep.capacity picks the smallest build that holds the
+// run, and CAP 8 is the kernel as it was before the wide build.  The wide
+// build at G = 1 keeps a cell's index slots in its lane's local memory, so
+// the staging rule (tail::stages_rows) gives its rows the whole 48 KB.
+//
 // Rounding: x'_s and the mix are formed with __dmul_rn/__dadd_rn/__ddiv_rn
 // (and the library is built with -fmad=false) in the plain version's
 // association, so segmentation, valid and the fail code agree bit for bit
@@ -61,11 +69,15 @@
 
 namespace {
 
-using tail::MAXP;
 using tail::THREADS;
 
 // Sources a block at G = 1 may stage.
 constexpr int MAX_STAGED = 32;
+// Static shared bytes of the staged-source list (s_src, s_cnt): 132,
+// rounded up to 16 as ptxas rounds a block's static area for the 16-byte
+// aligned dynamic rows that follow it (the index slots are multiples of
+// 16 already), so that the staging rule counts what the launch reserves.
+constexpr size_t LIST_BYTES = (sizeof(int) * (MAX_STAGED + 1) + 15) / 16 * 16;
 // Blocks per SM the G = 1 layout is built for: 2 (at most 128 registers,
 // 64 bytes of spill) ran as fast as 3 (80 registers, 508 bytes of spill),
 // and 1 (148 registers, no spill) 25-30% slower on iso31 (PERF.md).
@@ -153,12 +165,13 @@ struct IsoSink {
   }
 };
 
-template <int G>
+template <int G, int CAP>
 __global__ void __launch_bounds__(THREADS, G == 1 ? G1_MIN_BLOCKS : 1) iso_grid_kernel(Args g) {
   constexpr int PTS = THREADS / G;  // cells per block
   constexpr bool NC = G == 32;      // rows read through the read-only cache
-  __shared__ int s_mx[MAXP * PTS];
-  __shared__ int s_mn[(MAXP + 1) * PTS];
+  constexpr bool SH = tail::slots_shared(G, CAP);
+  __shared__ int s_mx[SH ? CAP * PTS : 1];
+  __shared__ int s_mn[SH ? (CAP + 1) * PTS : 1];
   extern __shared__ double s_rows[];  // the staged sources' rows (G < 32)
   __shared__ int s_src[MAX_STAGED];   // which sources they are
   __shared__ int s_cnt;               // how many
@@ -222,12 +235,14 @@ __global__ void __launch_bounds__(THREADS, G == 1 ? G1_MIN_BLOCKS : 1) iso_grid_
 
   IsoSink sink{g.P, g.volume, INFINITY, 0.0, 0.0, 0.0, 0, 0, false};
   // G = 32: a cell's slots are contiguous; else cells interleave in the
-  // slots, so a group's reads of slot j are one row
-  constexpr int pitch = G == 32 ? 1 : PTS;
-  int* mx = G == 32 ? s_mx + pt * MAXP : s_mx + pt;
-  int* mn = G == 32 ? s_mn + pt * (MAXP + 1) : s_mn + pt;
+  // slots, so a group's reads of slot j are one row; or (the wide build at
+  // G < 32) they are the lane's own
+  int l_mx[SH ? 1 : CAP], l_mn[SH ? 1 : CAP + 1];
+  constexpr int pitch = G == 32 || !SH ? 1 : PTS;
+  int* mx = !SH ? l_mx : G == 32 ? s_mx + pt * CAP : s_mx + pt;
+  int* mn = !SH ? l_mn : G == 32 ? s_mn + pt * (CAP + 1) : s_mn + pt;
   const tail::Group<G> grp = tail::group_of<G>(threadIdx.x);
-  tail::thermo_point(xf, kf, grp, N, S, g.P, g.smooth, 1, g.janus, sink, mx, mn, pitch);
+  tail::thermo_point<CAP, 4>(xf, kf, grp, N, S, g.P, g.smooth, 1, g.janus, sink, mx, mn, pitch);
 
   if (grp.lane == 0) {
     const int lm = min(max(sink.last_max, 0), N - 1);
@@ -243,50 +258,63 @@ __global__ void __launch_bounds__(THREADS, G == 1 ? G1_MIN_BLOCKS : 1) iso_grid_
 }
 
 // Sources a block stages at G < 32 (0: none): its THREADS / G consecutive
-// cells span at most (THREADS / G - 1) / NX + 2 rows, each naming 2 sources.
-template <int G>
+// cells span at most (THREADS / G - 1) / NX + 2 rows, each naming 2 sources
+// (cuda_iso.staged_sources reports the same).
+template <int G, int CAP>
 int staged_sources(const Args& g) {
   const int span = (THREADS / G - 1) / g.NX + 2;
   const int rows = span < g.NY ? span : g.NY;
   const int k = 2 * rows < g.W ? 2 * rows : g.W;
-  const size_t bytes = k * source_doubles(g) * sizeof(double) + sizeof(int) * (MAX_STAGED + 1);  // + s_src, s_cnt
-  return k <= MAX_STAGED && tail::stages_rows<G>(bytes) ? k : 0;
+  const size_t bytes = k * source_doubles(g) * sizeof(double) + LIST_BYTES;
+  return k <= MAX_STAGED && tail::stages_rows<G, CAP>(bytes) ? k : 0;
 }
 
-template <int G>
+template <int G, int CAP>
 cudaError_t launch(Args g, cudaStream_t stream) {
   constexpr int PTS = THREADS / G;
-  g.staged = G < 32 ? staged_sources<G>(g) : 0;
+  g.staged = G < 32 ? staged_sources<G, CAP>(g) : 0;
   const long long B = (long long)g.NX * g.NY;
   const unsigned blocks = (unsigned)((B + PTS - 1) / PTS);
-  iso_grid_kernel<G><<<blocks, THREADS, g.staged * source_doubles(g) * sizeof(double), stream>>>(g);
+  iso_grid_kernel<G, CAP><<<blocks, THREADS, g.staged * source_doubles(g) * sizeof(double), stream>>>(g);
   return cudaGetLastError();
+}
+
+template <int CAP>
+cudaError_t launch_g(int G, const Args& g, cudaStream_t stream) {
+  switch (G) {
+    case 1: return launch<1, CAP>(g, stream);
+    case 32: return launch<32, CAP>(g, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-int iso_grid_max_phases() { return MAXP; }
+int iso_grid_max_phases() { return tail::WIDE; }
 
 const char* iso_grid_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// Sources a block stages in shared memory at G lanes per cell for this grid
-// (0: the rows stay in global memory); the wrapper reports it.
-int iso_grid_staged_sources(int G, int W, int NX, int NY, int N, int R, int KG) {
+// Sources a block of the build of `cap` phase slots stages in shared
+// memory at G lanes per cell for this grid (0: the rows stay in global
+// memory); the wrapper's report is held against it.
+int iso_grid_staged_sources(int G, int cap, int W, int NX, int NY, int N, int R, int KG) {
   Args g{};
   g.W = W, g.NX = NX, g.NY = NY, g.N = N, g.R = R, g.KG = KG;
-  return G == 1 ? staged_sources<1>(g) : 0;
+  if (G != 1) return 0;
+  return cap == tail::WIDE ? staged_sources<1, tail::WIDE>(g) : staged_sources<1, tail::SMALL>(g);
 }
 
-// Launches the kernel at G lanes per cell on `stream` and returns
-// cudaGetLastError() (0 on success; cudaErrorInvalidValue for a G the
-// library does not build: 1 and 32 only, cuda_sweep.LANES) on `device`,
-// and leaves the thread's current device as it found it.  Does not
+// Launches the kernel's build of `cap` phase slots at G lanes per cell on
+// `stream` and returns cudaGetLastError() (0 on success;
+// cudaErrorInvalidValue for a build the library does not have: G 1 and 32,
+// cuda_sweep.LANES; cap 8 and 64, cuda_sweep.CAPACITIES) on `device`, and
+// leaves the thread's current device as it found it.  Does not
 // synchronise.  All pointers are device pointers; the caller has checked
 // shapes, dtypes and bounds (nspec 2: R = 2 or 5 x-rows and KG = 3 or 6
 // key-row groups at order 1 or 2).
-int iso_grid_launch(int device, void* stream, int G, const double* lnpi, const double* op, const double* xrows,
+int iso_grid_launch(int device, void* stream, int G, int cap, const double* lnpi, const double* op, const double* xrows,
                     const double* krows, const double* a, const unsigned char* edge, const double* mu, const int* lr,
                     const double* wts, const double* tg, const double* volume, int W, int NX, int NY, int N, int R,
                     int KG, int P, int smooth, int order, int janus, double cutoff, double* z, double* rho, double* fe,
@@ -298,9 +326,9 @@ int iso_grid_launch(int device, void* stream, int G, const double* lnpi, const d
   const Args g{lnpi, op, xrows, krows, a, edge, mu, lr, wts, tg, volume, W, NX, NY, N, R, KG, P, smooth, order, janus,
                cutoff, 0, z, rho, fe, ok, code};
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (G) {
-    case 1: return (int)launch<1>(g, st);
-    case 32: return (int)launch<32>(g, st);
+  switch (cap) {
+    case tail::SMALL: return (int)launch_g<tail::SMALL>(G, g, st);
+    case tail::WIDE: return (int)launch_g<tail::WIDE>(G, g, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -41,6 +41,13 @@
 // read-only cache, G = 1 stages them in shared memory where they fit
 // (about 6 KB at N = 31), which took 6-14% off mb31 (PERF.md).
 //
+// Capacities: a third template argument, CAP, is the phase slots a point
+// holds (8 or 64; thermo_tail.cuh), so that K2 answers every max_phases up
+// to 64 as the JAX kernel does; cuda_sweep.capacity picks the smallest
+// build that holds the run, the same for K1, and CAP 8 is the kernel as it
+// was before the wide build.  nspec stays 1-2 (the moment algebra's
+// limit, as in the JAX package), so every build keeps 4 per-phase sums.
+//
 // Rounding: x' is formed with __dmul_rn/__dadd_rn in exactly the plain
 // version's association (and the library is built with -fmad=false), so
 // segmentation agrees bit for bit.  At identity targets every added term
@@ -52,7 +59,6 @@
 
 namespace {
 
-using tail::MAXP;
 using tail::THREADS;
 
 struct Args {
@@ -109,19 +115,20 @@ __device__ __forceinline__ void out_of_range_point(const Args& g, long long b) {
   o.valid[b] = 0;
 }
 
-template <int G, bool PAIRED>
+template <int G, bool PAIRED, int CAP>
 __global__ void __launch_bounds__(THREADS, 3) mb_sweep_thermo_kernel(Args g) {
   constexpr int PTS = THREADS / G;  // points per block
   constexpr bool NC = G == 32;      // rows read through the read-only cache
-  __shared__ int s_mx[MAXP * PTS];
-  __shared__ int s_mn[(MAXP + 1) * PTS];
+  constexpr bool SH = tail::slots_shared(G, CAP);
+  __shared__ int s_mx[SH ? CAP * PTS : 1];
+  __shared__ int s_mn[SH ? (CAP + 1) * PTS : 1];
   const int pt = threadIdx.x / G;
   const long long b = (long long)blockIdx.x * PTS + pt;
   const double *lnpi = g.lnpi, *op = g.op, *xrows = g.xrows, *krows = g.krows;
   if constexpr (G < 32) {
     // the rows, staged in shared memory by the whole block where they fit
     extern __shared__ double s_rows[];
-    if (tail::stages_rows<G>(row_bytes(g))) {
+    if (tail::stages_rows<G, CAP>(row_bytes(g))) {
       const int N = g.N, XN = x_rows(g) * N;
       tail::stage(s_rows, lnpi, N);
       tail::stage(s_rows + N, op, N);
@@ -152,42 +159,54 @@ __global__ void __launch_bounds__(THREADS, 3) mb_sweep_thermo_kernel(Args g) {
   const size_t N = g.N, KN = (size_t)(S + 1) * N;
   const auto xf = [&](int i) { return tail::extrap_x<NC>(lnpi, op, xrows, N, two, o2, a, mu, tg, i); };
   const auto kf = [&](int k, int i) { return tail::extrap_key<NC>(krows, N, KN, two, g.khess, tg, k, i); };
-  tail::OutSink sink{g.out, b, g.P, S, g.props, g.volume};
+  tail::OutSink<2> sink{g.out, b, g.P, S, g.props, g.volume};
   // G = 32: a point's slots are contiguous; else points interleave in the
-  // slots, so a group's reads of slot j are one row
-  constexpr int pitch = G == 32 ? 1 : PTS;
-  int* mx = G == 32 ? s_mx + pt * MAXP : s_mx + pt;
-  int* mn = G == 32 ? s_mn + pt * (MAXP + 1) : s_mn + pt;
-  tail::thermo_point(xf, kf, tail::group_of<G>(threadIdx.x), g.N, S, g.P, g.smooth, g.props, g.janus, sink, mx, mn, pitch);
+  // slots, so a group's reads of slot j are one row; or (the wide build at
+  // G < 32) they are the lane's own
+  int l_mx[SH ? 1 : CAP], l_mn[SH ? 1 : CAP + 1];
+  constexpr int pitch = G == 32 || !SH ? 1 : PTS;
+  int* mx = !SH ? l_mx : G == 32 ? s_mx + pt * CAP : s_mx + pt;
+  int* mn = !SH ? l_mn : G == 32 ? s_mn + pt * (CAP + 1) : s_mn + pt;
+  tail::thermo_point<CAP, 4>(xf, kf, tail::group_of<G>(threadIdx.x), g.N, S, g.P, g.smooth, g.props, g.janus, sink, mx, mn, pitch);
 }
 
-template <int G, bool PAIRED>
+template <int G, bool PAIRED, int CAP>
 cudaError_t launch(const Args& g, cudaStream_t stream) {
   constexpr int PTS = THREADS / G;
   const unsigned blocks = (unsigned)((n_points<PAIRED>(g) + PTS - 1) / PTS);
-  mb_sweep_thermo_kernel<G, PAIRED><<<blocks, THREADS, tail::stages_rows<G>(row_bytes(g)) ? row_bytes(g) : 0, stream>>>(g);
+  mb_sweep_thermo_kernel<G, PAIRED, CAP><<<blocks, THREADS, tail::stages_rows<G, CAP>(row_bytes(g)) ? row_bytes(g) : 0, stream>>>(g);
   return cudaGetLastError();
+}
+
+template <int CAP>
+cudaError_t launch_g(int G, bool paired, const Args& g, cudaStream_t stream) {
+  switch (G) {
+    case 1: return paired ? launch<1, true, CAP>(g, stream) : launch<1, false, CAP>(g, stream);
+    case 32: return paired ? launch<32, true, CAP>(g, stream) : launch<32, false, CAP>(g, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-int mb_sweep_thermo_max_phases() { return MAXP; }
+int mb_sweep_thermo_max_phases() { return tail::WIDE; }
 
 const char* mb_sweep_thermo_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// Launches the kernel at G lanes per point on `stream` and returns
-// cudaGetLastError() (0 on success; cudaErrorInvalidValue for a G the
-// library does not build: 1 and 32 only, cuda_sweep.LANES) on `device`,
-// and leaves the thread's current device as it found it.  Does not
+// Launches the kernel's build of `cap` phase slots at G lanes per point on
+// `stream` and returns cudaGetLastError() (0 on success;
+// cudaErrorInvalidValue for a build the library does not have: G 1 and 32,
+// cuda_sweep.LANES; cap 8 and 64, cuda_sweep.CAPACITIES) on `device`, and
+// leaves the thread's current device as it found it.  Does not
 // synchronise.  All pointers are device pointers (krows may be null
 // without props; tix null selects the product mode, else the paired mode
 // over M points); the caller has checked shapes, dtypes and bounds.  A
 // paired point whose tix lies outside [0, A) comes back invalid (valid 0,
 // n_phases 0, mask 0, NaN floats).  khess: the order-2 key-row terms are
 // applied.
-int mb_sweep_thermo_launch(int device, void* stream, int G, const double* lnpi, const double* op, const double* xrows,
+int mb_sweep_thermo_launch(int device, void* stream, int G, int cap, const double* lnpi, const double* op, const double* xrows,
                            const double* krows, const double* volume, const double* mu, const double* a,
                            const double* tg, const int* tix, int M, int A, int N, int S, int P, int smooth, int order, int props,
                            int first_order_mom, int janus, double* fe, int* left, int* right, unsigned char* mask,
@@ -201,9 +220,9 @@ int mb_sweep_thermo_launch(int device, void* stream, int G, const double* lnpi, 
                {fe, left, right, mask, n_phases, valid, n_i, x_i, ntot, u, density}};
   const cudaStream_t st = (cudaStream_t)stream;
   const bool paired = tix != nullptr;
-  switch (G) {
-    case 1: return (int)(paired ? launch<1, true>(g, st) : launch<1, false>(g, st));
-    case 32: return (int)(paired ? launch<32, true>(g, st) : launch<32, false>(g, st));
+  switch (cap) {
+    case tail::SMALL: return (int)launch_g<tail::SMALL>(G, paired, g, st);
+    case tail::WIDE: return (int)launch_g<tail::WIDE>(G, paired, g, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -27,6 +27,17 @@
 // the [B, P] output rows; K3 keeps only the most stable phase.
 // phase_props is the arithmetic both use.
 //
+// The tail is also a template on two capacities, so that every kernel has
+// a build for each and the wrappers pick the smallest that holds the run:
+// CAP, the phase slots a point holds (SMALL = 8: every kernel's first
+// build, where all of its speed is; WIDE = 64, the JAX package's cap of
+// the padded device representation, histogram/ntot.py), which sizes the
+// per-point index arrays, and KACC, the per-phase sums (1 + nspec + 1: 4
+// for nspec <= 2, 6 for K1's nspec 3-4), which sizes acc and the sink's
+// <N_i>.  Every loop runs to the run's P and K, not to the capacity, so a
+// run's arithmetic, and its bits, do not depend on the build that holds
+// it: K2 at identity targets equals K1 at every capacity.
+//
 // The layout is a template on G, the lanes per point: a power of two that
 // divides 32, so a warp holds 32/G points and a block of THREADS threads
 // THREADS/G.  A point's G lanes split every bin-parallel stage (stencil,
@@ -43,9 +54,17 @@
 // sharing each warp instruction.  The sums over a phase are a G-lane tree over
 // lane-strided partial sums, so floats depend on G in the last bits;
 // segmentation compares x values only and does not.  The per-point index
-// arrays stay in local memory at every G: unrolling their loops so that
-// they live in registers took K2 at G = 1 from 93 to 180 registers and
-// made it 40% slower (PERF.md).
+// arrays stay in local memory at every G and capacity: unrolling their
+// loops so that they live in registers took K2 at G = 1 from 93 to 180
+// registers and made it 40% slower (PERF.md).  At CAP = 64 they make a
+// 2.1-4.3 KB stack frame a lane (ptxas), of which a run touches ~2P+1
+// entries an array; the wide build's time then grows with P, and at G =
+// 32 every lane of a point keeps its own copy, so the wide builds run one
+// lane per point from far fewer points (cuda_sweep.G1_PER_SM_CAP_WIDE).
+// One copy per point in shared memory at G = 32 would need one writing
+// lane and a warp barrier around every in-place update (prepend, the janus
+// rewrite), since the lanes of a group run the scalar logic independently;
+// it is not built (PERF.md).
 //
 // Tensor cores do not apply: the per-phase sums are masked, shifted dot
 // products of length <= N, and no product of matrices exists for wgmma or
@@ -60,7 +79,8 @@
 
 namespace tail {
 
-constexpr int MAXP = 8;            // largest max_phases the tail holds
+constexpr int SMALL = 8;           // phase slots of the first build (max_phases <= 8)
+constexpr int WIDE = 64;           // phase slots of the wide build (max_phases <= 64)
 constexpr int BIG = 2147483647;    // padding sentinel of the index lists
 constexpr int THREADS = 256;       // threads per block, every layout
 constexpr int WARPS = THREADS / 32;
@@ -81,20 +101,26 @@ __device__ __forceinline__ Group<G> group_of(int tid) {
   return Group<G>{tid & (G - 1), base, (FULL >> (32 - G)) << base};
 }
 
-// Shared-memory bytes of the per-point index slots of a block of THREADS/G
-// points (MAXP maxima and MAXP+1 minima each).
-template <int G>
-constexpr int slot_bytes() {
-  return (2 * MAXP + 1) * (int)sizeof(int) * (THREADS / G);
+// Whether a block keeps its points' index slots (CAP maxima and CAP+1
+// minima each) in shared memory: at G = 32 (8 points a block, 4.1 KB at
+// CAP 64) and in the small build.  The wide build at G < 32 keeps them in
+// each lane's local memory instead: (2 x 64 + 1) x 4 bytes x 256 points is
+// 132 KB, more than the 48 KB a block gets without opting in.
+__host__ __device__ constexpr bool slots_shared(int G, int CAP) { return G == 32 || CAP <= SMALL; }
+
+// Shared-memory bytes of the index slots of a block of THREADS/G points
+// (cuda_sweep.slot_bytes reports the same).
+__host__ __device__ constexpr int slot_bytes(int G, int CAP) {
+  return slots_shared(G, CAP) ? (2 * CAP + 1) * (int)sizeof(int) * (THREADS / G) : 0;
 }
 
 // Whether a block of THREADS/G points stages `rows` bytes of mu-independent
 // rows in shared memory: at G < 32, where they fit beside the index slots
 // in the 48 KB a block gets without opting in.  At G = 1 every lane of a
 // warp then reads the same bin at the same step, a shared-memory broadcast.
-template <int G>
+template <int G, int CAP>
 __host__ __device__ __forceinline__ bool stages_rows(size_t rows) {
-  return G < 32 && rows + slot_bytes<G>() <= 48 * 1024;
+  return G < 32 && rows + slot_bytes(G, CAP) <= 48 * 1024;
 }
 
 // The block's copy of n doubles from global into shared memory.
@@ -137,9 +163,10 @@ __device__ __forceinline__ void phase_props(const double* acc, int S, double* ni
   u = acc[1 + S] / den;
 }
 
-// The sink of K1 and K2: row b of every [B, ...] output.  It refers to the
-// kernel's Out rather than copying it, so the pointers stay in parameter
-// space and out of the register file.
+// The sink of K1 and K2: row b of every [B, ...] output, for at most NS
+// species.  It refers to the kernel's Out rather than copying it, so the
+// pointers stay in parameter space and out of the register file.
+template <int NS>
 struct OutSink {
   const Out& o;
   long long b;
@@ -153,7 +180,7 @@ struct OutSink {
     o.right[ob + p] = right;
     o.mask[ob + p] = mask ? 1 : 0;
     if (props) {
-      double ni[2], nt, u;
+      double ni[NS], nt, u;
       phase_props(acc, S, ni, nt, u);
       const double nsafe = nt != 0.0 ? nt : 1.0;
       for (int s = 0; s < S; ++s) {
@@ -252,10 +279,11 @@ __device__ void compact2(int N, const Group<G>& grp, Flags flags, int* mx, int n
   grp_sync(grp);
 }
 
-// The whole tail for one point, run by the G lanes of `grp`; results go
-// to `sink` (see the header), from the group's first lane.  s_mx and s_mn
-// are the point's shared slots of MAXP and MAXP+1 ints, `pitch` apart.
-template <int G, typename XF, typename KF, typename Sink>
+// The whole tail for one point, run by the G lanes of `grp`, for P <= CAP
+// phase slots and K = (props ? S + 2 : 1) <= KACC sums; results go to
+// `sink` (see the header), from the group's first lane.  s_mx and s_mn are
+// the point's slots of CAP and CAP+1 ints, `pitch` apart.
+template <int CAP, int KACC, int G, typename XF, typename KF, typename Sink>
 __device__ void thermo_point(const XF& xf, const KF& kf, const Group<G>& grp, int N, int S, int P, int smooth, int props,
                              int janus, Sink& sink, int* s_mx, int* s_mn, int pitch) {
   const int lane = grp.lane;
@@ -300,15 +328,15 @@ __device__ void thermo_point(const XF& xf, const KF& kf, const Group<G>& grp, in
     }, s_mx, P, s_mn, P + 1, pitch, n_max0, n_min0);
   }
 
-  int mx0[MAXP], mn0[MAXP + 1];
+  int mx0[CAP], mn0[CAP + 1];
   for (int j = 0; j < P; ++j) mx0[j] = s_mx[j * pitch];
   for (int j = 0; j <= P; ++j) mn0[j] = s_mn[j * pitch];
 
   // ---- over-smoothing repair gaps (gc_hist.pyx:352-381): first arg-max
   // (max-only: arg-min of -x is the minimum) of the non-found kind between
   // consecutive found anchors; an empty gap reads 0 ----
-  int anchor[MAXP + 1];
-  int gap[MAXP];
+  int anchor[CAP + 1];
+  int gap[CAP];
   const int n_anchor = max_only ? n_max0 : n_min0;
   for (int j = 0; j <= P; ++j) anchor[j] = max_only ? (j < P ? mx0[j] : BIG) : mn0[j];
   if (max_only || min_only) {
@@ -339,7 +367,7 @@ __device__ void thermo_point(const XF& xf, const KF& kf, const Group<G>& grp, in
 
   // ---- scalar segmentation logic, identical on every lane of the group ----
   // both-found endpoint rules (gc_hist.pyx:333-351)
-  int bmx[MAXP], bmn[MAXP + 1];
+  int bmx[CAP], bmn[CAP + 1];
   int bnmax = n_max0, bnmin = n_min0;
   for (int j = 0; j < P; ++j) bmx[j] = mx0[j];
   for (int j = 0; j <= P; ++j) bmn[j] = mn0[j];
@@ -358,7 +386,7 @@ __device__ void thermo_point(const XF& xf, const KF& kf, const Group<G>& grp, in
   if (app_max) append_at(bmx, P, bnmax, last);
   if (app_min) append_at(bmn, P + 1, bnmin, last);
 
-  int filled[MAXP + 1];
+  int filled[CAP + 1];
   for (int s = 0; s <= P; ++s) {
     int v = s == 0 ? 0 : BIG;
     if (P > 1 && s >= 1 && s <= n_anchor - 1) v = gap[min(max(s - 1, 0), P - 2)];
@@ -369,7 +397,7 @@ __device__ void thermo_point(const XF& xf, const KF& kf, const Group<G>& grp, in
   // select per case (exclusive)
   const bool raw_max = max_only || none_case;
   const bool raw_min = min_only || none_case;
-  int emx[MAXP], emn[MAXP + 1];
+  int emx[CAP], emn[CAP + 1];
   int enmax, enmin;
   for (int j = 0; j < P; ++j) emx[j] = min_only ? filled[j] : (raw_max ? mx0[j] : bmx[j]);
   enmax = min_only ? n_anchor + 1 : (raw_max ? n_max0 : bnmax);
@@ -409,7 +437,7 @@ __device__ void thermo_point(const XF& xf, const KF& kf, const Group<G>& grp, in
     const bool apply = enmax > 2;
     valid = valid && (!apply || !tail || enmin > 1);
     if (apply) {
-      int nmn[MAXP + 1];
+      int nmn[CAP + 1];
       int cnt = 0;
       for (int j = 0; j <= P; ++j) nmn[j] = BIG;
       if (lead) append_at(nmn, P + 1, cnt, 0);
@@ -426,8 +454,8 @@ __device__ void thermo_point(const XF& xf, const KF& kf, const Group<G>& grp, in
   }
 
   // phase bounds: the running minima counter (gc_hist.pyx:498-520)
-  int lo[MAXP], hi[MAXP];
-  bool msk[MAXP];
+  int lo[CAP], hi[CAP];
+  bool msk[CAP];
   {
     const bool s0 = emx[0] == 0;
     for (int p = 0; p < P; ++p) {
@@ -443,7 +471,7 @@ __device__ void thermo_point(const XF& xf, const KF& kf, const Group<G>& grp, in
   }
 
   // ---- per-phase maxima (the per-phase shifts) ----
-  double mpf[MAXP];
+  double mpf[CAP];
   for (int p = 0; p < P; ++p) {
     double m = -INFINITY;
     if (msk[p]) {
@@ -459,7 +487,7 @@ __device__ void thermo_point(const XF& xf, const KF& kf, const Group<G>& grp, in
   const double x0 = xf(0);
   const int K = props ? S + 2 : 1;
   for (int p = 0; p < P; ++p) {
-    double acc[4] = {0.0, 0.0, 0.0, 0.0};
+    double acc[KACC] = {};
     if (msk[p]) {
       const int b0 = min(max(lo[p], 0), N);
       const int e = min(hi[p], last);  // bin N-1 is added per phase below
@@ -481,11 +509,11 @@ __device__ void thermo_point(const XF& xf, const KF& kf, const Group<G>& grp, in
         const double w = exp(xf(i) - sh);
         acc[0] += w;
 #pragma unroll
-        for (int k = 1; k < 4; ++k)
+        for (int k = 1; k < KACC; ++k)
           if (k < K) acc[k] += w * kf(k - 1, i);
       }
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
+      for (int k = 0; k < KACC; ++k)
         if (k < K) acc[k] = grp_sum<G>(acc[k], gm);
     }
     // bin N-1 with this phase's own shift (the endpoint-overlap rule)
@@ -493,7 +521,7 @@ __device__ void thermo_point(const XF& xf, const KF& kf, const Group<G>& grp, in
     const double el = in_last ? exp(xlast - mpf[p]) : 0.0;
     acc[0] += el;
 #pragma unroll
-    for (int k = 1; k < 4; ++k)
+    for (int k = 1; k < KACC; ++k)
       if (k < K) acc[k] += el * kf(k - 1, last);
 
     if (lane == 0) {

@@ -1,0 +1,299 @@
+"""PyTorch port: the kernels' capacities beyond their first build, against
+the JAX package.
+
+The JAX package's kernels take any max_phases (its class path caps the
+padded device representation at 64 slots) and its K1 any nspec.  The
+port's K1, K2 and K3 have a second build of 64 phase slots, and K1 one of
+6 per-phase sums (nspec 3-4); ``cuda_sweep.capacity`` and
+``cuda_sweep.accumulators`` pick the smallest build that holds a run.  The
+builds run only on the card (tests/test_torch_gpu.py holds each against
+its plain version there); on the CPU this file holds the plain versions
+they are compared with against the JAX package on the inputs that need
+the wide builds (tests/torch_composites.py ``CAPACITY``, ``ten_peak``):
+
+* the ripple121 surface (15 maxima: every point overflows 8 slots, fits
+  16) through ``mu_sweep_thermo`` and ``mu_beta_sweep_thermo`` at
+  max_phases 8, 16 and 64 against JAX's XLA engine;
+* the fail-code test's ten-peak isopleth sources through ``make_grid``
+  with ``_meta`` at 8 slots (fail code 3 on every cell) and at 16 (the
+  documented remedy: every cell ok) against JAX's;
+* ``find_phase_eq_state`` batched over betas at 16 slots (K2's paired
+  mode's plain version) against JAX's ``trace_coexistence``;
+* the three- and four-species n573 cells through ``mu_sweep_thermo``;
+* at N = 31 and 32 points, JAX's own K1 body
+  (``pallas_sweep.mu_sweep_thermo_ds(mode="xla")``, double-single) at 16
+  slots and at nspec 3, at the kernel bar 1e-10;
+* the host-side rules: the capacity and sums choice, the layout rule with
+  max_phases, the slot and staging byte counts.
+
+Segmentation fields equal, floats within 1e-12 absolute (the JAX CPU
+suite's bar); mu_star within 1e-9 (JAX's own bar between two trace
+engines).  Measured worst when written: 1.1e-13 (ripple121), 6.8e-13
+(tern573 / quat573, fe of order 1e3), 3.6e-15 (isopleth).
+"""
+
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import fhmcanalysis_torch.core.cuda_iso as CI
+import fhmcanalysis_torch.core.cuda_mb as CM
+import fhmcanalysis_torch.core.cuda_sweep as CS
+import fhmcanalysis_torch.core.pipeline as TP
+import fhmcanalysis_torch.core.solve as TSV
+import fhmcanalysis_torch.core.state as TS
+import fhmcanalysis_tpu.core.pallas_sweep as JPS
+import fhmcanalysis_tpu.core.pipeline as JP
+import fhmcanalysis_tpu.core.solve as JSV
+import fhmcanalysis_tpu.core.state as JS
+from fhmcanalysis_torch.binary import isopleth
+from fhmcanalysis_torch.binary.isopleth import FAIL_OK, FAIL_PHASE_OVERFLOW
+from fhmcanalysis_torch.histogram.ntot import histogram
+from fhmcanalysis_torch.io import write_composite
+from fhmcanalysis_tpu.binary import isopleth as jax_isopleth
+from fhmcanalysis_tpu.histogram.ntot import histogram as jax_histogram
+from torch_composites import CAPACITY, capacity_cell, cell, iso_sources, make_composite, mu_window, ten_peak, worst_abs_diff
+
+import jax.numpy as jnp
+
+IB = sys.modules["fhmcanalysis_torch.binary.isopleth"]
+torch.set_num_threads(1)
+SEG = ("valid", "mask", "n_phases", "left", "right")
+PROPS = ("n_i", "x_i", "ntot", "u", "density")
+
+
+def _hold(got, want, props, bar=1e-12):
+    """Segmentation equal, floats within ``bar`` on valid masked slots;
+    returns the valid share."""
+    for k in SEG:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+    ok = np.asarray(want["mask"]) & np.asarray(want["valid"])[..., None]
+    for k in ("fe",) + (PROPS if props else ()):
+        assert worst_abs_diff(got[k].numpy(), np.asarray(want[k]), ok) <= bar, k
+    return float(np.asarray(want["valid"]).mean())
+
+
+def _both(name, points=None, max_order=2, max_phases=None):
+    d, mk, mus = capacity_cell(name, points, max_order, max_phases)
+    return TS.from_host(d, device="cpu"), TS.HistMeta(**mk), JS.make_hist(**d), JS.HistMeta(**mk), mus
+
+
+@pytest.mark.parametrize("props", [True, False])
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("max_phases", [8, 16, 64])
+def test_mu_sweep_phase_slots_match_jax(max_phases, collect, props):
+    """ripple121: 15 maxima, so every point overflows 8 slots (valid False
+    on both sides) and every point is valid at 16 and 64."""
+    th, tm, jh, jm, mus = _both("ripple121", max_phases=max_phases)
+    got = TP.mu_sweep_thermo(th, tm, mus, props=props, collect=collect)
+    want = JP.mu_sweep_thermo(jh, jm, mus, props=props, collect=collect, engine="xla")
+    share = _hold(got, want, props)
+    assert share == (0.0 if max_phases == 8 else 1.0)
+    if max_phases > 8 and collect is None:
+        assert set(got["n_phases"].tolist()) == {14}
+
+
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("max_phases", [8, 16, 64])
+def test_mu_beta_sweep_phase_slots_match_jax(max_phases, order):
+    th, tm, jh, jm, mus = _both("ripple121", 8, max_order=3, max_phases=max_phases)
+    betas, dmus = np.array([0.98, 1.0, 1.02]), np.array([[-5.2], [-5.0], [-4.8]])
+    got = TP.mu_beta_sweep_thermo(th, tm, mus, betas, dmus, order=order)
+    want = JP.mu_beta_sweep_thermo(jh, jm, mus, betas, dmus, order=order, engine="xla")
+    bar = 1e-12 if order == 1 else 1e-10  # the order-2 sweep's measured bar (tests/test_torch_mb.py)
+    share = _hold(got, want, True, bar)
+    assert share == (0.0 if max_phases == 8 else 1.0)
+
+
+@pytest.fixture(scope="module")
+def overflow_sources(tmp_path_factory):
+    """(paths, meta kwargs) of two isopleth sources on the fail-code test's
+    ten-peak surface, written once."""
+    root = tmp_path_factory.mktemp("overflow31")
+    ds, mk = iso_sources("n31", (-5.0, -4.0), 3, False, ten_peak())
+    paths = []
+    for j, d in enumerate(ds):
+        p = str(root / f"src{j}.nc")
+        write_composite(p, d["lnpi"], d["op"], d["mom"], d["volume"], mk["nspec"], mk["max_order"], history="synthetic composite")
+        paths.append((p, d))
+    return paths, mk
+
+
+def _with_slots(h, max_phases):
+    """h, whose _meta now defaults to max_phases slots: the remedy
+    FAIL_PHASE_OVERFLOW names ("retry with a larger max_phases in
+    _meta()")."""
+    h._meta = lambda max_phases=max_phases, _m=type(h)._meta: _m(h, max_phases)
+    return h
+
+
+@pytest.mark.parametrize("max_phases", [8, 16])
+def test_overflow_isopleth_matches_jax(overflow_sources, max_phases):
+    """make_grid on the ten-peak sources (the JAX fail-code test's window):
+    fail code 3 on every cell at 8 slots, every cell ok at 16, both
+    packages alike."""
+    paths, mk = overflow_sources
+    grid = ((4.9, 5.1), (-4.9, -4.1), (0.01, 0.05))
+    port = [_with_slots(histogram(p, d["curr_beta"], d["curr_mu"], mk["smooth"], mk["used_ke"], device="cpu"), max_phases) for p, d in paths]
+    ref = [_with_slots(jax_histogram(p, d["curr_beta"], d["curr_mu"], mk["smooth"], mk["used_ke"]), max_phases) for p, d in paths]
+    a, b = isopleth(port, 1.001, order=1), jax_isopleth(ref, 1.001, order=1)
+    a.make_grid(*grid)
+    b.make_grid(*grid, engine="xla")
+    np.testing.assert_array_equal(a.data["fail_code"], b.data["fail_code"])
+    np.testing.assert_array_equal(a.data["valid"], b.data["valid"])
+    assert a.data["fail_code"].shape == (18, 21)
+    assert (a.data["fail_code"] == (FAIL_PHASE_OVERFLOW if max_phases == 8 else FAIL_OK)).all()
+    ok = b.data["valid"].astype(bool)
+    for k in ("Z", "density", "F.E./kT"):
+        assert np.max(np.abs(np.where(ok, a.data[k] - b.data[k], 0.0))) <= 1e-12, k
+
+
+def test_find_phase_eq_state_16_slots_matches_jax():
+    """Three betas in one batched, extrapolating find_phase_eq_state at 16
+    phase slots (the plain version of K2's paired mode) against the same
+    solve inside JAX's trace_coexistence."""
+    lnpi = np.array([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 9, 8, 7, 6, 5, 4, 3, 2, 1, 0, 1, 2, 3, 4, 5, 4, 3, 2, 1, 0], dtype=np.float64)  # tests/test_solve.py
+    d, mk, _ = cell("n31", 1, max_order=3)
+    d, mk = dict(d, lnpi=lnpi), dict(mk, max_phases=16)
+    th, tm = TS.from_host(d, device="cpu"), TS.HistMeta(**mk)
+    betas = (0.99, 1.0, 1.01)
+    dmu = th.curr_mu[1:] - th.curr_mu[0]
+    _, mus, err, conv = TSV.find_phase_eq_state(th, tm, 1e-6, 5.0, beta=betas, dmu=dmu, order=1, min_width=2, extrapolate=True)
+    want = JSV.trace_coexistence(JS.make_hist(**d), JS.HistMeta(**mk), jnp.asarray(betas), 5.0, lnZ_tol=1e-6, min_width=2)
+    np.testing.assert_array_equal(conv.numpy(), np.asarray(want["converged"]))
+    assert conv.all() and np.abs(mus.numpy() - np.asarray(want["mu_star"])).max() <= 1e-9
+    assert np.abs(err.numpy() - np.asarray(want["err"])).max() <= 1e-12
+
+
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("name", ["tern573", "quat573"])
+def test_mu_sweep_nspec_matches_jax(name, collect):
+    th, tm, jh, jm, mus = _both(name, 16)
+    got = TP.mu_sweep_thermo(th, tm, mus, collect=collect)
+    want = JP.mu_sweep_thermo(jh, jm, mus, collect=collect, engine="xla")
+    assert got["n_i"].shape == (16, 4, CAPACITY[name]["nspec"])
+    assert _hold(got, want, True) == 1.0
+    assert set(got["n_phases"].tolist()) == {1, 2}
+
+
+def _ds_inputs(kind):
+    """N = 31, 32 points: the ten-peak surface on the n31 composite at 16
+    slots, or a three-species 31-bin composite at 4."""
+    c = CAPACITY["tern573"]
+    if kind == "slots16":
+        d, mk, mus = capacity_cell("ten31")
+    else:
+        c31 = dict(c, N=31, smooth=1, seed=31)
+        d = make_composite(**c31)
+        mk = dict(nspec=3, max_order=2, used_ke=False, smooth=1, max_phases=4)
+        mus = np.linspace(*mu_window(**c31), 32)
+    return d, mk, mus
+
+
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("kind", ["slots16", "nspec3"])
+def test_plain_matches_jax_kernel_body(kind, collect):
+    """JAX's own K1 body (pallas_sweep.mu_sweep_thermo_ds, mode "xla": the
+    kernel's double-single arithmetic, run eagerly) at the kernel bar."""
+    d, mk, mus = _ds_inputs(kind)
+    got = TP.mu_sweep_thermo(TS.from_host(d, device="cpu"), TS.HistMeta(**mk), mus, collect=collect)
+    want = JPS.mu_sweep_thermo_ds(JS.make_hist(**d), JS.HistMeta(**mk), mus, mode="xla", collect=collect)
+    share = _hold(got, want, True, bar=1e-10)
+    assert share > 0.5
+    if kind == "slots16" and collect is None:
+        assert int(got["n_phases"][got["valid"]].max()) > 8
+
+
+# ---- the host-side rules (no card needed) ----
+
+
+def test_capacity_and_sums_choice():
+    """The smallest build that holds a run; above the widest, a ValueError
+    that names the limit and its reason."""
+    assert CS.CAPACITIES == (8, 64) and CS.MAX_PHASES == CM.MAX_PHASES == CI.MAX_PHASES == 64
+    assert [CS.capacity(p) for p in (1, 4, 8, 9, 16, 32, 63, 64)] == [8, 8, 8, 64, 64, 64, 64, 64]
+    for bad in (0, -1, 65, 1000):
+        with pytest.raises(ValueError, match="max_phases.*1..64.*64 phase slots"):
+            CS.capacity(bad)
+    assert CS.MAX_NSPEC == 4 and [CS.accumulators(s) for s in (1, 2, 3, 4)] == [4, 4, 6, 6]
+    for bad in (0, 5):
+        with pytest.raises(ValueError, match="nspec.*1..4"):
+            CS.accumulators(bad)
+
+
+@pytest.mark.parametrize("n_sm", [132, 114, 1])
+def test_lanes_rule_with_phase_slots(n_sm):
+    """max_phases <= 8 keeps the rule it had (and its default); the wide
+    builds switch at min(N, G1_PER_SM_CAP_WIDE) points per SM, K3's too;
+    K1 and K2 share one rule, so K2 at identity targets equals K1 bit for
+    bit at every max_phases; both rules raise above 64 slots."""
+    Ns, Bs = [1, 31, 121, 384, 573, 1400], [1, 1000, 4096, 50_688, 262_144, 2**21]
+    for N in Ns:
+        for B in Bs:
+            g8 = CS.lanes_per_point(N, B, n_sm)
+            assert all(CS.lanes_per_point(N, B, n_sm, p) == g8 for p in (1, 4, 8))
+            switch = n_sm * min(N, CS.G1_PER_SM_CAP_WIDE)
+            for p in (9, 16, 64):
+                assert CS.lanes_per_point(N, B, n_sm, p) == (1 if B >= switch else 32)
+            assert all(CI.lanes_per_cell(N, B, n_sm, p) == CI.lanes_per_cell(N, B, n_sm) for p in (1, 4, 8))
+            assert all(CI.lanes_per_cell(N, B, n_sm, p) == (1 if B >= switch else 32) for p in (9, 16, 64))
+    assert CS.G1_PER_SM_CAP_WIDE == 64 and CS.G1_PER_SM_CAP == 384
+    if n_sm == 132:  # multi573's 524,288 points and overflow31's 251,034 cells run one lane each; a 1,280-point solver step one warp
+        assert CS.lanes_per_point(573, 524_288, n_sm, 64) == 1 and CI.lanes_per_cell(31, 251_034, n_sm, 16) == 1
+        assert CS.lanes_per_point(31, 1280, n_sm, 16) == 32
+        assert CS.lanes_per_point(573, 8448, n_sm, 16) == 1 and CS.lanes_per_point(573, 8447, n_sm, 16) == 32
+    assert CM.lanes_per_point is CS.lanes_per_point
+    for rule in (CS.lanes_per_point, CI.lanes_per_cell):
+        with pytest.raises(ValueError, match="max_phases"):
+            rule(31, 4096, n_sm, 65)
+
+
+def test_slot_and_staging_bytes():
+    """The index slots a block reserves in shared memory (as the kernels'
+    thermo_tail.cuh counts them) and what that leaves for staged rows: the
+    wide build at G = 1 keeps its slots in local memory, 132 KB a block
+    being past the 48 KB a block gets without opting in."""
+    assert CS.slot_bytes(1, 8) == 17 * 4 * 256 == 17_408
+    assert CS.slot_bytes(32, 8) == 17 * 4 * 8 == 544
+    assert CS.slot_bytes(32, 64) == 129 * 4 * 8 == 4_128
+    assert CS.slot_bytes(1, 64) == 0 and (2 * 64 + 1) * 4 * 256 > CS.STATIC_SMEM
+    # K1 at n573's rows (lnpi, op, 2 key rows: 4 x 573 doubles), G = 1
+    n573 = 4 * 573 * 8
+    assert CS.stages_rows(1, 8, n573) and CS.stages_rows(1, 64, n573)
+    assert not CS.stages_rows(32, 8, n573) and not CS.stages_rows(32, 64, 8)
+    edge = CS.STATIC_SMEM - CS.slot_bytes(1, 8)
+    assert CS.stages_rows(1, 8, edge) and not CS.stages_rows(1, 8, edge + 1)
+    assert CS.stages_rows(1, 64, CS.STATIC_SMEM) and not CS.stages_rows(1, 64, CS.STATIC_SMEM + 1)
+
+
+def test_iso_staged_sources_count():
+    """K3's staging at G = 1: a block's 256 cells span (255 // NX) + 2 rows,
+    2 sources each, staged where they fit beside the build's slots and the
+    list of staged sources; never at G = 32."""
+    src = lambda N, order: (2 + (2 if order == 1 else 5) + 3 * (3 if order == 1 else 6)) * N * 8  # noqa: E731  (one source's rows)
+    assert CI.staged_sources(1, 2, 834, 301, 31, 1) == 2 and CI.staged_sources(1, 2, 834, 301, 31, 1, 64) == 2
+    assert CI.staged_sources(32, 2, 834, 301, 31, 1, 64) == 0
+    assert CI.staged_sources(1, 2, 128, 128, 1400, 1) == 0  # one source's rows are 146 KB
+    assert CI.staged_sources(1, 5, 12, 40, 31, 2) == 5
+    # the N at which two order-2 sources stop fitting: the small build
+    # leaves 48 KB - 17,408 - 144 bytes, the wide build 48 KB - 144 (the
+    # staged-source list, 33 ints rounded up to 16 bytes)
+    assert CI.LIST_BYTES == 144
+    for cap, room in ((8, CS.STATIC_SMEM - 17_408 - 144), (64, CS.STATIC_SMEM - 144)):
+        n = room // (2 * src(1, 2))
+        assert CI.staged_sources(1, 2, 834, 301, n, 2, cap) == 2 and CI.staged_sources(1, 2, 834, 301, n + 1, 2, cap) == 0
+    with pytest.raises(ValueError, match="max_phases"):
+        CI.staged_sources(1, 2, 834, 301, 31, 1, 65)
+
+
+def test_wrappers_raise_above_the_builds():
+    """The plain version takes any max_phases, as JAX's XLA engine does;
+    the kernel path on CPU tensors meets the device check and launches
+    nothing."""
+    th, tm, _, _, mus = _both("ripple121", 4, max_phases=65)
+    assert TP.mu_sweep_thermo(th, tm, mus)["fe"].shape == (4, 65)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        TP.mu_sweep_thermo(th, tm, mus, engine="cuda")
+    assert (CS.sweep_thermo.launches, CM.mb_sweep_thermo.launches, CI.iso_grid.launches) == (0, 0, 0)

@@ -22,6 +22,11 @@ mode's point (m, tix[m]) bit for bit at each G.  The solver through the
 kernels ends where engine="torch" does: convergence equal, mu_star within
 1e-9 (the JAX package's bar between two trace engines), and the
 properties at its mu_star within 1e-10 of the plain version's.
+The wide builds (64 phase slots; K1's 6 per-phase sums for nspec 3-4)
+are held the same way on the capacity inputs (torch_composites CAPACITY,
+ten_peak): K1 at max_phases 9, 16, 32 and 64 and at nspec 3 and 4, K2 in
+both modes and K3 at 16 and 64, every wrapper raising at 65 slots (and
+K1 at 5 species) before any launch.
 """
 
 import sys
@@ -38,7 +43,7 @@ import fhmcanalysis_torch.core.pipeline as TP
 import fhmcanalysis_torch.core.solve as TSV
 import fhmcanalysis_torch.core.state as TS
 from fhmcanalysis_torch.binary import isopleth
-from torch_composites import CELLS, ISO31, coex31_guesses, coex_grid, ISO_FIVE_DMU2, ISO_NARROW, ISO_PARTIAL, SURFACE_KINDS, cell, iso_grid_args, iso_sources, janus_surfaces, mb_grid, mu_window, port_histogram, random_surface, shuffled_mu_grid, worst_abs_diff
+from torch_composites import CAPACITY, CELLS, ISO31, capacity_cell, coex31_guesses, ten_peak, coex_grid, ISO_FIVE_DMU2, ISO_NARROW, ISO_PARTIAL, SURFACE_KINDS, cell, iso_grid_args, iso_sources, janus_surfaces, mb_grid, mu_window, port_histogram, random_surface, shuffled_mu_grid, worst_abs_diff
 
 IB = sys.modules["fhmcanalysis_torch.binary.isopleth"]
 
@@ -110,12 +115,53 @@ def test_kernel_janus_multipeak(cuda, surface):
 
 @pytest.mark.gpu
 def test_kernel_rejects_unsupported(cuda):
+    """Past the widest build (65 phase slots, 5 species) and a wrong
+    dtype raise before any launch; 9 slots, which raised before the wide
+    build, run the kernel and equal the plain version."""
     d, mk, mus = cell("n31", 8)
     h = TS.from_host(d, device=cuda)
-    with pytest.raises(ValueError, match="max_phases"):
-        TP.mu_sweep_thermo(h, TS.HistMeta(**dict(mk, max_phases=9)), mus)
+    n0 = CS.sweep_thermo.launches
+    with pytest.raises(ValueError, match="max_phases=65 outside the kernels' 1..64"):
+        TP.mu_sweep_thermo(h, TS.HistMeta(**dict(mk, max_phases=65)), mus)
+    keys5 = torch.zeros((6, h.nbins), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="nspec=5 outside K1's 1..4"):
+        CS.sweep_thermo(h.lnpi, h.op, keys5, h.volume, torch.zeros(3, dtype=torch.float64, device=cuda), 1, 4)
     with pytest.raises(TypeError, match="float64"):
         CS.sweep_thermo(h.lnpi.float(), h.op, h.mom[:2, 1, 0, 0, 0], h.volume, torch.zeros(3, dtype=torch.float64, device=cuda), 1, 4)
+    assert CS.sweep_thermo.launches == n0
+    _compare(h, TS.HistMeta(**dict(mk, max_phases=9)), mus, True, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("max_phases", [8, 9, 16, 32, 64])
+def test_kernel_phase_slots_multi573(cuda, max_phases, collect):
+    """multi573 (11-25 maxima over the window): 8 slots overflow on every
+    point, 16 hold some, 32 and 64 all; the wide build (9 and up) against
+    the plain version at the rule's G and at every G."""
+    d, mk, mus = capacity_cell("multi573", 2048, max_phases=max_phases)
+    h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
+    _compare(h, meta, mus, True, collect)
+    valid = TP.mu_sweep_thermo(h, meta, mus, props=False, engine="torch")["valid"]
+    share = float(valid.double().mean())
+    if max_phases <= 9:
+        assert share == 0.0
+    elif max_phases == 16:
+        assert 0.0 < share < 1.0
+    else:
+        assert share == 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("props", [True, False])
+@pytest.mark.parametrize("name", ["tern573", "quat573"])
+def test_kernel_nspec_3_4(cuda, name, props, collect):
+    """K1's build of 6 per-phase sums on three and four species, and at
+    16 slots (the build of 64 slots and 6 sums)."""
+    for max_phases in (4, 16):
+        d, mk, mus = capacity_cell(name, 2048, max_phases=max_phases)
+        _compare(TS.from_host(d, device=cuda), TS.HistMeta(**mk), mus, props, collect)
 
 
 def _mb_inputs(cuda, name, used_ke=False, M=256, A=8):
@@ -176,8 +222,66 @@ def test_mb_main_path_through_k2(cuda):
     n0 = CM.mb_sweep_thermo.launches
     out = TP.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=2)
     assert CM.mb_sweep_thermo.launches == n0 + 1 and out["fe"].is_cuda and out["fe"].shape == (512, 16, meta.max_phases)
-    with pytest.raises(ValueError, match="max_phases"):
-        TP.mu_beta_sweep_thermo(h, TS.HistMeta(**dict(mk, max_phases=9)), mus, betas, dmus)
+    with pytest.raises(ValueError, match="max_phases=65 outside the kernels' 1..64"):
+        TP.mu_beta_sweep_thermo(h, TS.HistMeta(**dict(mk, max_phases=65)), mus, betas, dmus)
+    assert CM.mb_sweep_thermo.launches == n0 + 1
+    out = TP.mu_beta_sweep_thermo(h, TS.HistMeta(**dict(mk, max_phases=9)), mus, betas, dmus, order=2)
+    assert CM.mb_sweep_thermo.launches == n0 + 2 and out["fe"].shape == (512, 16, 9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("max_phases", [9, 16, 64])
+def test_mb_kernel_phase_slots_multi573(cuda, max_phases, order, collect):
+    """K2's build of 64 slots on multi573, 256 mu x 8 targets, against
+    the plain version at the rule's G and at every G."""
+    d, mk, mus = capacity_cell("multi573", 256, max_order=3, max_phases=max_phases)
+    dmus = (d["curr_mu"][1:] - d["curr_mu"][0]) + np.linspace(-0.5, 0.5, 8)[:, None]
+    _mb_compare(TS.from_host(d, device=cuda), TS.HistMeta(**mk), mus, np.linspace(0.95, 1.05, 8), dmus, order=order, collect=collect)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("props", [True, False])
+@pytest.mark.parametrize("max_phases", [16, 64])
+def test_mb_identity_targets_equal_k1_wide(cuda, max_phases, props, collect):
+    """At identity targets K2's build of 64 slots returns K1's (64 slots,
+    6 sums) output bit for bit, at the rule's G and at every G."""
+    d, mk, mus = capacity_cell("multi573", 2048, max_order=3, max_phases=max_phases)
+    h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
+    dref = (h.curr_mu[1:] - h.curr_mu[0]).cpu().numpy()[None]
+    for G in LANES:
+        k1 = TP.mu_sweep_thermo(h, meta, mus, props=props, collect=collect, engine="cuda", _lanes=G)
+        for order in (1, 2):
+            k2 = TP.mu_beta_sweep_thermo(h, meta, mus, h.curr_beta.reshape(1).cpu().numpy(), dref, order=order, props=props, collect=collect, engine="cuda", _lanes=G)
+            for k in k1:
+                assert torch.equal(k2[k][:, 0], k1[k]), (G, order, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_phases", [16, 64])
+def test_mb_paired_wide_equals_product_and_plain(cuda, max_phases):
+    """K2's paired mode in the build of 64 slots: the product mode's
+    point (m, tix[m]) bit for bit at every G, and the plain version."""
+    d, mk, mus = capacity_cell("multi573", 1024, max_order=3, max_phases=max_phases)
+    h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
+    A = 16
+    dmus = (d["curr_mu"][1:] - d["curr_mu"][0]) + np.linspace(-0.4, 0.4, A)[:, None]
+    inputs = TP._mb_inputs(h, meta, mus, np.linspace(0.95, 1.05, A), dmus, 1, True, False)
+    t = torch.as_tensor(np.random.default_rng(max_phases).integers(0, A, size=1024), dtype=torch.int32, device=cuda)
+    rows = torch.arange(1024, device=cuda) * A + t.long()
+    want = TP._mb_paired_body(h, meta, *inputs, t, 1, True, None)
+    ok = (want["mask"] & want["valid"][:, None]).cpu()
+    for G in CS.LANES:
+        prod, got = _k2(h, meta, inputs, 1, True, None, _lanes=G), _k2(h, meta, inputs, 1, True, None, tix=t, _lanes=G)
+        torch.cuda.synchronize()
+        for k in prod:
+            assert torch.equal(got[k], prod[k][rows]), (G, k)
+        for k in SEG:
+            assert torch.equal(got[k], want[k]), (G, k)
+        for k in ("fe",) + PROPS:
+            assert worst_abs_diff(got[k].cpu(), want[k].cpu(), ok) <= 1e-10, (G, k)
 
 
 def _surface(name):
@@ -352,8 +456,12 @@ def test_iso_kernel_sources_with_their_own_op(cuda, order):
 def test_iso_kernel_rejects_unsupported(cuda):
     mu1_v, dmu2_v = np.linspace(-50, 10, 8), np.linspace(-4.9, -4.1, 4)
     iso, srcs, mk, lr, wts = _iso(cuda, "n31", 1, 1.02, mu1_v, dmu2_v)
-    with pytest.raises(ValueError, match="max_phases"):
-        IB.iso_grid(srcs, [TS.HistMeta(**dict(mk, max_phases=9))] * 2, mu1_v, dmu2_v, lr, wts, 1.02, 1, 10.0)
+    with pytest.raises(ValueError, match="max_phases=65 outside the kernels' 1..64"):
+        IB.iso_grid(srcs, [TS.HistMeta(**dict(mk, max_phases=65))] * 2, mu1_v, dmu2_v, lr, wts, 1.02, 1, 10.0)
+    n9 = CI.iso_grid.launches
+    _iso_equal(IB.iso_grid(srcs, [TS.HistMeta(**dict(mk, max_phases=9))] * 2, mu1_v, dmu2_v, lr, wts, 1.02, 1, 10.0),
+               IB.iso_grid(srcs, [TS.HistMeta(**dict(mk, max_phases=9))] * 2, mu1_v, dmu2_v, lr, wts, 1.02, 1, 10.0, engine="torch"), min_ok=0.0)
+    assert CI.iso_grid.launches == n9 + 1
     with pytest.raises(KeyError):
         IB.iso_grid(srcs, [TS.HistMeta(**mk)] * 2, mu1_v, dmu2_v, lr, wts, 1.02, 1, 10.0, collect="nope")
     n0 = CI.iso_grid.launches
@@ -361,6 +469,38 @@ def test_iso_kernel_rejects_unsupported(cuda):
         with pytest.raises(ValueError, match="lanes per point"):
             IB.iso_grid(srcs, [TS.HistMeta(**mk)] * 2, mu1_v, dmu2_v, lr, wts, 1.02, 1, 10.0, _lanes=G)
     assert CI.iso_grid.launches == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("max_phases", [8, 16, 64])
+def test_iso_kernel_overflow31(cuda, max_phases, order):
+    """The fail-code test's ten-peak sources: fail code 3 on every cell
+    at 8 slots, every cell ok at 16 and 64 (the remedy the code names),
+    kernel against plain at the rule's G and at every G."""
+    mu1_v, dmu2_v = np.linspace(4.9, 5.1, 64), np.linspace(-4.9, -4.1, 32)
+    iso, srcs, mk, lr, wts = _iso(cuda, "n31", order, 1.001, mu1_v, dmu2_v, lnpi=ten_peak())
+    args = (srcs, [TS.HistMeta(**dict(mk, max_phases=max_phases))] * 2, mu1_v, dmu2_v, lr, wts, 1.001, order, 10.0)
+    _iso_compare(args, min_ok=0.0 if max_phases == 8 else 1.0)
+    code = IB.iso_grid(*args)[4]
+    assert bool((code == (3 if max_phases == 8 else 0)).all())
+
+
+@pytest.mark.gpu
+def test_iso_staged_sources_host_count_equals_library(cuda):
+    """cuda_iso.staged_sources (the host's count) equals what the built
+    kernel library decides, for both builds, both G and grids around the
+    48 KB edge."""
+    n = 0
+    for G in CS.LANES:
+        for P in (8, 64):
+            for order in (1, 2):
+                for W, NX, NY in ((2, 834, 301), (5, 12, 40), (3, 95, 19), (40, 1, 300)):
+                    for N in (31, 63, 127, 190, 200, 250, 299, 300, 400, 1400):
+                        built = CI._lib().iso_grid_staged_sources(G, CS.capacity(P), W, NX, NY, N, CM.n_xrows(2, order), CM.n_groups(2, order, False))
+                        assert CI.staged_sources(G, W, NX, NY, N, order, P) == built, (G, P, order, W, NX, NY, N)
+                        n += 1
+    assert n == 320
 
 
 def _paired_inputs(cuda, name, order, props, M, A=64):

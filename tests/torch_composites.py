@@ -10,8 +10,8 @@ and ``fhmcanalysis_torch.core.state.from_host``):
 * op = arange(N): the order parameter is N_tot;
 * the moments tensor N_i^j N_k^m U^p is self-consistent: per-bin N_i and U
   profiles with inflated higher powers, as tests/test_gc_n1.py's
-  make_n1_fixture builds them, for nspec 1 or 2 and max_order 2 (3 for
-  the extrapolating sweep).
+  make_n1_fixture builds them, for nspec 1-4 and max_order 2 (3 for the
+  extrapolating sweep).
 
 ``CELLS`` holds the three sweep cells (sizes of the JAX bench's workloads)
 with a mu_1 window that crosses coexistence: one-phase points at the low
@@ -20,6 +20,10 @@ and ``ISO31`` / ``ISO1400`` build the isopleth sources and grids from the
 same composites, ``COEX573`` / ``coex_grid`` and ``COEX31`` /
 ``coex31_guesses`` the coexistence solves, and
 ``port_histogram`` the port's histogram class from a dict without a file.
+``CAPACITY`` and ``capacity_cell`` build the inputs beyond the kernels'
+first build (more than 8 phase slots, 3-4 species): rippled surfaces
+with 9-30 maxima, the fail-code test's ten-peak isopleth sources, and
+three- and four-species composites.
 The 2-D path's surfaces are joint_hist entries (``joint`` enters them into
 either package's class): ``CELLS2D`` holds the pore13, pore96 and joint96
 cells built from copies of the JAX bench's builders and states, beside
@@ -69,14 +73,20 @@ def make_composite(N: int, nspec: int, beta: float, mu0, seed: int, max_order: i
 
     mo1 = max_order + 1
     mom = np.zeros((nspec, mo1, nspec, mo1, mo1, N))
-    for i in range(nspec):
-        for j in range(mo1):
-            for k in range(nspec):
-                for m in range(mo1):
-                    for p in range(mo1):
-                        a = (j if i == 0 else 0) + (m if k == 0 else 0)
-                        b = (j if i == 1 else 0) + (m if k == 1 else 0)
-                        mom[i, j, k, m, p] = n1**a * n2**b * u**p * _infl(a, b, p)
+    if nspec <= 2:
+        for i, j, k, m, p in np.ndindex(nspec, mo1, nspec, mo1, mo1):
+            a = (j if i == 0 else 0) + (m if k == 0 else 0)
+            b = (j if i == 1 else 0) + (m if k == 1 else 0)
+            mom[i, j, k, m, p] = n1**a * n2**b * u**p * _infl(a, b, p)
+    else:
+        # mole fractions of smooth positive weights, one wave per species
+        w = np.stack([1.0 + 0.5 * np.sin((s + 1) * 3.0 * t + s + c[0]) for s in range(nspec)])
+        ns = w / w.sum(0) * n
+        for i, j, k, m, p in np.ndindex(nspec, mo1, nspec, mo1, mo1):
+            e = np.zeros(nspec, dtype=int)
+            e[i] += j
+            e[k] += m
+            mom[i, j, k, m, p] = np.prod([ns[s] ** e[s] for s in range(nspec)], axis=0) * u**p * _infl(e[0], e[1], p)
     return {
         "lnpi": lnpi,
         "mom": mom,
@@ -241,6 +251,62 @@ def iso_grid_args(g: dict, NX: int | None = None, NY: int | None = None):
     d0 = (mu1[1] - mu1[0]) / (NX - 1) * (1 + 1e-9)
     d1 = (g["dmu2"][1] - g["dmu2"][0]) / (NY - 1) * (1 + 1e-9)
     return mu1, g["dmu2"], (d0, d1)
+
+
+# Inputs beyond the kernels' first build (max_phases <= 8, nspec <= 2).
+# The JAX package's kernels take any max_phases (its class path caps the
+# padded device representation at 64) and K1 any nspec, so the port's
+# wide builds (cuda_sweep.CAPACITIES) are held to these:
+#   ten31: the fail-code test's ten-peak surface (``ten_peak``, ~10
+#     maxima) on the n31 composite's moments, smooth 1;
+#   ripple121: lnPI = 6 sin(2 pi n / 9) - 0.02 n on the moments of a
+#     121-bin two-species composite, smooth 1: 15 maxima over the window,
+#     so every point overflows 8 slots and fits 16 (the CPU tests' surface);
+#   multi573: the n573 surface at nspec 2 (dMu_ref -5, as mb31) plus a
+#     ripple 8 sin(2 pi n / 19), smooth 1: 11-25 maxima over n573's mu
+#     window, so 8 slots overflow everywhere, 16 hold about a quarter of
+#     the points and 32 all of them;
+#   tern573, quat573: the n573 cell at three and four species (K1's
+#     6-sum build), max_phases 4 as n573.
+# overflow31 (``ten_peak``) is the surface of the JAX package's fail-code
+# test (tests/test_fail_codes.py, ~10 maxima: fail code 3 at 8 slots) for
+# the isopleth sources.
+CAPACITY = {
+    "ten31": dict(N=31, nspec=2, smooth=1, max_phases=16, B=32, beta=1.0, mu0=(5.0, 0.0), seed=31, window=(4.8, 5.2)),
+    "ripple121": dict(N=121, nspec=2, smooth=1, max_phases=16, B=48, beta=1.0, mu0=(5.0, 0.0), seed=121, window=(4.0, 6.0)),
+    "multi573": dict(N=573, nspec=2, smooth=1, max_phases=64, B=524_288, beta=1.0 / 0.90, mu0=(0.0, -5.0), seed=573, ripple=(8.0, 19.0)),
+    "tern573": dict(N=573, nspec=3, smooth=10, max_phases=4, B=524_288, beta=1.0 / 0.90, mu0=(0.0, -5.0, -5.0), seed=573),
+    "quat573": dict(N=573, nspec=4, smooth=10, max_phases=4, B=524_288, beta=1.0 / 0.90, mu0=(0.0, -5.0, -5.0, -5.0), seed=573),
+}
+
+
+def ten_peak(n: int = 31) -> np.ndarray:
+    """The JAX fail-code test's overflow surface: 5 sin(2 pi x / 3.1) -
+    0.01 x, its last bin 50 below its minimum (keeps the edge guard out of
+    the way)."""
+    x = np.arange(n, dtype=np.float64)
+    y = 5.0 * np.sin(2 * np.pi * x / 3.1) - 0.01 * x
+    y[-1] = y.min() - 50.0
+    return y
+
+
+def capacity_cell(name: str, points: int | None = None, max_order: int = MAX_ORDER, max_phases: int | None = None):
+    """(composite dict, meta kwargs, mu grid) of a ``CAPACITY`` cell;
+    ``points`` and ``max_phases`` override the cell's."""
+    c = CAPACITY[name]
+    d = make_composite(**dict(c, max_order=max_order))
+    n = np.arange(c["N"], dtype=np.float64)
+    if name == "ten31":
+        d["lnpi"] = ten_peak(c["N"])
+    elif name == "ripple121":
+        d["lnpi"] = 6.0 * np.sin(2 * np.pi * n / 9.0) - 0.02 * n
+    elif "ripple" in c:
+        amp, period = c["ripple"]
+        d["lnpi"] = d["lnpi"] + amp * np.sin(2 * np.pi * n / period)
+    lo, hi = c.get("window") or mu_window(**c)
+    mus = np.linspace(lo, hi, c["B"] if points is None else points)
+    meta = dict(nspec=c["nspec"], max_order=max_order, used_ke=False, smooth=c["smooth"], max_phases=c["max_phases"] if max_phases is None else max_phases)
+    return d, meta, mus
 
 
 # The randomized lnPI structures of tests/test_pallas_sweep.py
