@@ -124,9 +124,11 @@ Phases (each raises on failure, so any failure exits non-zero):
      301 x 834 cells) at 8 slots (fail code 3 everywhere) and, with the
      sources' _meta raised, at 16 (every cell ok); kernel ms (median of 3),
      plain ms (one run), launches, bound, peak GiB, and layout lines of K1,
-     K2 and K3 at 16 and 64 slots; a {"capacity": ...} line.  The ptxas
-     lines of phase 2 cover each build, and each build's static shared
-     memory is held to cuda_sweep.slot_bytes;
+     K2 and K3 at 16 and 64 slots; each wide build's ptxas registers,
+     stack, spill stores and static shared bytes beside the host's count
+     (cuda_sweep.shared_bytes: the index slots and K1's and K2's row tile;
+     phase 2 holds every build's shared bytes to it); a
+     {"capacity": ...} line;
   6. a {"kernels": [...]} line with each kernel's launches, worst error,
      times and bound (the 2-D path and window patching add none; the
      sharded routes add cells "<cell> mesh cards" / "<cell> mesh x4"
@@ -134,14 +136,20 @@ Phases (each raises on failure, so any failure exits non-zero):
      line: {"ok": true, "device": {...}}.
 
 --dump PATH runs only phases 1-2 and the main paths of K1, K2 and K3 (a
-strided sample of the sweeps' points, every isopleth cell) and K3's parity
-cases, through entry points every tree of the port has had since K3, and
-saves the kernels' outputs, K3's also forced to G = 32 (" G=32" keys; a
-tree whose K3 has no other layout runs it there by default); run it from
-a copy of this file, with tests/torch_composites.py, placed in another
-tree to dump that tree's kernels.  --compare A B prints,
-per output, whether segmentation is equal, whether every field is
-bit-identical, and the worst float difference.
+strided sample of the sweeps' points, every isopleth cell), K3's parity
+cases and the wide builds' cases (wide_cases: K1 on multi573 at 16, 32
+and 64 slots, None and janus; K2 on multi573 at 16 and 64, orders 1-2;
+K2's paired coex31 step at 16; K3 on overflow31 at 16 at the rule's G and
+G = 32; K1 and K2 on ten31 and ripple121 at 16 and 64 forced to each G;
+4,096 sampled points each, and each case's kernel ms: the median of 3
+reps of 10 launches each),
+through entry points every tree of the port has had since the wide
+builds, and saves the kernels' outputs, K3's also forced to G = 32
+(" G=32" keys); run it from a copy of this file, with
+tests/torch_composites.py, placed in another tree to dump that tree's
+kernels.  --compare A B prints, per output, whether segmentation is
+equal, whether every field is bit-identical, and the worst float
+difference, then each wide case's kernel ms from A beside B's.
 Imports neither JAX nor the JAX package; composites come from
 tests/torch_composites.py (numpy, seeded).
 """
@@ -169,8 +177,10 @@ ISO_CELLS = (("iso31_o1", "ISO31", 1), ("iso31_o2", "ISO31", 2), ("iso1400_o1", 
 LAYOUT_NS = (31, 63, 127, 255, 573, 1400)  # K1's layout timing, smooth 1, plus the n573 and n1400 cells
 LAYOUT_POINTS = 262_144
 DUMP_POINTS = 131_072  # per sweep cell in --dump
+WIDE_DUMP_POINTS = 4096  # per wide-build case in --dump
+WIDE_TIMED_LAUNCHES = 10  # --dump times a wide case's kernel over this many launches a rep
 CAP_MB = (4096, 64)  # phase 5f: K2's mu values x targets on multi573
-WIDE_PER_SM = (4, 8, 16, 32, 64, 128, 384)  # phase 5f: points per SM of the wide builds' layout lines
+WIDE_PER_SM = (4, 8, 16, 32, 64, 128, 256, 384)  # phase 5f: points per SM of the wide builds' layout lines
 REPLACES = {
     "sweep_thermo": "fhmcanalysis_tpu/core/pallas_sweep.py:758",  # _sweep_ds_pallas (pl.pallas_call at :773)
     "mb_sweep_thermo": "fhmcanalysis_tpu/core/pallas_mb.py:482",  # _mb_ds_pallas (pl.pallas_call at :496)
@@ -378,11 +388,20 @@ class Ctx:
                 log(f"  ptxas: {k}" + (f" G={g}" if g else "") + (f" cap={c}" if c else "") + (f" sums={a}" if a else "") +
                     f": {r} registers, {st} bytes stack, {sp} bytes spill stores, {sm} bytes smem")
                 if slots is not None and c is not None:
-                    # the block's static shared memory is its index slots (K3: and its staged-source list)
-                    want = slots(g, c) + (self.cuda_iso.LIST_BYTES if mod is self.cuda_iso and g < 32 else 0)
+                    # the block's static shared memory is its index slots, and K3's staged-source list or K1's and K2's row tile
+                    want = self.shared_bytes(mod, g, c)
                     if sm != want:
-                        raise AssertionError(f"ptxas: {k} G={g} cap={c} reserves {sm} bytes of static shared memory; cuda_sweep.slot_bytes counts {want}")
+                        raise AssertionError(f"ptxas: {k} G={g} cap={c} reserves {sm} bytes of static shared memory; cuda_sweep counts {want}")
         return report
+
+    def shared_bytes(self, mod, G, cap):
+        """The static shared bytes the host counts for a block of mod's
+        kernel: K3 its index slots and staged-source list (G < 32), K1 and
+        K2 their index slots and row tile (a tree without the row tile:
+        the slots alone)."""
+        if mod is self.cuda_iso:
+            return self.cuda_sweep.slot_bytes(G, cap) + (self.cuda_iso.LIST_BYTES if G < 32 else 0)
+        return getattr(self.cuda_sweep, "shared_bytes", self.cuda_sweep.slot_bytes)(G, cap)
 
     def hist(self, d):
         return self.state.from_host(d, device=self.dev)
@@ -440,9 +459,93 @@ def k3_cases(np, TC):
     return cases
 
 
+def wide_cases(C):
+    """The wide builds' --dump cases: [(key, run, kernel)], run() the
+    outputs through the entry point (a dict of tensors with one leading
+    point axis), kernel() the wrapper's launch alone (timed).  K1 on
+    multi573 (524,288 mu) at 16, 32 and 64 slots, None and janus; K2 on
+    multi573 (4,096 mu x 64 targets) at 16 and 64 slots, orders 1-2; K2's
+    paired step on coex31 at 16 (1,280 points, as find_phase_eq_state
+    launches it); K3 on overflow31 (301 x 834 cells) at 16, at the rule's
+    G and at G = 32; and K1 and K2 (order 1) on ten31 and ripple121 at 16
+    and 64 slots at 64 points per SM, forced to G = 1 and to G = 32."""
+    torch, np, TC, pipeline, segment, state, IB = C.torch, C.np, C.TC, C.pipeline, C.segment, C.state, C.IB
+    cuda_sweep, cuda_mb, cuda_iso, dev = C.cuda_sweep, C.cuda_mb, C.cuda_iso, C.dev
+    from fhmcanalysis_torch.core import solve as SV
+
+    n_sm = cuda_sweep.sm_count(dev.index)
+    flat = lambda o: {k: v.reshape((-1,) + v.shape[2:]) for k, v in o.items()}  # noqa: E731
+    cases = []
+
+    def k1(name, P, collect, B=None, G=None):
+        d, mk, mus_np = TC.capacity_cell(name, B, max_phases=P)
+        h, meta = C.hist(d), state.HistMeta(**mk)
+        mus = torch.as_tensor(mus_np, device=dev)
+        a = pipeline._reweight_coeff(h, mus)
+        keys = segment.key_rows(h.mom, meta).contiguous()
+        run = lambda: pipeline.mu_sweep_thermo(h, meta, mus, props=True, collect=collect, engine="cuda", _lanes=G)  # noqa: E731
+        kern = lambda: cuda_sweep.sweep_thermo(h.lnpi, h.op, keys, h.volume, a, meta.smooth, P, True, collect, _lanes=G)  # noqa: E731
+        return run, kern
+
+    def k2(name, P, order, M, A, G=None):
+        d, mk, mus_np = TC.capacity_cell(name, M, max_order=3, max_phases=P)
+        h, meta = C.hist(d), state.HistMeta(**mk)
+        mus = torch.as_tensor(mus_np, device=dev)
+        betas = d["curr_beta"] * np.linspace(0.98, 1.02, A)
+        dmus = (d["curr_mu"][1:] - d["curr_mu"][0]) + np.linspace(-0.5, 0.5, A)[:, None]
+        mu_t, a, xrows, krows, tg = pipeline._mb_inputs(h, meta, mus, betas, dmus, order, True, False)
+        run = lambda: flat(pipeline.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order, props=True, engine="cuda", _lanes=G))  # noqa: E731
+        kern = lambda: cuda_mb.mb_sweep_thermo(h.lnpi, h.op, xrows, krows, h.volume, mu_t, a, tg, meta.nspec, meta.smooth, P, order, True, _lanes=G)  # noqa: E731
+        return run, kern
+
+    for P in (16, 32, 64):
+        for collect in (None, "janus"):
+            cases.append((f"K1 multi573 P={P}" + (" janus" if collect else ""), *k1("multi573", P, collect)))
+    M, A = CAP_MB
+    for P in (16, 64):
+        for order in (1, 2):
+            cases.append((f"K2 multi573 P={P} o{order}", *k2("multi573", P, order, M, A)))
+    # K2's paired step at 16 slots, as find_phase_eq_state launches it
+    d, mk, _, kw = TC.coex31_guesses()
+    h, meta = C.hist(d), state.HistMeta(**dict(mk, max_phases=16))
+    betas = np.linspace(0.98, 1.02, 256)
+    dmu = h.curr_mu[1:] - h.curr_mu[0]
+    obj = SV._Objective(h, meta, torch.as_tensor(betas, device=dev), dmu[None].expand(256, -1), 1, kw["min_width"], True, None, "cuda")
+    step_mu = torch.linspace(5.5, 5.7, 1280, device=dev, dtype=torch.float64)
+    step_tix = torch.arange(256, dtype=torch.int32, device=dev).repeat(5)
+    step_a = pipeline._reweight_coeff(h, step_mu).contiguous()
+    paired = lambda: cuda_mb.mb_sweep_thermo(h.lnpi, h.op, obj.xrows, None, h.volume, step_mu, step_a, obj.tg, meta.nspec, meta.smooth, 16, 1, False, tix=step_tix)  # noqa: E731
+    cases.append(("K2 coex31 P=16 paired step", paired, paired))
+    # K3 on overflow31 at 16 slots
+    NX, NY = TC.ISO31["NX"], TC.ISO31["NY"]
+    ds, mk3 = TC.iso_sources("n31", lnpi=TC.ten_peak())
+    hs = [TC.port_histogram(dd, mk3, device=dev) for dd in ds]
+    iso = C.iso_cls(hs, 1.001, order=1)
+    mu1_v, dmu2_v = np.linspace(4.9, 5.1, NX), np.linspace(-4.9, -4.1, NY)
+    lr, wts = iso._bracket(dmu2_v, 2.5)
+    srcs, metas = [hh._hist() for hh in hs], [state.HistMeta(**dict(mk3, max_phases=16))] * len(hs)
+    pro = IB._iso_prologue(srcs, metas[0], mu1_v, dmu2_v, lr, wts, 1.001, 1, CUTOFF)
+    kin = [pro[k] for k in ("lnpi", "op", "xrows", "krows", "a", "edge", "mu", "lr", "wts", "tg", "volume")]
+    names = ("z", "density", "fe", "ok", "fail_code")
+    for G in (None, 32):
+        run = lambda G=G: dict(zip(names, (t.reshape(-1) for t in IB.iso_grid(srcs, metas, mu1_v, dmu2_v, lr, wts, 1.001, 1, CUTOFF, engine="cuda", _lanes=G))))  # noqa: E731
+        kern = lambda G=G: cuda_iso.iso_grid(*kin, mk3["smooth"], 16, 1, CUTOFF, _lanes=G)  # noqa: E731
+        cases.append(("K3 overflow31 P=16" + (" G=32" if G else ""), run, kern))
+    # ten31 and ripple121 at 64 points per SM, each layout forced
+    for name in ("ten31", "ripple121"):
+        for P in (16, 64):
+            for G in (1, 32):
+                cases.append((f"K1 {name} P={P} G={G}", *k1(name, P, None, n_sm * 64, G)))
+                cases.append((f"K2 {name} P={P} o1 G={G}", *k2(name, P, 1, n_sm, 64, G)))
+    return cases
+
+
 def dump(path):
     """--dump: the kernels' outputs on the main paths (a strided sample of
-    the sweeps' points, every isopleth cell) and on K3's parity cases."""
+    the sweeps' points, every isopleth cell), on K3's parity cases, and on
+    the wide builds' cases (wide_cases: a strided sample of 4,096 points,
+    and each one's kernel ms, CUDA events, warm, the median of 3 reps of
+    WIDE_TIMED_LAUNCHES launches, under the "_ms" key)."""
     C = Ctx()
     C.build()
     torch, np, TC, pipeline = C.torch, C.np, C.TC, C.pipeline
@@ -483,9 +586,23 @@ def dump(path):
         got = C.IB.iso_grid(*args, engine="cuda")
         out[f"K3 case {i}"] = dict(zip(iso_names, (t.cpu() for t in got)))
         out[f"K3 case {i} G=32"] = k3_g32(args)
+    ms = {}
+    for key, run, kern in wide_cases(C):
+        o = run()
+        B = next(iter(o.values())).shape[0]
+        idx = torch.arange(0, B, max(1, B // WIDE_DUMP_POINTS), device=C.dev)
+        out[key] = {k: v[idx].cpu() for k, v in o.items()}
+        del o
+        def launches(kern=kern):
+            for _ in range(WIDE_TIMED_LAUNCHES):
+                kern()
+
+        ms[key] = cuda_ms(launches) / WIDE_TIMED_LAUNCHES
+        log(f"dump {key}: {B} points, kernel {ms[key]:.4f} ms | {C.smi}")
+    out["_ms"] = ms
     torch.cuda.synchronize()
     torch.save(out, path)
-    log(f"dump: {len(out)} outputs to {path}")
+    log(f"dump: {len(out) - 1} outputs to {path}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": C.name, "count": torch.cuda.device_count()}}))
 
 
@@ -496,6 +613,7 @@ def compare_dumps(path_a, path_b):
     import torch
 
     a, b = torch.load(path_a), torch.load(path_b)
+    ms_a, ms_b = a.pop("_ms", {}), b.pop("_ms", {})
     seg_ok = True
     for key, x in a.items():
         y = b.get(key)
@@ -512,7 +630,10 @@ def compare_dumps(path_a, path_b):
                 worst[k] = float(d.max()) if d.numel() else 0.0
         seg_ok &= seg
         log(f"compare {key}: segmentation equal {seg}, bit-identical {bits}, worst float diff", json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
-    print(json.dumps({"ok": seg_ok, "compared": len(a)}))
+    for key, t in ms_a.items():
+        if key in ms_b:
+            log(f"compare {key}: kernel ms {t:.4f} ({path_a}) | {ms_b[key]:.4f} ({path_b}) | ratio {ms_b[key] / t:.3f}")
+    print(json.dumps({"ok": seg_ok, "compared": len(a), "ms": {k: [ms_a[k], ms_b.get(k)] for k in ms_a}}))
     return 0 if seg_ok else 1
 
 
@@ -1202,7 +1323,7 @@ def once_ms(fn):
     return out, s.elapsed_time(e)
 
 
-def capacity_phase(C):
+def capacity_phase(C, ptxas):
     """Phase 5f: the kernels' wide builds (64 phase slots; K1's 6 per-phase
     sums for nspec 3-4) through the entry points, each launch counter set
     to 0 just before the path and read just after, each run held against
@@ -1440,7 +1561,21 @@ def capacity_phase(C):
             kin = [pro[k] for k in ("lnpi", "op", "xrows", "krows", "a", "edge", "mu", "lr", "wts", "tg", "volume")]
             layout(K3, f"K3 overflow31 {NYl}x{NXl}", N, NXl * NYl, P, lambda G: cuda_iso.iso_grid(*kin, mk3["smooth"], P, 1, CUTOFF, _lanes=G),
                    cuda_iso.lanes_per_cell, cuda_iso.g1_switch(N, n_sm, P))
-    record = dict(seconds=time.perf_counter() - t0, cells={k: list(v) for k, v in cells.items()}, worst=worst)
+    # the wide builds' ptxas lines: each lane's stack (the compacted lists
+    # at G = 1, the phases' bounds, maxima, fe and sums), spills, and the
+    # static shared memory phase 2 held to the host's count
+    builds = []
+    mods = {cuda_sweep.NAME: cuda_sweep, cuda_mb.NAME: cuda_mb, cuda_iso.NAME: cuda_iso}
+    for kname, rows in ptxas.items():
+        for r in rows:
+            if r["capacity"] == cuda_sweep.CAPACITIES[-1]:
+                counted = C.shared_bytes(mods[kname], r["lanes"], r["capacity"])
+                builds.append(dict(r, library=kname, slot_bytes=cuda_sweep.slot_bytes(r["lanes"], r["capacity"]), shared_bytes_counted=counted))
+                log(f"capacity ptxas {r['kernel']} G={r['lanes']} cap={r['capacity']}" + (f" sums={r['sums']}" if r["sums"] else "") +
+                    f": {r['registers']} registers, {r['stack']} bytes stack, {r['spill_stores']} bytes spill stores, {r['smem']} bytes smem "
+                    f"(slot_bytes {cuda_sweep.slot_bytes(r['lanes'], r['capacity'])}, row tile {cuda_sweep.row_tile_bytes(r['lanes'], r['capacity']) if mods[kname] is not cuda_iso else 0}, "
+                    f"counted {counted}) | {smi}")
+    record = dict(seconds=time.perf_counter() - t0, cells={k: list(v) for k, v in cells.items()}, worst=worst, ptxas=builds)
     log(f"capacity phase: {record['seconds']:.1f} s, worst abs diff by kernel", json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
     return record, cells, worst, layouts
 
@@ -2069,7 +2204,7 @@ def run():
         cells_k.update(add_k)
 
     # ---- 5f. capacity: the kernels' wide builds (64 phase slots, K1's nspec 3-4) ----
-    cap_rec, cap_cells, cap_worst, cap_layouts = capacity_phase(C)
+    cap_rec, cap_cells, cap_worst, cap_layouts = capacity_phase(C, ptxas)
     print(json.dumps({"capacity": cap_rec}))
     for cells_k, kname in ((runs, cuda_sweep.NAME), (mb_runs, cuda_mb.NAME), (iso_runs, cuda_iso.NAME)):
         cells_k.update(cap_cells[kname])

@@ -55,8 +55,9 @@ G1_PER_SM_CAP = 1024
 def g1_switch(N: int, n_sm: int, max_phases: int = 8) -> int:
     """The least cell count at which K3 runs one cell per lane, for N bins
     and max_phases phase slots on a card of n_sm SMs: the build of 64 slots
-    switches where K1's and K2's do (cuda_sweep.G1_PER_SM_CAP_WIDE; its
-    layout lines at N = 31 crossed between 16 and 32 cells per SM)."""
+    switches where K1's and K2's do (min(N, cuda_sweep.G1_PER_SM_CAP_WIDE)
+    a SM; its layout lines at N = 31 crossed between 16 and 32 cells per
+    SM)."""
     if capacity(max_phases) != CAPACITIES[0]:
         return n_sm * min(N, G1_PER_SM_CAP_WIDE)
     return n_sm * min(G1_PER_BIN * N, G1_PER_SM_CAP)

@@ -42,12 +42,11 @@ THREADS = 256  # threads per block, every kernel and layout (thermo_tail.cuh)
 STATIC_SMEM = 48 * 1024  # shared memory a block gets without opting in
 # G = 1 from min(N, G1_PER_SM_CAP) points per SM up: fitted on one H100 SXM
 # (132 SMs) to the layout lines chip_smoke.py prints (PERF.md).  The builds
-# of 64 phase slots switch at min(N, G1_PER_SM_CAP_WIDE): their per-point
-# arrays live in local memory, which G = 32 replicates on every lane of a
-# point, so one lane per point wins from far fewer points (phase 5f's
-# lines crossed between 16 and 64 points per SM at N = 31-573)
+# of 64 phase slots switch at min(N, G1_PER_SM_CAP_WIDE), fitted to phase
+# 5f's 116 wide layout lines: one warp per point won up to 128 points per
+# SM at N = 573 and one lane per point from 256 (PERF.md)
 G1_PER_SM_CAP = 384
-G1_PER_SM_CAP_WIDE = 64
+G1_PER_SM_CAP_WIDE = 256
 
 
 def capacity(max_phases: int) -> int:
@@ -77,9 +76,26 @@ def slot_bytes(G: int, cap: int) -> int:
     return (2 * cap + 1) * 4 * (THREADS // G) if shared else 0
 
 
+def row_tile_bytes(G: int, cap: int) -> int:
+    """Shared-memory bytes of K1's and K2's row tile, as
+    csrc/thermo_tail.cuh row_tile_bytes counts them: in the wide build at
+    G = 1 each warp writes its points' rows through 32 bytes a lane
+    (1 KB a warp), so that every store covers consecutive elements of a
+    row; 0 in every other build."""
+    return (THREADS // 32) * 32 * 32 if G == 1 and cap > CAPACITIES[0] else 0
+
+
+def shared_bytes(G: int, cap: int) -> int:
+    """Static shared bytes of a block of K1 or K2: the index slots and the
+    row tile (chip_smoke.py holds them to the ptxas lines; K3 reserves its
+    slots and its staged-source list instead, cuda_iso.LIST_BYTES)."""
+    return slot_bytes(G, cap) + row_tile_bytes(G, cap)
+
+
 def stages_rows(G: int, cap: int, nbytes: int) -> bool:
-    """Whether a block stages nbytes of mu-independent rows in shared
-    memory beside its index slots (csrc/thermo_tail.cuh stages_rows)."""
+    """Whether a block of K3 stages nbytes of mu-independent rows in
+    shared memory beside its index slots (csrc/thermo_tail.cuh
+    stages_rows; K1 and K2 also count their row tile there)."""
     return G < 32 and nbytes + slot_bytes(G, cap) <= STATIC_SMEM
 
 

@@ -80,8 +80,12 @@ constexpr int MAX_STAGED = 32;
 constexpr size_t LIST_BYTES = (sizeof(int) * (MAX_STAGED + 1) + 15) / 16 * 16;
 // Blocks per SM the G = 1 layout is built for: 2 (at most 128 registers,
 // 64 bytes of spill) ran as fast as 3 (80 registers, 508 bytes of spill),
-// and 1 (148 registers, no spill) 25-30% slower on iso31 (PERF.md).
+// and 1 (148 registers, no spill) 25-30% slower on iso31 (PERF.md).  The
+// wide build at G = 32 asks for 2 as well: left free, ptxas gave it 142
+// registers, one block an SM, and overflow31 at 16 slots ran 9.5 ms
+// against 5.9 at 128 registers (PERF.md).
 constexpr int G1_MIN_BLOCKS = 2;
+constexpr int WIDE_G32_MIN_BLOCKS = 2;
 
 struct Args {
   const double* lnpi;         // [W, N]
@@ -163,10 +167,19 @@ struct IsoSink {
     valid = v;
     last_max = lm;
   }
+
+  // the wide build's row: its masked phases, from the group's first lane
+  // (a slot past the count is unmasked, so never the stable phase)
+  static constexpr bool ROW_ON_EVERY_LANE = false;
+  template <int G, int CAP, int KACC>
+  __device__ __forceinline__ void row(const tail::Group<G>& grp, const tail::WideRow<CAP, KACC>& w) {
+    if (grp.lane == 0)
+      for (int p = 0; p < w.nmask; ++p) phase(p, w.lo[p], w.hi[p], true, w.phase_fe(p), w.acc[p]);
+  }
 };
 
 template <int G, int CAP>
-__global__ void __launch_bounds__(THREADS, G == 1 ? G1_MIN_BLOCKS : 1) iso_grid_kernel(Args g) {
+__global__ void __launch_bounds__(THREADS, G == 1 ? G1_MIN_BLOCKS : (CAP > tail::SMALL ? WIDE_G32_MIN_BLOCKS : 1)) iso_grid_kernel(Args g) {
   constexpr int PTS = THREADS / G;  // cells per block
   constexpr bool NC = G == 32;      // rows read through the read-only cache
   constexpr bool SH = tail::slots_shared(G, CAP);

@@ -45,8 +45,10 @@
 // holds (8 or 64; thermo_tail.cuh), so that K2 answers every max_phases up
 // to 64 as the JAX kernel does; cuda_sweep.capacity picks the smallest
 // build that holds the run, the same for K1, and CAP 8 is the kernel as it
-// was before the wide build.  nspec stays 1-2 (the moment algebra's
-// limit, as in the JAX package), so every build keeps 4 per-phase sums.
+// was before the wide build.  The build of 64 slots runs the tail's wide
+// body and writes its rows as K1's does (a 1 KB tile a warp at G = 1).
+// nspec stays 1-2 (the moment algebra's limit, as in the JAX package), so
+// every build keeps 4 per-phase sums.
 //
 // Rounding: x' is formed with __dmul_rn/__dadd_rn in exactly the plain
 // version's association (and the library is built with -fmad=false), so
@@ -122,13 +124,15 @@ __global__ void __launch_bounds__(THREADS, 3) mb_sweep_thermo_kernel(Args g) {
   constexpr bool SH = tail::slots_shared(G, CAP);
   __shared__ int s_mx[SH ? CAP * PTS : 1];
   __shared__ int s_mn[SH ? (CAP + 1) * PTS : 1];
+  constexpr int TILE = tail::row_tile_bytes(G, CAP);
+  __shared__ __align__(16) unsigned char s_tile[TILE ? TILE : 1];  // the wide build's row tile (G = 1)
   const int pt = threadIdx.x / G;
   const long long b = (long long)blockIdx.x * PTS + pt;
   const double *lnpi = g.lnpi, *op = g.op, *xrows = g.xrows, *krows = g.krows;
   if constexpr (G < 32) {
     // the rows, staged in shared memory by the whole block where they fit
     extern __shared__ double s_rows[];
-    if (tail::stages_rows<G, CAP>(row_bytes(g))) {
+    if (tail::stages_rows<G, CAP>(row_bytes(g), TILE)) {
       const int N = g.N, XN = x_rows(g) * N;
       tail::stage(s_rows, lnpi, N);
       tail::stage(s_rows + N, op, N);
@@ -141,14 +145,16 @@ __global__ void __launch_bounds__(THREADS, 3) mb_sweep_thermo_kernel(Args g) {
       krows = s_rows + 2 * N + XN;
     }
   }
-  if (b >= n_points<PAIRED>(g)) return;  // G = 32: the warp; else the group, whose collectives name only its lanes
-  if constexpr (PAIRED) {
-    // the wrapper checks tix's range once per tensor version; this guard
-    // holds whatever wrote tix since (every lane of the group returns)
-    if ((unsigned)g.tix[b] >= (unsigned)g.A) {
-      if (threadIdx.x % G == 0) out_of_range_point(g, b);
-      return;
-    }
+  const bool in = b < n_points<PAIRED>(g);
+  // the wrapper checks tix's range once per tensor version; this guard
+  // holds whatever wrote tix since (every lane of the group returns)
+  const bool tix_ok = !PAIRED || !in || (unsigned)g.tix[b] < (unsigned)g.A;
+  // G = 1: the warp's lanes that hold an in-range point (the wide build's rows)
+  const unsigned live = TILE ? __ballot_sync(tail::FULL, in && tix_ok) : tail::FULL;
+  if (!in) return;  // G = 32: the warp; else the group, whose collectives name only its lanes
+  if (!tix_ok) {
+    if (threadIdx.x % G == 0) out_of_range_point(g, b);
+    return;
   }
 
   const int S = g.S;
@@ -159,7 +165,7 @@ __global__ void __launch_bounds__(THREADS, 3) mb_sweep_thermo_kernel(Args g) {
   const size_t N = g.N, KN = (size_t)(S + 1) * N;
   const auto xf = [&](int i) { return tail::extrap_x<NC>(lnpi, op, xrows, N, two, o2, a, mu, tg, i); };
   const auto kf = [&](int k, int i) { return tail::extrap_key<NC>(krows, N, KN, two, g.khess, tg, k, i); };
-  tail::OutSink<2> sink{g.out, b, g.P, S, g.props, g.volume};
+  tail::OutSink<2> sink{g.out, b, g.P, S, g.props, g.volume, live, s_tile + threadIdx.x / 32 * tail::ROW_TILE};
   // G = 32: a point's slots are contiguous; else points interleave in the
   // slots, so a group's reads of slot j are one row; or (the wide build at
   // G < 32) they are the lane's own
@@ -174,7 +180,8 @@ template <int G, bool PAIRED, int CAP>
 cudaError_t launch(const Args& g, cudaStream_t stream) {
   constexpr int PTS = THREADS / G;
   const unsigned blocks = (unsigned)((n_points<PAIRED>(g) + PTS - 1) / PTS);
-  mb_sweep_thermo_kernel<G, PAIRED, CAP><<<blocks, THREADS, tail::stages_rows<G, CAP>(row_bytes(g)) ? row_bytes(g) : 0, stream>>>(g);
+  const bool staged = tail::stages_rows<G, CAP>(row_bytes(g), tail::row_tile_bytes(G, CAP));
+  mb_sweep_thermo_kernel<G, PAIRED, CAP><<<blocks, THREADS, staged ? row_bytes(g) : 0, stream>>>(g);
   return cudaGetLastError();
 }
 

@@ -30,7 +30,10 @@
 // for nspec 3-4), so that it answers every max_phases up to 64 and every
 // nspec up to 4, as the JAX kernel does; cuda_sweep.capacity and
 // cuda_sweep.accumulators pick the smallest build that holds the run.
-// CAP 8 with KACC 4 is the kernel as it was before the wide builds.
+// CAP 8 with KACC 4 is the kernel as it was before the wide builds.  The
+// build of 64 slots runs the tail's wide body (thermo_point_wide) and, at
+// G = 1, writes its rows through a 1 KB tile of shared memory a warp
+// (s_tile, tail::row_tile_bytes), which counts against the staged rows.
 //
 // Rounding: x is formed with __dmul_rn/__dadd_rn (and the library is built
 // with -fmad=false) so that it is bit-identical to torch's
@@ -63,13 +66,15 @@ __global__ void __launch_bounds__(THREADS) sweep_thermo_kernel(Args g) {
   constexpr bool SH = tail::slots_shared(G, CAP);
   __shared__ int s_mx[SH ? CAP * PTS : 1];
   __shared__ int s_mn[SH ? (CAP + 1) * PTS : 1];
+  constexpr int TILE = tail::row_tile_bytes(G, CAP);
+  __shared__ __align__(16) unsigned char s_tile[TILE ? TILE : 1];  // the wide build's row tile (G = 1)
   const int pt = threadIdx.x / G;
   const long long b = (long long)blockIdx.x * PTS + pt;
   const double *lnpi = g.lnpi, *op = g.op, *keys = g.keys;
   if constexpr (G < 32) {
     // the rows, staged in shared memory by the whole block where they fit
     extern __shared__ double s_rows[];
-    if (tail::stages_rows<G, CAP>(row_bytes(g))) {
+    if (tail::stages_rows<G, CAP>(row_bytes(g), TILE)) {
       tail::stage(s_rows, lnpi, g.N);
       tail::stage(s_rows + g.N, op, g.N);
       tail::stage(s_rows + 2 * g.N, keys, (g.S + 1) * g.N);
@@ -79,9 +84,11 @@ __global__ void __launch_bounds__(THREADS) sweep_thermo_kernel(Args g) {
       keys = s_rows + 2 * g.N;
     }
   }
+  // G = 1: the warp's lanes that hold a point (the wide build's rows)
+  const unsigned live = TILE ? __ballot_sync(tail::FULL, b < g.B) : tail::FULL;
   if (b >= g.B) return;  // G = 32: the warp; else the group, whose collectives name only its lanes
   const double a = g.a[b];
-  tail::OutSink<KACC - 2> sink{g.out, b, g.P, g.S, g.props, g.volume};
+  tail::OutSink<KACC - 2> sink{g.out, b, g.P, g.S, g.props, g.volume, live, s_tile + threadIdx.x / 32 * tail::ROW_TILE};
   const auto xf = [&](int i) { return __dadd_rn(tail::ld<NC>(lnpi, i), __dmul_rn(a, tail::ld<NC>(op, i))); };
   const auto kf = [&](int k, int i) { return tail::ld<NC>(keys, (size_t)k * g.N + i); };
   // G = 32: a point's slots are contiguous; else points interleave in the
@@ -98,7 +105,8 @@ template <int G, int CAP, int KACC>
 cudaError_t launch(const Args& g, cudaStream_t stream) {
   constexpr int PTS = THREADS / G;
   const unsigned blocks = (unsigned)(((long long)g.B + PTS - 1) / PTS);
-  sweep_thermo_kernel<G, CAP, KACC><<<blocks, THREADS, tail::stages_rows<G, CAP>(row_bytes(g)) ? row_bytes(g) : 0, stream>>>(g);
+  const bool staged = tail::stages_rows<G, CAP>(row_bytes(g), tail::row_tile_bytes(G, CAP));
+  sweep_thermo_kernel<G, CAP, KACC><<<blocks, THREADS, staged ? row_bytes(g) : 0, stream>>>(g);
   return cudaGetLastError();
 }
 

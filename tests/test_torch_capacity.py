@@ -24,7 +24,12 @@ the wide builds (tests/torch_composites.py ``CAPACITY``, ``ten_peak``):
   (``pallas_sweep.mu_sweep_thermo_ds(mode="xla")``, double-single) at 16
   slots and at nspec 3, at the kernel bar 1e-10;
 * the host-side rules: the capacity and sums choice, the layout rule with
-  max_phases, the slot and staging byte counts.
+  max_phases, the slot and staging byte counts;
+* the wide build's tail (``thermo_point_wide``): on the plain version's
+  outputs, the fill of the slots past the count and the O(phases)
+  overlap rule against the all-pairs one; and the tail itself, built
+  with g++ for one lane on the host (``tests/tail_host``), the wide body
+  against the body every build ran before it, bit for bit.
 
 Segmentation fields equal, floats within 1e-12 absolute (the JAX CPU
 suite's bar); mu_star within 1e-9 (JAX's own bar between two trace
@@ -32,7 +37,11 @@ engines).  Measured worst when written: 1.1e-13 (ripple121), 6.8e-13
 (tern573 / quat573, fe of order 1e3), 3.6e-15 (isopleth).
 """
 
+import ctypes
+import shutil
+import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -42,6 +51,7 @@ import fhmcanalysis_torch.core.cuda_iso as CI
 import fhmcanalysis_torch.core.cuda_mb as CM
 import fhmcanalysis_torch.core.cuda_sweep as CS
 import fhmcanalysis_torch.core.pipeline as TP
+import fhmcanalysis_torch.core.segment as TSG
 import fhmcanalysis_torch.core.solve as TSV
 import fhmcanalysis_torch.core.state as TS
 import fhmcanalysis_tpu.core.pallas_sweep as JPS
@@ -54,7 +64,7 @@ from fhmcanalysis_torch.histogram.ntot import histogram
 from fhmcanalysis_torch.io import write_composite
 from fhmcanalysis_tpu.binary import isopleth as jax_isopleth
 from fhmcanalysis_tpu.histogram.ntot import histogram as jax_histogram
-from torch_composites import CAPACITY, capacity_cell, cell, iso_sources, make_composite, mu_window, ten_peak, worst_abs_diff
+from torch_composites import CAPACITY, SURFACE_KINDS, capacity_cell, cell, iso_sources, make_composite, mu_window, random_surface, ten_peak, worst_abs_diff
 
 import jax.numpy as jnp
 
@@ -239,11 +249,13 @@ def test_lanes_rule_with_phase_slots(n_sm):
                 assert CS.lanes_per_point(N, B, n_sm, p) == (1 if B >= switch else 32)
             assert all(CI.lanes_per_cell(N, B, n_sm, p) == CI.lanes_per_cell(N, B, n_sm) for p in (1, 4, 8))
             assert all(CI.lanes_per_cell(N, B, n_sm, p) == (1 if B >= switch else 32) for p in (9, 16, 64))
-    assert CS.G1_PER_SM_CAP_WIDE == 64 and CS.G1_PER_SM_CAP == 384
+    assert CS.G1_PER_SM_CAP_WIDE == 256 and CS.G1_PER_SM_CAP == 384
     if n_sm == 132:  # multi573's 524,288 points and overflow31's 251,034 cells run one lane each; a 1,280-point solver step one warp
         assert CS.lanes_per_point(573, 524_288, n_sm, 64) == 1 and CI.lanes_per_cell(31, 251_034, n_sm, 16) == 1
         assert CS.lanes_per_point(31, 1280, n_sm, 16) == 32
-        assert CS.lanes_per_point(573, 8448, n_sm, 16) == 1 and CS.lanes_per_point(573, 8447, n_sm, 16) == 32
+        assert CS.lanes_per_point(573, 33_792, n_sm, 16) == 1 and CS.lanes_per_point(573, 33_791, n_sm, 16) == 32
+        assert CS.lanes_per_point(121, 15_972, n_sm, 64) == 1 and CS.lanes_per_point(121, 15_971, n_sm, 64) == 32
+        assert CI.lanes_per_cell(31, 4092, n_sm, 64) == 1 and CI.lanes_per_cell(31, 4091, n_sm, 64) == 32
     assert CM.lanes_per_point is CS.lanes_per_point
     for rule in (CS.lanes_per_point, CI.lanes_per_cell):
         with pytest.raises(ValueError, match="max_phases"):
@@ -266,6 +278,19 @@ def test_slot_and_staging_bytes():
     edge = CS.STATIC_SMEM - CS.slot_bytes(1, 8)
     assert CS.stages_rows(1, 8, edge) and not CS.stages_rows(1, 8, edge + 1)
     assert CS.stages_rows(1, 64, CS.STATIC_SMEM) and not CS.stages_rows(1, 64, CS.STATIC_SMEM + 1)
+
+
+def test_row_tile_and_shared_bytes():
+    """K1's and K2's row tile: 32 bytes a lane, a warp's 1 KB, only in the
+    wide build at G = 1, where a lane writes a point's row; each block's
+    static shared memory is its index slots and its tile (chip_smoke.py
+    holds the ptxas lines to it), and multi573's K1 rows still fit beside
+    them."""
+    assert CS.row_tile_bytes(1, 64) == 8 * 32 * 32 == 8_192
+    assert CS.row_tile_bytes(32, 64) == CS.row_tile_bytes(1, 8) == CS.row_tile_bytes(32, 8) == 0
+    assert [CS.shared_bytes(G, c) for G, c in ((1, 8), (32, 8), (1, 64), (32, 64))] == [17_408, 544, 8_192, 4_128]
+    n573 = 5 * 573 * 8  # multi573's K1 rows: lnpi, op, 3 key rows
+    assert n573 + CS.shared_bytes(1, 64) <= CS.STATIC_SMEM
 
 
 def test_iso_staged_sources_count():
@@ -297,3 +322,173 @@ def test_wrappers_raise_above_the_builds():
     with pytest.raises(ValueError, match="CUDA tensors"):
         TP.mu_sweep_thermo(th, tm, mus, engine="cuda")
     assert (CS.sweep_thermo.launches, CM.mb_sweep_thermo.launches, CI.iso_grid.launches) == (0, 0, 0)
+
+
+# ---- the wide build's redesign (csrc/thermo_tail.cuh thermo_point_wide) ----
+#
+# The wide build writes the slots past a point's count as a fill, tests
+# whether phases share bins in O(phases), and keeps its later lists as
+# views of the two compacted ones.  The facts it relies on, on the plain
+# version's outputs over the capacity cells' windows, and the wide body
+# itself built for the host (tests/tail_host) against the body every build
+# ran before it, bit for bit.
+
+WIDE_CELLS = (("ten31", None), ("ripple121", None), ("multi573", 1024))
+BIG = TSG.BIG
+
+
+def _plain_points(name, points, max_phases, collect, chunk=256):
+    """The plain mu sweep over a capacity cell's window, in chunks of
+    points (numpy outputs, N)."""
+    d, mk, mus = capacity_cell(name, points, max_phases=max_phases)
+    h, meta = TS.from_host(d, device="cpu"), TS.HistMeta(**mk)
+    parts = [TP.mu_sweep_thermo(h, meta, mus[i : i + chunk], props=True, collect=collect, engine="torch") for i in range(0, len(mus), chunk)]
+    return {k: np.concatenate([o[k].numpy() for o in parts]) for k in parts[0]}, h.nbins
+
+
+def _overlap_rules(left, right, n_phases, N):
+    """(all-pairs, O(phases)) answers to "does another masked phase share
+    a bin of phase p's summed range [b0, e)", [B, P] each, where the bin
+    loop runs (b0 < e), and whether each point's left bounds ascend."""
+    B, P = left.shape
+    nmask = np.minimum(n_phases, P)
+    slots = np.arange(P)
+    masked = slots[None] < nmask[:, None]
+    b0, e = np.clip(left, 0, N), np.minimum(right, N - 1)
+    runs = masked & (b0 < e)
+    meet = (np.maximum(left[:, None, :], b0[:, :, None]) < np.minimum(right[:, None, :], e[:, :, None])) & masked[:, None, :]
+    meet &= ~np.eye(P, dtype=bool)[None]
+    all_pairs = meet.any(-1) & runs
+    # the O(phases) rule: the largest right before p, the left of the first
+    # non-empty masked phase after p
+    hi_m = np.where(masked, right, -1)
+    pre_r = np.concatenate([np.full((B, 1), -1), np.maximum.accumulate(hi_m, axis=1)[:, :-1]], axis=1)
+    nonempty = masked & (left < right)
+    nx_l = np.full((B, P), np.iinfo(np.int64).max)
+    nxt = np.full(B, np.iinfo(np.int64).max)
+    for p in range(P - 1, -1, -1):
+        nx_l[:, p] = nxt
+        nxt = np.where(nonempty[:, p], left[:, p], nxt)
+    fast = ((pre_r > b0) | (nx_l < e)) & runs
+    ascending = np.where(masked[:, 1:], left[:, 1:] >= left[:, :-1], True).all(-1)
+    return all_pairs, fast, ascending
+
+
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("max_phases", [16, 32, 64])
+@pytest.mark.parametrize("name,points", WIDE_CELLS)
+def test_wide_fill_and_overlap_facts(name, points, max_phases, collect):
+    """Every point of the capacity cells' windows (multi573 at 1,024 mu):
+    the slots at and past min(n_phases, P) are the unmasked ones and hold
+    right N, fe +0 and zero properties, and left BIG from at most one slot
+    past the count on (a trailing minimum); the O(phases) overlap rule
+    answers as the all-pairs rule, where the left bounds ascend (all of
+    them here, and no two phases share a bin)."""
+    out, N = _plain_points(name, points, max_phases, collect)
+    P = max_phases
+    n = out["n_phases"]
+    slots = np.arange(P)
+    past = slots[None] >= np.minimum(n, P)[:, None]
+    np.testing.assert_array_equal(out["mask"], ~past)
+    assert (out["right"][past] == N).all()
+    for k in ("fe", "ntot", "u", "density"):
+        v = out[k][past]
+        assert (v == 0.0).all() and not np.signbit(v).any(), k
+    for k in ("n_i", "x_i"):
+        v = out[k][past]
+        assert (v == 0.0).all() and not np.signbit(v).any(), k
+    real_left = ~past | (out["left"] != BIG)
+    q_end = P - np.argmax(real_left[:, ::-1], axis=1)  # one past the last slot whose left is not BIG
+    assert (q_end - np.minimum(n, P) <= 1).all()
+    all_pairs, fast, ascending = _overlap_rules(out["left"].astype(np.int64), out["right"].astype(np.int64), n, N)
+    assert ascending.all()
+    np.testing.assert_array_equal(fast, all_pairs)
+    assert not all_pairs.any()
+
+
+def _n_peak_surface(n_peaks):
+    """n_peaks maxima at the odd bins of 2 n_peaks + 1, a slight tilt."""
+    t = np.arange(2 * n_peaks + 1, dtype=np.float64)
+    return (t % 2) + 1e-3 * t
+
+
+@pytest.fixture(scope="module")
+def tail_host(tmp_path_factory):
+    """tests/tail_host/tail_host.cpp built with g++ (the kernels' tail for
+    one lane on the CPU)."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the tail for the host")
+    here = Path(__file__).parent
+    so = tmp_path_factory.mktemp("tail_host") / "libtail_host.so"
+    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off", "-I", str(here / "tail_host"),
+                    "-I", str(here.parent / "fhmcanalysis_torch" / "csrc"), str(here / "tail_host" / "tail_host.cpp"), "-o", str(so)],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tail_run.argtypes = [i, p, p, ctypes.c_double] + [i] * 7 + [p] * 12
+    return lib
+
+
+def _tail_host_run(lib, body, x, keys, volume, P, smooth, collect):
+    """One body of the host-built tail over the rows of x [B, N]; every
+    output starts poisoned, so a slot the body leaves unwritten shows."""
+    B, N = x.shape
+    S = keys.shape[0] - 1
+    o = {"fe": np.full((B, P), 12345.0), "left": np.full((B, P), -7, np.int32), "right": np.full((B, P), -7, np.int32),
+         "mask": np.full((B, P), 9, np.uint8), "n_phases": np.full(B, -7, np.int32), "valid": np.full(B, 9, np.uint8),
+         "n_i": np.full((B, P, S), 12345.0), "x_i": np.full((B, P, S), 12345.0), "ntot": np.full((B, P), 12345.0),
+         "u": np.full((B, P), 12345.0), "density": np.full((B, P), 12345.0), "last_max": np.full(B, -7, np.int32)}
+    x, keys = np.ascontiguousarray(x), np.ascontiguousarray(keys)
+    lib.tail_run(body, x.ctypes.data, keys.ctypes.data, volume, B, N, S, P, smooth, 1, int(collect == "janus"),
+                 *(o[k].ctypes.data for k in ("fe", "left", "right", "mask", "n_phases", "valid", "n_i", "x_i", "ntot", "u", "density", "last_max")))
+    return o
+
+
+def _tail_host_inputs(max_phases):
+    """(name, x [B, N], keys [S+1, N], volume, smooth): the capacity cells
+    (multi573 at 512 mu), the randomized structures, surfaces of P - 1 to
+    P + 2 maxima, and flat, monotone and tiny ones."""
+    rng = np.random.default_rng(max_phases)
+    cases = []
+    for name, points in (("ten31", None), ("ripple121", None), ("multi573", 512)):
+        d, mk, mus = capacity_cell(name, points, max_phases=max_phases)
+        h, meta = TS.from_host(d, device="cpu"), TS.HistMeta(**mk)
+        x = (h.lnpi[None] + TP._reweight_coeff(h, torch.as_tensor(mus))[:, None] * h.op[None]).numpy()
+        cases.append((name, x, TSG.key_rows(h.mom, meta).numpy(), float(h.volume), mk["smooth"]))
+    for kind in SURFACE_KINDS:
+        for smooth in (1, 2, 3):
+            cases.append((f"{kind} smooth={smooth}", np.stack([random_surface(kind, 61, rng) for _ in range(16)]), rng.normal(size=(3, 61)), 0.9, smooth))
+    for k in (max_phases - 1, max_phases, max_phases + 1, max_phases + 2):
+        cases.append((f"{k} peaks", _n_peak_surface(k)[None], rng.normal(size=(3, 2 * k + 1)), 1.0, 1))
+    rise = np.r_[np.cos(np.linspace(0.0, 6 * np.pi, 37)), [-1.5, 2.0]]  # ends on a minimum inside, then climbs to bin N-1
+    for x in (np.zeros(20), np.arange(20.0), -np.arange(20.0), np.array([1.0]), np.array([2.0, 1.0, 2.0]), np.array([0.0, 5, 5, 0, 5, 5, 0]), rise, -rise):
+        cases.append((f"special {x[:4]}", x[None], rng.normal(size=(3, x.size)), 1.0, 1))
+    cases.append(("integer ties", rng.integers(-2, 3, size=(64, 40)).astype(np.float64), rng.normal(size=(3, 40)), 1.0, 2))
+    return cases
+
+
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("max_phases", [9, 16, 32, 64])
+def test_wide_body_on_host(tail_host, max_phases, collect):
+    """The wide build's body (views of the compacted lists, loops to the
+    counts, the O(phases) overlap rule, the fill) writes every output, and
+    the last maximum K3 keeps, bit for bit as the body every build ran
+    before it, at 64 slots, on one
+    lane of the host; and both equal the plain version in segmentation,
+    the fill in value (an empty plain sum may read -0.0), the masked
+    floats within 1e-10."""
+    for name, x, keys, volume, smooth in _tail_host_inputs(max_phases):
+        old = _tail_host_run(tail_host, 0, x, keys, volume, max_phases, smooth, collect)
+        new = _tail_host_run(tail_host, 1, x, keys, volume, max_phases, smooth, collect)
+        for k in old:
+            assert old[k].tobytes() == new[k].tobytes(), (name, k)
+        meta = TS.HistMeta(nspec=keys.shape[0] - 1, max_order=2, used_ke=False, smooth=smooth, max_phases=max_phases)
+        pt, props = TSG.thermo_key_core(torch.as_tensor(x), torch.as_tensor(keys), meta, torch.tensor(volume, dtype=torch.float64), collect=collect)
+        want = {"fe": pt.fe, "left": pt.left, "right": pt.right, "mask": pt.mask, "n_phases": pt.n_phases, "valid": pt.valid, **props}
+        want = {k: v.numpy() for k, v in want.items()}
+        for k in SEG:
+            np.testing.assert_array_equal(new[k].astype(want[k].dtype), want[k], err_msg=f"{name} {k}")
+        for k in ("fe",) + PROPS:
+            m = want["mask"] if new[k].ndim == 2 else np.broadcast_to(want["mask"][..., None], new[k].shape)
+            np.testing.assert_array_equal(new[k][~m], want[k][~m], err_msg=f"{name} {k}")  # the plain version's sums may be -0.0
+            assert worst_abs_diff(new[k], want[k], want["mask"]) <= 1e-10, (name, k)

@@ -26,7 +26,10 @@ The wide builds (64 phase slots; K1's 6 per-phase sums for nspec 3-4)
 are held the same way on the capacity inputs (torch_composites CAPACITY,
 ten_peak): K1 at max_phases 9, 16, 32 and 64 and at nspec 3 and 4, K2 in
 both modes and K3 at 16 and 64, every wrapper raising at 65 slots (and
-K1 at 5 species) before any launch.
+K1 at 5 species) before any launch.  The wide build writes the slots
+past each point's count as a fill: those equal the plain version's at
+every G on multi573 (None and janus, 16-64 slots) and on surfaces of 63,
+64 and 65 maxima (one slot of fill, every slot real, overflow).
 """
 
 import sys
@@ -150,6 +153,77 @@ def test_kernel_phase_slots_multi573(cuda, max_phases, collect):
         assert 0.0 < share < 1.0
     else:
         assert share == 1.0
+
+
+def _compare_wide(h, meta, mus, collect, lanes=LANES):
+    """K1 against the plain version on every slot: segmentation equal; the
+    slots past the count (mask False) bit for bit, as the wide build fills
+    them; every masked slot, of valid and invalid points, within 1e-10.
+    Returns the outputs by G."""
+    want = {k: v.cpu() for k, v in TP.mu_sweep_thermo(h, meta, mus, props=True, collect=collect, engine="torch").items()}
+    outs = {}
+    for G in lanes:
+        got = {k: v.cpu() for k, v in TP.mu_sweep_thermo(h, meta, mus, props=True, collect=collect, engine="cuda", _lanes=G).items()}
+        for k in SEG:
+            assert torch.equal(got[k], want[k]), (G, k)
+        for k in ("fe",) + PROPS:
+            m = want["mask"] if got[k].dim() == 2 else want["mask"][..., None].expand_as(got[k])
+            assert torch.equal(got[k][~m], want[k][~m]), (G, k, "fill")
+            assert worst_abs_diff(got[k], want[k], want["mask"]) <= 1e-10, (G, k)
+        outs[G] = got
+    return outs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("max_phases", [16, 32, 64])
+def test_kernel_wide_fill_multi573(cuda, max_phases, collect):
+    """The wide build on multi573 (11-25 maxima; janus collect included):
+    the slots past each point's count equal the plain version's bit for
+    bit at every G, and G = 1 and G = 32 agree in segmentation and fill."""
+    d, mk, mus = capacity_cell("multi573", 2048, max_phases=max_phases)
+    outs = _compare_wide(TS.from_host(d, device=cuda), TS.HistMeta(**mk), mus, collect)
+    g1, g32 = outs[1], outs[32]
+    for k in SEG:
+        assert torch.equal(g1[k], g32[k]), k
+    fill = ~g1["mask"]
+    assert torch.equal(g1["fe"][fill], g32["fe"][fill]) and bool(fill.any())
+
+
+def _n_peak_surface(n_peaks):
+    """n_peaks maxima at the odd bins of 2 n_peaks + 1 bins, minima at the
+    even ones (both ends), a slight tilt so no two bins tie."""
+    t = np.arange(2 * n_peaks + 1, dtype=np.float64)
+    return (t % 2) + 1e-3 * t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("n_peaks", [63, 64, 65])
+def test_kernel_wide_every_slot_and_overflow(cuda, n_peaks, collect):
+    """A surface with exactly 64 maxima fills every slot of the widest
+    build (valid); one with 65 overflows it (valid False, n_phases 65,
+    every slot masked as the plain version writes it); 63 leaves one
+    slot to the fill.  K1 at every G, and K2 at identity targets."""
+    lnpi = _n_peak_surface(n_peaks)
+    d, mk, _ = cell("n31", max_order=3)
+    N = lnpi.size
+    d = dict(d, lnpi=lnpi, op=np.arange(N, dtype=np.float64), mom=np.broadcast_to(d["mom"][..., :1], d["mom"].shape[:-1] + (N,)).copy())
+    h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**dict(mk, smooth=1, max_phases=64))
+    mus = h.curr_mu[0].item() + np.linspace(-1e-6, 1e-6, 96)
+    outs = _compare_wide(h, meta, mus, collect)
+    got = outs[None]
+    if collect is None:
+        assert bool((got["n_phases"] == n_peaks).all() if n_peaks <= 64 else (got["n_phases"] > 64).all())
+        assert bool(got["valid"].all()) == (n_peaks <= 64)
+        assert int(got["mask"].sum(-1).max()) == min(n_peaks, 64)
+    else:  # janus merges all peaks but the last into one
+        assert bool((got["n_phases"] == 2).all())
+    dref = (h.curr_mu[1:] - h.curr_mu[0]).cpu().numpy()[None]
+    for G in LANES:
+        k2 = TP.mu_beta_sweep_thermo(h, meta, mus, h.curr_beta.reshape(1).cpu().numpy(), dref, order=1, props=True, collect=collect, engine="cuda", _lanes=G)
+        for k in outs[G]:
+            assert torch.equal(k2[k][:, 0].cpu(), outs[G][k]), (G, k)
 
 
 @pytest.mark.gpu
