@@ -121,13 +121,19 @@ Phases (each raises on failure, so any failure exits non-zero):
      mu x 64 targets at orders 1-2 and 16 and 64 slots;
      find_phase_eq_state over 256 betas at 16 slots (K2's paired mode);
      make_grid on overflow31 (the fail-code test's ten-peak sources,
-     301 x 834 cells) at 8 slots (fail code 3 everywhere) and, with the
-     sources' _meta raised, at 16 (every cell ok); kernel ms (median of 3),
-     plain ms (one run), launches, bound, peak GiB, and layout lines of K1,
-     K2 and K3 at 16 and 64 slots; each wide build's ptxas registers,
-     stack, spill stores and static shared bytes beside the host's count
-     (cuda_sweep.shared_bytes: the index slots and K1's and K2's row tile;
-     phase 2 holds every build's shared bytes to it); a
+     301 x 834 cells) and on overflow1400 (the iso1400 sources with
+     torch_composites.ripple1400, 10-20 maxima, 128 x 128 cells at N =
+     1400) at 8 slots (fail code 3 everywhere) and, with the sources'
+     _meta raised, at 16 and 64 (overflow31: every cell ok; overflow1400:
+     some cells ok at 16, most at 64), the bare K3 wrapper at 16
+     and 64 forced to G = 1 and 32 against the plain version, and K3's x_m
+     area counted on the host against the library's; kernel ms (median
+     of 3), plain ms (one run), make_grid ms, launches, bound, peak GiB,
+     and layout lines of K1, K2 and K3 at 16 and 64 slots (K3 at N = 31
+     and 1400); each wide build's ptxas registers, stack, spill stores and
+     static shared bytes beside the host's count (cuda_sweep.shared_bytes:
+     the index slots and K1's and K2's row tile; phase 2 holds every
+     build's shared bytes to it), K3's with its dynamic x_m area; a
      {"capacity": ...} line;
   6. a {"kernels": [...]} line with each kernel's launches, worst error,
      times and bound (the 2-D path and window patching add none; the
@@ -140,9 +146,10 @@ strided sample of the sweeps' points, every isopleth cell), K3's parity
 cases and the wide builds' cases (wide_cases: K1 on multi573 at 16, 32
 and 64 slots, None and janus; K2 on multi573 at 16 and 64, orders 1-2;
 K2's paired coex31 step at 16; K3 on overflow31 at 16 at the rule's G and
-G = 32; K1 and K2 on ten31 and ripple121 at 16 and 64 forced to each G;
-4,096 sampled points each, and each case's kernel ms: the median of 3
-reps of 10 launches each),
+G = 32 and at 64 at each G, and on overflow1400 at 16 and 64 at each G;
+K1 and K2 on ten31 and ripple121 at 16 and 64 forced to each G;
+4,096 sampled points each, and each case's kernel ms, and K3's on its
+main-path grids: the median of 3 reps of 10 launches each),
 through entry points every tree of the port has had since the wide
 builds, and saves the kernels' outputs, K3's also forced to G = 32
 (" G=32" keys); run it from a copy of this file, with
@@ -181,6 +188,7 @@ WIDE_DUMP_POINTS = 4096  # per wide-build case in --dump
 WIDE_TIMED_LAUNCHES = 10  # --dump times a wide case's kernel over this many launches a rep
 CAP_MB = (4096, 64)  # phase 5f: K2's mu values x targets on multi573
 WIDE_PER_SM = (4, 8, 16, 32, 64, 128, 256, 384)  # phase 5f: points per SM of the wide builds' layout lines
+WIDE_PER_SM_1400 = (4, 16, 64, 256, 512, 1024, 2048)  # phase 5f: cells per SM of K3's wide layout lines at N = 1400 (its switch: 1,024)
 REPLACES = {
     "sweep_thermo": "fhmcanalysis_tpu/core/pallas_sweep.py:758",  # _sweep_ds_pallas (pl.pallas_call at :773)
     "mb_sweep_thermo": "fhmcanalysis_tpu/core/pallas_mb.py:482",  # _mb_ds_pallas (pl.pallas_call at :496)
@@ -267,10 +275,15 @@ def bound(inputs, outputs, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def covered_bins(out):
+def covered_bins(out, N=None):
     """Bins summed by the tail over all points and phases of this run: the
-    per-phase max, exp and sums run over [left, right) of each real phase."""
-    return int(((out["right"] - out["left"]).clamp(min=0) * out["mask"]).sum())
+    per-phase max, exp and sums run over [left, right) of each real phase,
+    both clamped to [0, N] where N is given (the plain segmentation's
+    bounds of a point that overflows its slots may read BIG)."""
+    left, right = out["left"], out["right"]
+    if N is not None:
+        left, right = left.clamp(0, N), right.clamp(0, N)
+    return int(((right - left).clamp(min=0) * out["mask"]).sum())
 
 
 def tail_ops(out, B, N, smooth, x_ops, key_ops):
@@ -279,7 +292,7 @@ def tail_ops(out, B, N, smooth, x_ops, key_ops):
     covered bin the phase max, the shift, one exp, the weight sum and the
     key rows (key_ops: forming each key row and its multiply-add).  The
     segmentation's integer logic (O(P^2) per point) is not counted."""
-    return B * N * (x_ops + 4 * smooth) + covered_bins(out) * (3 + EXP_OPS + key_ops)
+    return B * N * (x_ops + 4 * smooth) + covered_bins(out, N) * (3 + EXP_OPS + key_ops)
 
 
 def compare_iso(got, want, where, min_ok=0.0):
@@ -309,8 +322,9 @@ def ptxas_report(text):
     bytes, spill store bytes, static shared bytes)] from nvcc
     --ptxas-options=-v output: G, the phase-slot capacity and (K1) the
     per-phase sums from the kernel's template arguments, and " paired" after
-    the name of K2's paired-mode instantiation.  A tree from before the
-    capacities has G only (capacity None)."""
+    the name of K2's paired-mode instantiation, " xm" after K3's
+    instantiation with the x_m area.  A tree from before the capacities has
+    G only (capacity None)."""
     rows, fn, stack, spill = [], None, 0, 0
     for line in text.splitlines():
         if m := re.search(r"Function properties for (\S+)", line):
@@ -322,8 +336,9 @@ def ptxas_report(text):
             targs = re.search(r"_kernelI((?:L[ib]\d+E)+)E", fn)
             args = re.findall(r"L([ib])(\d+)E", targs.group(1)) if targs else []
             ints = [int(v) for t, v in args if t == "i"]
-            paired = ("b", "1") in args
-            name = (kname.group(1) if kname else fn) + (" paired" if paired else "")
+            flag = ("b", "1") in args
+            name = kname.group(1) if kname else fn
+            name += (" xm" if name.startswith("iso_grid") else " paired") if flag else ""
             smem = re.search(r"(\d+) bytes smem", line)
             rows.append((name, ints[0] if ints else None, ints[1] if len(ints) > 1 else None, ints[2] if len(ints) > 2 else None,
                          int(m.group(1)), stack, spill, int(smem.group(1)) if smem else 0))
@@ -422,6 +437,28 @@ class Ctx:
         metas = [self.state.HistMeta(**dict(mk, max_phases=max_phases))] * len(srcs)
         return (srcs, metas, mu1_v, dmu2_v, lr, wts, beta, order, CUTOFF, collect)
 
+    def overflow_inputs(self, name):
+        """(source dicts, meta kwargs, mu1_v, dmu2_v, beta) of a K3 capacity
+        cell: overflow31 (the fail-code test's ten-peak sources on iso31's
+        301 x 834 cells over that test's window) or overflow1400 (the
+        iso1400 sources with ripple1400 on ISO1400's 128 x 128 cells)."""
+        np, TC = self.np, self.TC
+        if name == "overflow31":
+            ds, mk = TC.iso_sources("n31", lnpi=TC.ten_peak())
+            return ds, mk, np.linspace(4.9, 5.1, TC.ISO31["NX"]), np.linspace(-4.9, -4.1, TC.ISO31["NY"]), 1.001
+        g = TC.ISO1400
+        ds, mk = TC.iso_sources(g["name"], lnpi=TC.ripple1400())
+        mu1, dmu2, _ = TC.iso_grid_args(g)
+        return ds, mk, np.linspace(*mu1, g["NX"]), np.linspace(*dmu2, g["NY"]), g["beta"]
+
+    def overflow_sources(self, name):
+        """(srcs, meta kwargs, mu1_v, dmu2_v, lr, wts, beta) of a K3 capacity
+        cell on the card (overflow_inputs)."""
+        ds, mk, mu1_v, dmu2_v, beta = self.overflow_inputs(name)
+        iso = self.iso_cls([self.TC.port_histogram(d, mk, device=self.dev) for d in ds], beta, order=1)
+        lr, wts = iso._bracket(dmu2_v, 2.5)
+        return [h._hist() for h in iso.data["histograms"]], mk, mu1_v, dmu2_v, lr, wts, beta
+
     def iso_main(self, gname, order):
         """(iso, grid, srcs, mk, lr, wts, mu1_v, dmu2_v) of an isopleth main-path cell."""
         np, TC = self.np, self.TC
@@ -467,8 +504,10 @@ def wide_cases(C):
     multi573 (4,096 mu x 64 targets) at 16 and 64 slots, orders 1-2; K2's
     paired step on coex31 at 16 (1,280 points, as find_phase_eq_state
     launches it); K3 on overflow31 (301 x 834 cells) at 16, at the rule's
-    G and at G = 32; and K1 and K2 (order 1) on ten31 and ripple121 at 16
-    and 64 slots at 64 points per SM, forced to G = 1 and to G = 32."""
+    G and at G = 32, and at 64 at each G, and on overflow1400 (128 x 128
+    cells at N = 1400) at 16 and 64 at each G; and K1 and K2 (order 1) on
+    ten31 and ripple121 at 16 and 64 slots at 64 points per SM, forced to
+    G = 1 and to G = 32."""
     torch, np, TC, pipeline, segment, state, IB = C.torch, C.np, C.TC, C.pipeline, C.segment, C.state, C.IB
     cuda_sweep, cuda_mb, cuda_iso, dev = C.cuda_sweep, C.cuda_mb, C.cuda_iso, C.dev
     from fhmcanalysis_torch.core import solve as SV
@@ -516,21 +555,18 @@ def wide_cases(C):
     step_a = pipeline._reweight_coeff(h, step_mu).contiguous()
     paired = lambda: cuda_mb.mb_sweep_thermo(h.lnpi, h.op, obj.xrows, None, h.volume, step_mu, step_a, obj.tg, meta.nspec, meta.smooth, 16, 1, False, tix=step_tix)  # noqa: E731
     cases.append(("K2 coex31 P=16 paired step", paired, paired))
-    # K3 on overflow31 at 16 slots
-    NX, NY = TC.ISO31["NX"], TC.ISO31["NY"]
-    ds, mk3 = TC.iso_sources("n31", lnpi=TC.ten_peak())
-    hs = [TC.port_histogram(dd, mk3, device=dev) for dd in ds]
-    iso = C.iso_cls(hs, 1.001, order=1)
-    mu1_v, dmu2_v = np.linspace(4.9, 5.1, NX), np.linspace(-4.9, -4.1, NY)
-    lr, wts = iso._bracket(dmu2_v, 2.5)
-    srcs, metas = [hh._hist() for hh in hs], [state.HistMeta(**dict(mk3, max_phases=16))] * len(hs)
-    pro = IB._iso_prologue(srcs, metas[0], mu1_v, dmu2_v, lr, wts, 1.001, 1, CUTOFF)
-    kin = [pro[k] for k in ("lnpi", "op", "xrows", "krows", "a", "edge", "mu", "lr", "wts", "tg", "volume")]
+    # K3 on overflow31 (301 x 834 cells) at 16 slots at the rule's G and
+    # at 64 at each G, and on overflow1400 (128 x 128) at 16 and 64 at each G
     names = ("z", "density", "fe", "ok", "fail_code")
-    for G in (None, 32):
-        run = lambda G=G: dict(zip(names, (t.reshape(-1) for t in IB.iso_grid(srcs, metas, mu1_v, dmu2_v, lr, wts, 1.001, 1, CUTOFF, engine="cuda", _lanes=G))))  # noqa: E731
-        kern = lambda G=G: cuda_iso.iso_grid(*kin, mk3["smooth"], 16, 1, CUTOFF, _lanes=G)  # noqa: E731
-        cases.append(("K3 overflow31 P=16" + (" G=32" if G else ""), run, kern))
+    for name, P, lanes in (("overflow31", 16, (None, 32)), ("overflow31", 64, (1, 32)), ("overflow1400", 16, (1, 32)), ("overflow1400", 64, (1, 32))):
+        srcs, mk3, mu1_v, dmu2_v, lr, wts, beta = C.overflow_sources(name)
+        metas = [state.HistMeta(**dict(mk3, max_phases=P))] * len(srcs)
+        pro = IB._iso_prologue(srcs, metas[0], mu1_v, dmu2_v, lr, wts, beta, 1, CUTOFF)
+        kin = [pro[k] for k in ("lnpi", "op", "xrows", "krows", "a", "edge", "mu", "lr", "wts", "tg", "volume")]
+        for G in lanes:
+            run = lambda G=G, a=(srcs, metas, mu1_v, dmu2_v, lr, wts, beta): dict(zip(names, (t.reshape(-1) for t in IB.iso_grid(*a, 1, CUTOFF, engine="cuda", _lanes=G))))  # noqa: E731
+            kern = lambda G=G, kin=kin, sm=mk3["smooth"], P=P: cuda_iso.iso_grid(*kin, sm, P, 1, CUTOFF, _lanes=G)  # noqa: E731
+            cases.append((f"K3 {name} P={P}" + (f" G={G}" if G else ""), run, kern))
     # ten31 and ripple121 at 64 points per SM, each layout forced
     for name in ("ten31", "ripple121"):
         for P in (16, 64):
@@ -543,9 +579,10 @@ def wide_cases(C):
 def dump(path):
     """--dump: the kernels' outputs on the main paths (a strided sample of
     the sweeps' points, every isopleth cell), on K3's parity cases, and on
-    the wide builds' cases (wide_cases: a strided sample of 4,096 points,
-    and each one's kernel ms, CUDA events, warm, the median of 3 reps of
-    WIDE_TIMED_LAUNCHES launches, under the "_ms" key)."""
+    the wide builds' cases (wide_cases: a strided sample of 4,096 points),
+    with the kernel ms of each wide case and of K3 on its main-path grids
+    (CUDA events, warm, the median of 3 reps of WIDE_TIMED_LAUNCHES
+    launches, under the "_ms" key)."""
     C = Ctx()
     C.build()
     torch, np, TC, pipeline = C.torch, C.np, C.TC, C.pipeline
@@ -574,19 +611,29 @@ def dump(path):
     for order in MB_ORDERS:
         o = pipeline.mu_beta_sweep_thermo(h, meta, torch.as_tensor(mus, device=C.dev), betas, dmus, order=order, props=True)
         out[f"K2 mb31_o{order}"] = sample(o, 2)
+    ms = {}
     for cname, gname, order in ISO_CELLS:
         g, iso, grid, srcs, mk, lr, wts, mu1_v, dmu2_v = C.iso_main(gname, order)
         iso.make_grid(*grid)
         out[f"K3 {cname}"] = {k: torch.as_tensor(np.asarray(iso.data[k])) for k in ("Z", "density", "F.E./kT", "valid", "fail_code")}
         metas = [C.state.HistMeta(**dict(mk, max_phases=8))] * len(srcs)
         out[f"K3 {cname} G=32"] = k3_g32((srcs, metas, mu1_v, dmu2_v, lr, wts, g["beta"], order, CUTOFF))
+        # the first build's kernel at the rule's G on the main-path grid, timed as the wide cases
+        pro = C.IB._iso_prologue(srcs, metas[0], mu1_v, dmu2_v, lr, wts, g["beta"], order, CUTOFF)
+        kin = [pro[k] for k in ("lnpi", "op", "xrows", "krows", "a", "edge", "mu", "lr", "wts", "tg", "volume")]
+
+        def k3_launches(kin=kin, sm=mk["smooth"], order=order):
+            for _ in range(WIDE_TIMED_LAUNCHES):
+                C.cuda_iso.iso_grid(*kin, sm, 8, order, CUTOFF)
+
+        ms[f"K3 {cname}"] = cuda_ms(k3_launches) / WIDE_TIMED_LAUNCHES
+        log(f"dump K3 {cname}: kernel {ms[f'K3 {cname}']:.4f} ms | {C.smi}")
     for i, kw in enumerate(k3_cases(np, TC)):
         kw.pop("min_ok", None)
         args = C.iso_args(**kw)
         got = C.IB.iso_grid(*args, engine="cuda")
         out[f"K3 case {i}"] = dict(zip(iso_names, (t.cpu() for t in got)))
         out[f"K3 case {i} G=32"] = k3_g32(args)
-    ms = {}
     for key, run, kern in wide_cases(C):
         o = run()
         B = next(iter(o.values())).shape[0]
@@ -1323,6 +1370,108 @@ def once_ms(fn):
     return out, s.elapsed_time(e)
 
 
+def capacity_k3(C, note, cells):
+    """Phase 5f's K3 cells: make_grid on overflow31 (iso31's 301 x 834
+    cells) and overflow1400 (iso1400's 128 x 128 at N = 1400) at 8, 16 and
+    64 slots with the sources' _meta raised, K3's launch counter set to 0
+    just before and read just after, held against the plain version; at 16
+    and 64 the bare wrapper forced to G = 1 and 32 too, and its x_m area
+    counted on the host against the library's.  Fills cells {name: run},
+    calls note(worst) per comparison; returns {(cell, G): x_m bytes}."""
+    torch, np, TC, dev, smi = C.torch, C.np, C.TC, C.dev, C.smi
+    cuda_sweep, cuda_iso, segment, state, IB = C.cuda_sweep, C.cuda_iso, C.segment, C.state, C.IB
+    n_sm = cuda_sweep.sm_count(dev.index)
+    xm_areas = {}  # (cell, G) -> the wide build's x_m area a block reserves, host == library
+    for oname in ("overflow31", "overflow1400"):
+        ds, mk3, mu1_g, dmu2_g, beta = C.overflow_inputs(oname)
+        NX, NY = len(mu1_g), len(dmu2_g)
+        mu1_b, dmu2_b = (mu1_g[0], mu1_g[-1]), (dmu2_g[0], dmu2_g[-1])
+        grid = (mu1_b, dmu2_b, ((mu1_b[1] - mu1_b[0]) / (NX - 1) * (1 + 1e-9), (dmu2_b[1] - dmu2_b[0]) / (NY - 1) * (1 + 1e-9)))
+        for P in (8, 16, 64):
+            hs = [TC.port_histogram(dd, mk3, device=dev) for dd in ds]
+            for hh in hs:  # the remedy fail code 3 names: a larger max_phases in _meta()
+                hh._meta = lambda max_phases=P, _m=type(hh)._meta, _h=hh: _m(_h, max_phases)
+            iso = C.iso_cls(hs, beta, order=1)
+            cname = f"{oname} P={P}"
+            cuda_iso.iso_grid.launches = 0
+            iso.make_grid(*grid)
+            torch.cuda.synchronize()
+            launches = cuda_iso.iso_grid.launches
+            got = tuple(torch.as_tensor(np.asarray(iso.data[k]), device=dev) for k in ("Z", "density", "F.E./kT", "valid", "fail_code"))
+            if launches != 1 or got[4].shape != (NY, NX):
+                raise AssertionError(f"capacity K3 {cname}: {launches} launches, grid {tuple(got[4].shape)}")
+            mu1_v, dmu2_v = iso.data["X"][0], iso.data["Y"][:, 0]
+            lr, wts = iso._bracket(dmu2_v, 2.5)
+            srcs, metas = [hh._hist() for hh in hs], [hh._meta() for hh in hs]
+            args = (srcs, metas, mu1_v, dmu2_v, lr, wts, beta, 1, CUTOFF)
+            want, p_ms = once_ms(lambda: IB.iso_grid(*args, engine="torch"))
+            w = compare_iso(got, want, f"capacity K3 {cname}")
+            note(w)
+            codes = torch.bincount(got[4].reshape(-1).long(), minlength=4).tolist()
+            ok_share = codes[0] / (NX * NY)
+            expect = codes[3] == NX * NY if P == 8 else (codes[0] == NX * NY if oname == "overflow31" else (codes[0] > 0 and codes[3] > 0 if P == 16 else ok_share > 0.5 and codes[3] == 0))
+            if not expect:
+                raise AssertionError(f"capacity K3 {cname}: fail codes {codes}")
+            pro = IB._iso_prologue(srcs, metas[0], mu1_v, dmu2_v, lr, wts, beta, 1, CUTOFF)
+            kin = [pro[k] for k in ("lnpi", "op", "xrows", "krows", "a", "edge", "mu", "lr", "wts", "tg", "volume")]
+            k3 = lambda G=None, P=P, kin=kin: cuda_iso.iso_grid(*kin, mk3["smooth"], P, 1, CUTOFF, _lanes=G)  # noqa: E731
+            N = srcs[0].nbins
+            G = cuda_iso.lanes_per_cell(N, NX * NY, n_sm, P)
+            k_ms = cuda_ms(k3)
+            lane_ms = {}
+            if P > 8:  # the wide build at each G against the plain version
+                for Gf in cuda_sweep.LANES:
+                    wg = compare_iso(k3(Gf), want, f"capacity K3 {cname} G={Gf}")
+                    note(wg)
+                    lane_ms[Gf] = cuda_ms(lambda Gf=Gf: k3(Gf))
+                    host = cuda_iso.xm_bytes(Gf, len(srcs), NX, NY, N, 1, P)
+                    lib = cuda_iso._lib().iso_grid_xm_bytes(Gf, cuda_sweep.capacity(P), len(srcs), NX, NY, N, *(pro[k].shape[1] for k in ("xrows", "krows")))
+                    if host != lib:
+                        raise AssertionError(f"capacity K3 {cname} G={Gf}: the host counts an x_m area of {host} bytes, the library reserves {lib}")
+                    xm_areas[(oname, Gf)] = host
+            full_x, _ = IB._iso_surfaces(pro, slice(None), 1)
+            ext = segment.relextrema(full_x, mk3["smooth"], P)
+            lefts, rights, pmask = segment.phase_bounds(ext, full_x.shape[-1], P)
+            del full_x, ext
+            cov = {"left": lefts, "right": rights, "mask": pmask}
+            ops = tail_ops(cov, NX * NY, N, mk3["smooth"], *k3_ops(1))
+            b_ms, b_by = bound(kin, k3(), ops)
+            m_ms = cuda_ms(lambda: iso.make_grid(*grid))
+            cells[cname] = dict(NX=NX, NY=NY, B=NX * NY, N=N, order=1, max_phases=P, capacity=cuda_sweep.capacity(P), lanes=G,
+                                staged_sources=cuda_iso.staged_sources(G, len(srcs), NX, NY, N, 1, P), xm_bytes=cuda_iso.xm_bytes(G, len(srcs), NX, NY, N, 1, P),
+                                launches=launches, kernel_ms=k_ms, kernel_ms_by_lanes=lane_ms, plain_ms=p_ms, plain_ms_from="one run", make_grid_ms=m_ms,
+                                bound_ms=b_ms, bound_by=b_by, ops=ops, covered_bins=covered_bins(cov, N), fail_codes=codes, worst=w)
+            log(f"capacity K3 {cname}: N={N} {NY}x{NX} cells build cap={cuda_sweep.capacity(P)} G={G} x_m area {cells[cname]['xm_bytes']} B launches={launches} "
+                f"fail codes {codes} | kernel {k_ms:.3f} ms" + "".join(f", G={Gf} {t:.3f} ms" for Gf, t in lane_ms.items()) + f" | "
+                f"make_grid {m_ms:.3f} ms | plain {p_ms:.1f} ms (one run) | bound {b_ms:.4f} ms by {b_by} ({ops:.4g} f64 ops) | worst",
+                json.dumps({k: float(f"{v:.3e}") for k, v in w.items()}), f"| {smi}")
+    return xm_areas
+
+
+def layouts_k3_wide(C, layout):
+    """Phase 5f's layout lines of K3's wide build (the data behind the wide
+    branch of cuda_iso.g1_switch): G = 1 against G = 32 at 16 and 64 slots
+    on the overflow31 and overflow1400 sources over their windows, 31 and
+    128 dMu_2 rows, from a few cells per SM up and at the capacity cells'
+    grids; layout(key, N, B, P, time_g, rule, switch) times and logs one."""
+    np, TC, dev = C.np, C.TC, C.dev
+    cuda_iso, state, IB = C.cuda_iso, C.state, C.IB
+    n_sm = C.cuda_sweep.sm_count(dev.index)
+    for oname, NYl, per_sm in (("overflow31", 31, WIDE_PER_SM), ("overflow1400", 128, WIDE_PER_SM_1400)):
+        ds, mk3, mu1_g, dmu2_g, beta = C.overflow_inputs(oname)
+        iso = C.iso_cls([TC.port_histogram(dd, mk3, device=dev) for dd in ds], beta, order=1)
+        srcs = [hh._hist() for hh in iso.data["histograms"]]
+        N = srcs[0].nbins
+        for NXl, NYr in sorted({(n_sm * k // NYl, NYl) for k in per_sm} | {(len(mu1_g), len(dmu2_g))}):
+            mu1_v, dmu2_v = np.linspace(mu1_g[0], mu1_g[-1], NXl), np.linspace(dmu2_g[0], dmu2_g[-1], NYr)
+            lr, wts = iso._bracket(dmu2_v, 2.5)
+            for P in (16, 64):
+                pro = IB._iso_prologue(srcs, state.HistMeta(**dict(mk3, max_phases=P)), mu1_v, dmu2_v, lr, wts, beta, 1, CUTOFF)
+                kin = [pro[k] for k in ("lnpi", "op", "xrows", "krows", "a", "edge", "mu", "lr", "wts", "tg", "volume")]
+                layout(f"K3 {oname} {NYr}x{NXl}", N, NXl * NYr, P, lambda G: cuda_iso.iso_grid(*kin, mk3["smooth"], P, 1, CUTOFF, _lanes=G),
+                       cuda_iso.lanes_per_cell, cuda_iso.g1_switch(N, n_sm, P))
+
+
 def capacity_phase(C, ptxas):
     """Phase 5f: the kernels' wide builds (64 phase slots; K1's 6 per-phase
     sums for nspec 3-4) through the entry points, each launch counter set
@@ -1332,10 +1481,11 @@ def capacity_phase(C, ptxas):
     and 64 slots and over tern573 / quat573 at 4 (None and janus); K2 over
     multi573's 4,096 mu x 64 targets at orders 1 and 2 and 16 and 64 slots,
     and its paired mode through one batched find_phase_eq_state at 16;
-    make_grid on overflow31's 301 x 834 cells at 8 slots (fail code 3) and
-    at 16 (the sources' _meta raised: every cell ok); layout lines at 16
-    and 64 slots.  Returns (record, {kernel: {cell: run}}, {kernel: worst
-    abs diff}, {kernel: layout lines})."""
+    make_grid on overflow31's 301 x 834 cells and overflow1400's 128 x 128
+    at 8 slots (fail code 3) and at 16 and 64 (the sources' _meta raised),
+    the bare K3 wrapper at G = 1 and 32, its x_m area host == library;
+    layout lines at 16 and 64 slots.  Returns (record, {kernel: {cell:
+    run}}, {kernel: worst abs diff}, {kernel: layout lines})."""
     torch, np, TC = C.torch, C.np, C.TC
     cuda_sweep, cuda_mb, cuda_iso, pipeline, segment, state, IB = C.cuda_sweep, C.cuda_mb, C.cuda_iso, C.pipeline, C.segment, C.state, C.IB
     from fhmcanalysis_torch.core import solve as SV
@@ -1480,54 +1630,7 @@ def capacity_phase(C, ptxas):
         f"mu_star within {d_mu:.3e} of engine='torch' | solve (one run, the host building 256 states included) auto {a_ms:.2f} ms, torch {p_ms:.2f} ms | "
         f"one step (1,280 points) {s_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} | {smi}")
 
-    # ---- K3: overflow31 on the iso31 grid size, 8 and 16 slots ----
-    NX, NY = TC.ISO31["NX"], TC.ISO31["NY"]
-    mu1_b, dmu2_b = (4.9, 5.1), (-4.9, -4.1)
-    grid = (mu1_b, dmu2_b, ((mu1_b[1] - mu1_b[0]) / (NX - 1) * (1 + 1e-9), (dmu2_b[1] - dmu2_b[0]) / (NY - 1) * (1 + 1e-9)))
-    ds, mk3 = TC.iso_sources("n31", lnpi=TC.ten_peak())
-    for P in (8, 16):
-        hs = [TC.port_histogram(dd, mk3, device=dev) for dd in ds]
-        for hh in hs:  # the remedy fail code 3 names: a larger max_phases in _meta()
-            hh._meta = lambda max_phases=P, _m=type(hh)._meta, _h=hh: _m(_h, max_phases)
-        iso = C.iso_cls(hs, 1.001, order=1)
-        cname = f"overflow31 P={P}"
-        cuda_iso.iso_grid.launches = 0
-        iso.make_grid(*grid)
-        torch.cuda.synchronize()
-        launches = cuda_iso.iso_grid.launches
-        got = tuple(torch.as_tensor(np.asarray(iso.data[k]), device=dev) for k in ("Z", "density", "F.E./kT", "valid", "fail_code"))
-        if launches != 1 or got[4].shape != (NY, NX):
-            raise AssertionError(f"capacity K3 {cname}: {launches} launches, grid {tuple(got[4].shape)}")
-        mu1_v, dmu2_v = iso.data["X"][0], iso.data["Y"][:, 0]
-        lr, wts = iso._bracket(dmu2_v, 2.5)
-        srcs, metas = [hh._hist() for hh in hs], [hh._meta() for hh in hs]
-        args = (srcs, metas, mu1_v, dmu2_v, lr, wts, 1.001, 1, CUTOFF)
-        want, p_ms = once_ms(lambda: IB.iso_grid(*args, engine="torch"))
-        w = compare_iso(got, want, f"capacity K3 {cname}")
-        note(K3, w)
-        codes = torch.bincount(got[4].reshape(-1).long(), minlength=4).tolist()
-        if codes[3 if P == 8 else 0] != NX * NY:
-            raise AssertionError(f"capacity K3 {cname}: fail codes {codes} (expected code {3 if P == 8 else 0} on every cell)")
-        pro = IB._iso_prologue(srcs, metas[0], mu1_v, dmu2_v, lr, wts, 1.001, 1, CUTOFF)
-        kin = [pro[k] for k in ("lnpi", "op", "xrows", "krows", "a", "edge", "mu", "lr", "wts", "tg", "volume")]
-        k3 = lambda G=None: cuda_iso.iso_grid(*kin, mk3["smooth"], P, 1, CUTOFF, _lanes=G)  # noqa: E731
-        k_ms = cuda_ms(k3)
-        full_x, _ = IB._iso_surfaces(pro, slice(None), 1)
-        ext = segment.relextrema(full_x, mk3["smooth"], P)
-        lefts, rights, pmask = segment.phase_bounds(ext, full_x.shape[-1], P)
-        del full_x, ext
-        cov = {"left": lefts, "right": rights, "mask": pmask}
-        ops = tail_ops(cov, NX * NY, srcs[0].nbins, mk3["smooth"], *k3_ops(1))
-        b_ms, b_by = bound(kin, k3(), ops)
-        N = srcs[0].nbins
-        G = cuda_iso.lanes_per_cell(N, NX * NY, n_sm, P)
-        m_ms = cuda_ms(lambda: iso.make_grid(*grid))
-        cells[K3][cname] = dict(NX=NX, NY=NY, B=NX * NY, N=N, order=1, max_phases=P, capacity=cuda_sweep.capacity(P), lanes=G,
-                                staged_sources=cuda_iso.staged_sources(G, len(srcs), NX, NY, N, 1, P), launches=launches, kernel_ms=k_ms, plain_ms=p_ms,
-                                plain_ms_from="one run", make_grid_ms=m_ms, bound_ms=b_ms, bound_by=b_by, ops=ops, covered_bins=covered_bins(cov), fail_codes=codes, worst=w)
-        log(f"capacity K3 {cname}: N={N} {NY}x{NX} cells build cap={cuda_sweep.capacity(P)} G={G} launches={launches} fail codes {codes} | kernel {k_ms:.3f} ms | "
-            f"make_grid {m_ms:.3f} ms | plain {p_ms:.1f} ms (one run) | bound {b_ms:.4f} ms by {b_by} ({ops:.4g} f64 ops) | worst",
-            json.dumps({k: float(f"{v:.3e}") for k, v in w.items()}), f"| {smi}")
+    xm_areas = capacity_k3(C, lambda w: note(K3, w), cells[K3])
 
     # ---- the wide builds' layout lines: G = 1 against G = 32 at 16 and 64
     # slots, from a few points per SM up (the data behind G1_PER_SM_CAP_WIDE) ----
@@ -1550,31 +1653,24 @@ def capacity_phase(C, ptxas):
                 sub = pipeline._mb_inputs(h, meta, mus[:: max(1, B // Mk)][:Mk].contiguous(), betas, dmus, 1, True, False)
                 layout(K2, f"K2 {name} o1 M={Mk} A={A}", N, Mk * A, P, lambda G: cuda_mb.mb_sweep_thermo(
                     h.lnpi, h.op, sub[2], sub[3], h.volume, sub[0], sub[1], sub[4], S, meta.smooth, P, 1, True, _lanes=G), cuda_mb.lanes_per_point, switch)
-    hs = [TC.port_histogram(dd, mk3, device=dev) for dd in ds]
-    iso = C.iso_cls(hs, 1.001, order=1)
-    srcs, N = [hh._hist() for hh in hs], hs[0]._hist().nbins
-    for NXl, NYl in sorted({(n_sm * k // 31, 31) for k in WIDE_PER_SM} | {(NX, NY)}):
-        mu1_v, dmu2_v = np.linspace(*mu1_b, NXl), np.linspace(*dmu2_b, NYl)
-        lr, wts = iso._bracket(dmu2_v, 2.5)
-        for P in (16, 64):
-            pro = IB._iso_prologue(srcs, state.HistMeta(**dict(mk3, max_phases=P)), mu1_v, dmu2_v, lr, wts, 1.001, 1, CUTOFF)
-            kin = [pro[k] for k in ("lnpi", "op", "xrows", "krows", "a", "edge", "mu", "lr", "wts", "tg", "volume")]
-            layout(K3, f"K3 overflow31 {NYl}x{NXl}", N, NXl * NYl, P, lambda G: cuda_iso.iso_grid(*kin, mk3["smooth"], P, 1, CUTOFF, _lanes=G),
-                   cuda_iso.lanes_per_cell, cuda_iso.g1_switch(N, n_sm, P))
+    layouts_k3_wide(C, lambda *a: layout(K3, *a))
     # the wide builds' ptxas lines: each lane's stack (the compacted lists
     # at G = 1, the phases' bounds, maxima, fe and sums), spills, and the
-    # static shared memory phase 2 held to the host's count
+    # static shared memory phase 2 held to the host's count; K3's build with
+    # the x_m area also its dynamic area on the capacity cells that use it
+    # (the host's count, held to the library's above)
     builds = []
     mods = {cuda_sweep.NAME: cuda_sweep, cuda_mb.NAME: cuda_mb, cuda_iso.NAME: cuda_iso}
     for kname, rows in ptxas.items():
         for r in rows:
             if r["capacity"] == cuda_sweep.CAPACITIES[-1]:
                 counted = C.shared_bytes(mods[kname], r["lanes"], r["capacity"])
-                builds.append(dict(r, library=kname, slot_bytes=cuda_sweep.slot_bytes(r["lanes"], r["capacity"]), shared_bytes_counted=counted))
+                areas = {c: v for (c, G), v in xm_areas.items() if G == r["lanes"] and v} if r["kernel"].endswith(" xm") else {}
+                builds.append(dict(r, library=kname, slot_bytes=cuda_sweep.slot_bytes(r["lanes"], r["capacity"]), shared_bytes_counted=counted, xm_bytes=areas))
                 log(f"capacity ptxas {r['kernel']} G={r['lanes']} cap={r['capacity']}" + (f" sums={r['sums']}" if r["sums"] else "") +
                     f": {r['registers']} registers, {r['stack']} bytes stack, {r['spill_stores']} bytes spill stores, {r['smem']} bytes smem "
                     f"(slot_bytes {cuda_sweep.slot_bytes(r['lanes'], r['capacity'])}, row tile {cuda_sweep.row_tile_bytes(r['lanes'], r['capacity']) if mods[kname] is not cuda_iso else 0}, "
-                    f"counted {counted}) | {smi}")
+                    f"counted {counted})" + "".join(f"; x_m area {v} bytes dynamic on {c} (host = library)" for c, v in areas.items()) + f" | {smi}")
     record = dict(seconds=time.perf_counter() - t0, cells={k: list(v) for k, v in cells.items()}, worst=worst, ptxas=builds)
     log(f"capacity phase: {record['seconds']:.1f} s, worst abs diff by kernel", json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
     return record, cells, worst, layouts

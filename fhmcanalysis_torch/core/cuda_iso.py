@@ -10,8 +10,12 @@ the edge flag cancel; ``binary/isopleth.py`` says why).  So K3 is K2's
 x'/key' former (``csrc/extrap_rows.cuh``) run for the left and the right
 source, the inverse-distance mix, and the tail K1 and K2 share
 (``csrc/thermo_tail.cuh``) with a sink that keeps the most stable phase;
-the source is ``csrc/iso_grid.cu``, G lanes per cell with G picked by
-``lanes_per_cell``, and its header says what bounds it.
+the source is ``csrc/iso_grid.cu`` (one cell's work in
+``csrc/iso_cell.cuh``), G lanes per cell with G picked by
+``lanes_per_cell``, and its header says what bounds it.  The build of 64
+phase slots forms each cell's mixed surface x_m once per bin into an area
+of shared memory where a block's area fits (``xm_bytes``), and on read
+where it does not.
 
 The plain version of this kernel is ``binary.isopleth.iso_grid_body``;
 nothing on the CUDA path calls it.  ``binary.isopleth.iso_grid`` picks
@@ -38,7 +42,7 @@ import torch
 
 from .. import _build
 from .cuda_mb import n_groups, n_xrows
-from .cuda_sweep import CAPACITIES, G1_PER_SM_CAP_WIDE, MAX_PHASES, THREADS, capacity, check_capacities, check_lanes, sm_count, stages_rows  # noqa: F401  (MAX_PHASES: the kernel's, as cuda_sweep's)
+from .cuda_sweep import CAPACITIES, MAX_PHASES, THREADS, capacity, check_capacities, check_lanes, slot_bytes, sm_count, stages_rows  # noqa: F401  (MAX_PHASES: the kernel's, as cuda_sweep's)
 
 NAME = "iso_grid"
 S = 2  # the isopleth class takes binary mixtures only
@@ -46,21 +50,28 @@ MAX_STAGED = 32  # sources a block may stage (csrc/iso_grid.cu)
 # static shared bytes of K3's staged-source list (csrc/iso_grid.cu
 # LIST_BYTES): 33 ints, rounded up to 16 as ptxas rounds the static area
 LIST_BYTES = (4 * (MAX_STAGED + 1) + 15) // 16 * 16
-# G = 1 from min(G1_PER_BIN * N, G1_PER_SM_CAP) cells per SM: fitted on one
-# H100 SXM (132 SMs) to K3's layout lines in chip_smoke.py (PERF.md)
+# shared memory a block may opt in to on Hopper, static and dynamic
+# together (csrc/iso_grid.cu SMEM_OPTIN): 227 KB
+SMEM_OPTIN = 232_448
+# G = 1 from min(G1_PER_BIN * N, G1_PER_SM_CAP) cells per SM in the first
+# build and min(G1_PER_BIN_WIDE * N, G1_PER_SM_CAP) in the build of 64
+# slots: fitted on one H100 SXM (132 SMs) to K3's layout lines in
+# chip_smoke.py (PERF.md)
 G1_PER_BIN = 3
+G1_PER_BIN_WIDE = 1
 G1_PER_SM_CAP = 1024
 
 
 def g1_switch(N: int, n_sm: int, max_phases: int = 8) -> int:
     """The least cell count at which K3 runs one cell per lane, for N bins
-    and max_phases phase slots on a card of n_sm SMs: the build of 64 slots
-    switches where K1's and K2's do (min(N, cuda_sweep.G1_PER_SM_CAP_WIDE)
-    a SM; its layout lines at N = 31 crossed between 16 and 32 cells per
-    SM)."""
-    if capacity(max_phases) != CAPACITIES[0]:
-        return n_sm * min(N, G1_PER_SM_CAP_WIDE)
-    return n_sm * min(G1_PER_BIN * N, G1_PER_SM_CAP)
+    and max_phases phase slots on a card of n_sm SMs.  The build of 64
+    slots keeps each cell's x_m in shared memory, which at G = 32 spares
+    its 32 lanes re-forming it at every step, so G = 32 holds out longer
+    per bin: its layout lines crossed between 16 and 32 cells per SM at N
+    = 31 (min(N, .) = 31) and between 768 and 1,024 at N = 1400, where
+    G = 1 forms x_m on read (the area does not fit)."""
+    per_bin = G1_PER_BIN if capacity(max_phases) == CAPACITIES[0] else G1_PER_BIN_WIDE
+    return n_sm * min(per_bin * N, G1_PER_SM_CAP)
 
 
 def lanes_per_cell(N: int, B: int, n_sm: int, max_phases: int = 8) -> int:
@@ -74,8 +85,8 @@ def lanes_per_cell(N: int, B: int, n_sm: int, max_phases: int = 8) -> int:
     on one H100 its layout lines crossed later than K1's, and G = 1 won
     from about 3N cells per SM at N = 31 and from about 1,024 (two such
     waves) at N = 1400.  K3 is not bound to K1's bits (K2 is), so it may
-    switch elsewhere (``g1_switch`` gives the build of 64 phase slots
-    K1's and K2's switch).
+    switch elsewhere; its build of 64 phase slots switches from about N
+    cells per SM (``g1_switch``).
     """
     return 1 if B >= g1_switch(N, n_sm, max_phases) else 32
 
@@ -85,14 +96,20 @@ def _lib() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load(NAME)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.iso_grid_launch.argtypes = [i, p, i, i] + [p] * 11 + [i] * 10 + [ctypes.c_double] + [p] * 5
+    lib.iso_grid_launch.argtypes = [i, p, i, i, i] + [p] * 11 + [i] * 10 + [ctypes.c_double] + [p] * 5
     lib.iso_grid_launch.restype = i
-    lib.iso_grid_staged_sources.argtypes = [i] * 8
-    lib.iso_grid_staged_sources.restype = i
+    for fn in (lib.iso_grid_staged_sources, lib.iso_grid_xm_bytes):
+        fn.argtypes = [i] * 8
+        fn.restype = i
     lib.iso_grid_error_string.argtypes = [i]
     lib.iso_grid_error_string.restype = ctypes.c_char_p
     check_capacities(lib, NAME)
     return lib
+
+
+def _source_bytes(N: int, order: int) -> int:
+    """Bytes of one source's rows: lnpi, op, xrows, krows."""
+    return (2 + n_xrows(S, order) + (S + 1) * n_groups(S, order, False)) * N * 8
 
 
 def staged_sources(G: int, W: int, NX: int, NY: int, N: int, order: int, max_phases: int = 8) -> int:
@@ -107,22 +124,43 @@ def staged_sources(G: int, W: int, NX: int, NY: int, N: int, order: int, max_pha
         return 0
     span = (THREADS // G - 1) // NX + 2
     k = min(2 * min(span, NY), W)
-    nbytes = k * (2 + n_xrows(S, order) + (S + 1) * n_groups(S, order, False)) * N * 8 + LIST_BYTES
+    nbytes = k * _source_bytes(N, order) + LIST_BYTES
     return k if k <= MAX_STAGED and stages_rows(G, capacity(max_phases), nbytes) else 0
 
 
-def iso_grid(lnpi, op, xrows, krows, a, edge, mu, lr, wts, tg, volume, smooth: int, max_phases: int, order: int, cutoff: float, collect=None, *, _lanes=None):
+def xm_bytes(G: int, W: int, NX: int, NY: int, N: int, order: int, max_phases: int = 8) -> int:
+    """Bytes of the x_m area a block of K3 reserves in dynamic shared
+    memory at G lanes per cell on this grid, beside its staged rows (0:
+    x_m is formed on read): the build of 64 phase slots keeps THREADS/G
+    cells of N doubles where the block's static slots and list, its staged
+    rows and the area fit SMEM_OPTIN; the first build has no area.
+    csrc/iso_grid.cu decides; this counts it the same way on the host (a
+    GPU test holds the two equal)."""
+    cap = capacity(max_phases)
+    if cap == CAPACITIES[0]:
+        return 0
+    area = THREADS // G * N * 8
+    fixed = slot_bytes(G, cap) + (LIST_BYTES if G < 32 else 0) + staged_sources(G, W, NX, NY, N, order, max_phases) * _source_bytes(N, order)
+    return area if fixed + area <= SMEM_OPTIN else 0
+
+
+def iso_grid(lnpi, op, xrows, krows, a, edge, mu, lr, wts, tg, volume, smooth: int, max_phases: int, order: int, cutoff: float, collect=None, *, _lanes=None, _xm=None):
     """Launch K3 for the NY x NX cells (mu[ix], row iy), b = iy * NX + ix.
 
     Tensors as in the module docstring.  Returns (z, density, fe, ok,
     fail_code), each [NY, NX] (f64, f64, f64, bool, int32).  Runs on
     ``torch.cuda.current_stream()`` and does not synchronise.
 
-    _lanes forces G, the lanes per cell (tests and chip_smoke.py); by
-    default ``lanes_per_cell`` picks it.
+    _lanes forces G, the lanes per cell, and _xm (True / False) the x_m
+    area of the build of 64 slots on or off (tests and
+    tools/k3_xm_share.py); by
+    default ``lanes_per_cell`` picks G and ``xm_bytes`` the area.  An area
+    past what the card grants a block fails the launch, which raises.
     """
     if _lanes is not None:
         check_lanes(_lanes)
+    if _xm not in (None, True, False):
+        raise ValueError(f"iso_grid: _xm must be None, True or False, got {_xm!r}")
     tensors = {"lnpi": lnpi, "op": op, "xrows": xrows, "krows": krows, "a": a, "edge": edge, "mu": mu, "lr": lr, "wts": wts, "tg": tg, "volume": volume}
     for name, t in tensors.items():
         if t is None or not t.is_cuda:
@@ -151,6 +189,8 @@ def iso_grid(lnpi, op, xrows, krows, a, edge, mu, lr, wts, tg, volume, smooth: i
     if lr.shape != (NY, 2) or wts.shape != (NY, 2) or tg.shape != (NY, 2, T):
         raise ValueError(f"iso_grid: need lr, wts [NY, 2] and tg [NY, 2, {T}]")
     cap = capacity(max_phases)
+    if _xm and cap == CAPACITIES[0]:
+        raise ValueError(f"iso_grid: the x_m area is the build of {CAPACITIES[-1]} slots'; max_phases={max_phases} runs the first build")
     if smooth < 1:
         raise ValueError("smooth must be >= 1 to find relative extrema (scipy argrelextrema rejects order 0 too)")
     if collect not in (None, "janus"):
@@ -174,6 +214,7 @@ def iso_grid(lnpi, op, xrows, krows, a, edge, mu, lr, wts, tg, volume, smooth: i
         torch.cuda.current_stream(dev).cuda_stream,
         G,
         cap,
+        -1 if _xm is None else int(_xm),
         *(t.data_ptr() for t in tensors.values()),
         W, NX, NY, N, R, KG, max_phases, smooth, order, int(collect == "janus"), float(cutoff),
         *(t.data_ptr() for t in out.values()),

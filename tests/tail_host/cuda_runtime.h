@@ -1,7 +1,10 @@
 // A host stand-in for the CUDA runtime header, enough to compile
-// fhmcanalysis_torch/csrc/thermo_tail.cuh with g++ for one lane (G = 1,
-// one live lane): tests/test_torch_capacity.py runs the tail's bodies on
-// the CPU with it.  A warp collective of one lane returns its own value.
+// fhmcanalysis_torch/csrc/thermo_tail.cuh and iso_cell.cuh with g++ for
+// one lane (G = 1, one live lane): tests/test_torch_capacity.py runs the
+// tail's bodies and K3's cell on the CPU with it.  A warp collective of
+// one lane returns its own value; the rounded f64 intrinsics are plain
+// operations (the library is built with -ffp-contract=off, as the
+// kernels with -fmad=false).
 #pragma once
 #include <algorithm>
 #include <cmath>
@@ -26,3 +29,7 @@ inline unsigned __ballot_sync(unsigned, bool p) { return p ? 1u : 0u; }
 inline void __syncwarp(unsigned = 0xffffffffu) {}
 template <typename T>
 inline T __ldg(const T* p) { return *p; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }

@@ -29,7 +29,11 @@ the wide builds (tests/torch_composites.py ``CAPACITY``, ``ten_peak``):
   outputs, the fill of the slots past the count and the O(phases)
   overlap rule against the all-pairs one; and the tail itself, built
   with g++ for one lane on the host (``tests/tail_host``), the wide body
-  against the body every build ran before it, bit for bit.
+  against the body every build ran before it, bit for bit;
+* K3's cell (``csrc/iso_cell.cuh``) built the same way: the wide build
+  with x_m formed once into its area against x_m formed on read, bit for
+  bit, and both against the plain version; and the host's count of the
+  area (``cuda_iso.xm_bytes``).
 
 Segmentation fields equal, floats within 1e-12 absolute (the JAX CPU
 suite's bar); mu_star within 1e-9 (JAX's own bar between two trace
@@ -64,7 +68,7 @@ from fhmcanalysis_torch.histogram.ntot import histogram
 from fhmcanalysis_torch.io import write_composite
 from fhmcanalysis_tpu.binary import isopleth as jax_isopleth
 from fhmcanalysis_tpu.histogram.ntot import histogram as jax_histogram
-from torch_composites import CAPACITY, SURFACE_KINDS, capacity_cell, cell, iso_sources, make_composite, mu_window, random_surface, ten_peak, worst_abs_diff
+from torch_composites import CAPACITY, CELLS, ISO1400, SURFACE_KINDS, capacity_cell, cell, composite_raw, iso_sources, make_composite, mu_window, random_surface, ripple1400, ten_peak, worst_abs_diff
 
 import jax.numpy as jnp
 
@@ -235,10 +239,13 @@ def test_capacity_and_sums_choice():
 
 @pytest.mark.parametrize("n_sm", [132, 114, 1])
 def test_lanes_rule_with_phase_slots(n_sm):
-    """max_phases <= 8 keeps the rule it had (and its default); the wide
-    builds switch at min(N, G1_PER_SM_CAP_WIDE) points per SM, K3's too;
-    K1 and K2 share one rule, so K2 at identity targets equals K1 bit for
-    bit at every max_phases; both rules raise above 64 slots."""
+    """max_phases <= 8 keeps the rule it had (and its default); K1's and
+    K2's wide builds switch at min(N, G1_PER_SM_CAP_WIDE) points per SM,
+    K3's at min(N, its G1_PER_SM_CAP) cells (its x_m area keeps G = 32
+    ahead longer at large N: overflow1400's 16,384 to 67,584 cells run one
+    warp a cell); K1 and K2 share one rule, so K2 at identity targets
+    equals K1 bit for bit at every max_phases; both rules raise above 64
+    slots."""
     Ns, Bs = [1, 31, 121, 384, 573, 1400], [1, 1000, 4096, 50_688, 262_144, 2**21]
     for N in Ns:
         for B in Bs:
@@ -248,14 +255,16 @@ def test_lanes_rule_with_phase_slots(n_sm):
             for p in (9, 16, 64):
                 assert CS.lanes_per_point(N, B, n_sm, p) == (1 if B >= switch else 32)
             assert all(CI.lanes_per_cell(N, B, n_sm, p) == CI.lanes_per_cell(N, B, n_sm) for p in (1, 4, 8))
-            assert all(CI.lanes_per_cell(N, B, n_sm, p) == (1 if B >= switch else 32) for p in (9, 16, 64))
-    assert CS.G1_PER_SM_CAP_WIDE == 256 and CS.G1_PER_SM_CAP == 384
+            k3_switch = n_sm * min(N, CI.G1_PER_SM_CAP)
+            assert all(CI.lanes_per_cell(N, B, n_sm, p) == (1 if B >= k3_switch else 32) for p in (9, 16, 64))
+    assert CS.G1_PER_SM_CAP_WIDE == 256 and CS.G1_PER_SM_CAP == 384 and CI.G1_PER_SM_CAP == 1024 and CI.G1_PER_BIN_WIDE == 1
     if n_sm == 132:  # multi573's 524,288 points and overflow31's 251,034 cells run one lane each; a 1,280-point solver step one warp
         assert CS.lanes_per_point(573, 524_288, n_sm, 64) == 1 and CI.lanes_per_cell(31, 251_034, n_sm, 16) == 1
         assert CS.lanes_per_point(31, 1280, n_sm, 16) == 32
         assert CS.lanes_per_point(573, 33_792, n_sm, 16) == 1 and CS.lanes_per_point(573, 33_791, n_sm, 16) == 32
         assert CS.lanes_per_point(121, 15_972, n_sm, 64) == 1 and CS.lanes_per_point(121, 15_971, n_sm, 64) == 32
         assert CI.lanes_per_cell(31, 4092, n_sm, 64) == 1 and CI.lanes_per_cell(31, 4091, n_sm, 64) == 32
+        assert CI.lanes_per_cell(1400, 67_584, n_sm, 16) == 32 and CI.lanes_per_cell(1400, 135_168, n_sm, 16) == 1
     assert CM.lanes_per_point is CS.lanes_per_point
     for rule in (CS.lanes_per_point, CI.lanes_per_cell):
         with pytest.raises(ValueError, match="max_phases"):
@@ -311,6 +320,38 @@ def test_iso_staged_sources_count():
         assert CI.staged_sources(1, 2, 834, 301, n, 2, cap) == 2 and CI.staged_sources(1, 2, 834, 301, n + 1, 2, cap) == 0
     with pytest.raises(ValueError, match="max_phases"):
         CI.staged_sources(1, 2, 834, 301, 31, 1, 65)
+
+
+def test_iso_xm_bytes_count():
+    """K3's x_m area: the build of 64 slots keeps THREADS/G cells of N
+    doubles in shared memory where the block's static slots and list, its
+    staged rows and the area fit the 227 KB a Hopper block may opt in to;
+    the first build has none."""
+    assert CI.SMEM_OPTIN == 227 * 1024 == 232_448
+    src = lambda N, order: (2 + (2 if order == 1 else 5) + 3 * (3 if order == 1 else 6)) * N * 8  # noqa: E731  (one source's rows)
+    # the main cases: overflow31 at G = 1 (63.5 KB beside 2 staged sources),
+    # overflow1400 at G = 32 (89.6 KB), overflow1400 at G = 1 (2.8 MB: on read)
+    assert CI.xm_bytes(1, 2, 834, 301, 31, 1, 16) == CI.xm_bytes(1, 2, 834, 301, 31, 2, 64) == 256 * 31 * 8 == 63_488
+    assert CI.xm_bytes(32, 2, 834, 301, 31, 1, 16) == 8 * 31 * 8
+    assert CI.xm_bytes(32, 2, 128, 128, 1400, 1, 16) == CI.xm_bytes(32, 2, 128, 128, 1400, 2, 64) == 8 * 1400 * 8 == 89_600
+    assert CI.xm_bytes(1, 2, 128, 128, 1400, 1, 16) == 0
+    for G in CS.LANES:
+        for order in (1, 2):
+            assert all(CI.xm_bytes(G, 2, 834, 301, N, order, p) == 0 for N in (31, 1400) for p in (1, 4, 8))
+    # the N at which the area stops fitting: at G = 32 beside the slots
+    # (4,128 bytes); at G = 1 beside the list (144) and the 2 staged sources
+    edge32 = (CI.SMEM_OPTIN - CS.slot_bytes(32, 64)) // (8 * 8)
+    assert edge32 == 3_567
+    assert CI.xm_bytes(32, 2, 128, 128, edge32, 1, 64) == 8 * edge32 * 8 and CI.xm_bytes(32, 2, 128, 128, edge32 + 1, 1, 64) == 0
+    for order, edge1 in ((1, 102), (2, 94)):
+        assert CI.staged_sources(1, 2, 834, 301, edge1 + 1, order, 64) == 2
+        assert edge1 == (CI.SMEM_OPTIN - CI.LIST_BYTES) // (256 * 8 + 2 * src(1, order))
+        assert CI.xm_bytes(1, 2, 834, 301, edge1, order, 64) == 256 * edge1 * 8 and CI.xm_bytes(1, 2, 834, 301, edge1 + 1, order, 64) == 0
+    # nothing staged (a block naming more sources than the list holds): the area alone
+    assert CI.staged_sources(1, 40, 1, 300, 113, 1, 64) == 0 and CI.xm_bytes(1, 40, 1, 300, 113, 1, 64) == 256 * 113 * 8
+    assert CI.xm_bytes(1, 40, 1, 300, 114, 1, 64) == 0
+    with pytest.raises(ValueError, match="max_phases"):
+        CI.xm_bytes(1, 2, 834, 301, 31, 1, 65)
 
 
 def test_wrappers_raise_above_the_builds():
@@ -426,6 +467,8 @@ def tail_host(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tail_run.argtypes = [i, p, p, ctypes.c_double] + [i] * 7 + [p] * 12
+    lib.iso_cell_run.argtypes = [i, i] + [p] * 11 + [i] * 10 + [ctypes.c_double] + [p] * 5
+    lib.iso_cell_run.restype = i
     return lib
 
 
@@ -492,3 +535,85 @@ def test_wide_body_on_host(tail_host, max_phases, collect):
             m = want["mask"] if new[k].ndim == 2 else np.broadcast_to(want["mask"][..., None], new[k].shape)
             np.testing.assert_array_equal(new[k][~m], want[k][~m], err_msg=f"{name} {k}")  # the plain version's sums may be -0.0
             assert worst_abs_diff(new[k], want[k], want["mask"]) <= 1e-10, (name, k)
+
+
+# ---- K3's cell (csrc/iso_cell.cuh) on the host: x_m formed once against
+# x_m formed on read, and against the plain version ----
+
+
+def _host_iso_inputs(surface):
+    """(prologue tensors on the CPU, meta kwargs, beta, sizes) of a small
+    isopleth grid whose dMu_2 rows reach past both sources (clamped rows):
+    the overflow31 sources (ten_peak), the n31 ones (one and two phases),
+    n31's with a random edge-peaked surface (the last bins count: maxima
+    at the ends, edge guards that fail) and the overflow1400 ones
+    (ripple1400, N = 1400, smooth 2)."""
+    if surface == "ten31":
+        ds, mk = iso_sources("n31", lnpi=ten_peak())
+        beta, mu1_v, NY = 1.001, np.linspace(4.9, 5.1, 23), 17
+    elif surface in ("n31", "edge31"):
+        lnpi = random_surface("edge_peaks", 31, np.random.default_rng(5)) if surface == "edge31" else None
+        ds, mk = iso_sources("n31", lnpi=lnpi)
+        beta, mu1_v, NY = 1.02, np.linspace(*mu_window(**CELLS["n31"]), 23), 17
+    else:
+        ds, mk = iso_sources("n1400", lnpi=ripple1400())
+        beta, mu1_v, NY = ISO1400["beta"], np.linspace(*mu_window(**CELLS["n1400"]), 7), 5
+    dmu2_v = np.linspace(-5.3, -3.7, NY)
+    hs = [histogram.from_composite(composite_raw(d, mk["nspec"], mk["max_order"]), d["curr_beta"], d["curr_mu"], smooth=mk["smooth"], ke=mk["used_ke"], device="cpu") for d in ds]
+    iso = isopleth(hs, beta, order=1)
+    lr, wts = iso._bracket(dmu2_v, 2.5)
+    return [h._hist() for h in hs], mk, beta, mu1_v, dmu2_v, lr, wts
+
+
+def _host_iso_run(lib, cap, xm_once, pro, meta, order, collect, cutoff=10.0):
+    """K3's cells through the host-built iso_cell_run; outputs start
+    poisoned."""
+    W, N = pro["lnpi"].shape
+    NX, NY = pro["mu"].shape[0], pro["lr"].shape[0]
+    t = {k: np.ascontiguousarray(v.numpy()) for k, v in pro.items()}
+    t["edge"] = t["edge"].astype(np.uint8)
+    o = {"z": np.full((NY, NX), 12345.0), "rho": np.full((NY, NX), 12345.0), "fe": np.full((NY, NX), 12345.0),
+         "ok": np.full((NY, NX), 9, np.uint8), "code": np.full((NY, NX), -7, np.int32)}
+    rc = lib.iso_cell_run(cap, xm_once, *(t[k].ctypes.data for k in ("lnpi", "op", "xrows", "krows", "a", "edge", "mu", "lr", "wts", "tg", "volume")),
+                          W, NX, NY, N, CM.n_xrows(2, order), CM.n_groups(2, order, False), meta.max_phases, meta.smooth, order,
+                          int(collect == "janus"), cutoff, *(o[k].ctypes.data for k in ("z", "rho", "fe", "ok", "code")))
+    assert rc == 0
+    return o
+
+
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("surface", ["ten31", "n31", "edge31", "ripple1400"])
+def test_iso_cell_on_host(tail_host, surface, order, collect):
+    """K3's cell as the kernel runs it (csrc/iso_cell.cuh, one lane a
+    cell, built with g++ for the host): the wide build with x_m formed once
+    into its area writes every output bit for bit as with x_m formed on
+    read; both, and the first build at 8 slots, equal the plain version
+    (iso_grid_body) in ok and fail_code, floats within 1e-10 on ok cells.
+    ten31 and ripple1400 overflow 8 slots on every cell (without janus,
+    which merges the phases first)."""
+    srcs, mk, beta, mu1_v, dmu2_v, lr, wts = _host_iso_inputs(surface)
+    for P in (8, 16, 64):
+        meta = TS.HistMeta(**dict(mk, max_phases=P))
+        pro = IB._iso_prologue(srcs, meta, mu1_v, dmu2_v, lr, wts, beta, order, 10.0)
+        want = IB.iso_grid_body(srcs, [meta] * len(srcs), mu1_v, dmu2_v, lr, wts, beta, order, 10.0, collect)
+        cap = CS.capacity(P)
+        runs = [_host_iso_run(tail_host, cap, 0, pro, meta, order, collect)]
+        if cap == CS.CAPACITIES[-1]:
+            runs.append(_host_iso_run(tail_host, cap, 1, pro, meta, order, collect))
+            for k in runs[0]:
+                assert runs[0][k].tobytes() == runs[1][k].tobytes(), (P, k)
+        ok = want[3].numpy()
+        for got in runs:
+            np.testing.assert_array_equal(got["ok"].astype(bool), ok, err_msg=f"P={P} ok")
+            np.testing.assert_array_equal(got["code"], want[4].numpy(), err_msg=f"P={P} fail_code")
+            for k, w in zip(("z", "rho", "fe"), want[:3]):
+                assert worst_abs_diff(got[k], w.numpy(), ok) <= 1e-10, (P, k)
+                assert (got[k][~ok] == 0.0).all(), (P, k)
+        if surface in ("ten31", "ripple1400"):
+            if P == 8 and collect is None:
+                assert (want[4] == 3).all()
+            elif P == 64:
+                assert ok.mean() > 0.5
+        elif surface == "n31":
+            assert ok.mean() > 0.3

@@ -29,7 +29,12 @@ both modes and K3 at 16 and 64, every wrapper raising at 65 slots (and
 K1 at 5 species) before any launch.  The wide build writes the slots
 past each point's count as a fill: those equal the plain version's at
 every G on multi573 (None and janus, 16-64 slots) and on surfaces of 63,
-64 and 65 maxima (one slot of fill, every slot real, overflow).
+64 and 65 maxima (one slot of fill, every slot real, overflow).  K3's
+wide build, which forms each cell's x_m once in shared memory where a
+block's area fits, is held on overflow31 and overflow1400 (ripple1400)
+against its plain version and bit for bit against x_m formed on read;
+the host's count of the area equals the library's, and an area forced
+past what the card grants raises.
 """
 
 import sys
@@ -46,7 +51,7 @@ import fhmcanalysis_torch.core.pipeline as TP
 import fhmcanalysis_torch.core.solve as TSV
 import fhmcanalysis_torch.core.state as TS
 from fhmcanalysis_torch.binary import isopleth
-from torch_composites import CAPACITY, CELLS, ISO31, capacity_cell, coex31_guesses, ten_peak, coex_grid, ISO_FIVE_DMU2, ISO_NARROW, ISO_PARTIAL, SURFACE_KINDS, cell, iso_grid_args, iso_sources, janus_surfaces, mb_grid, mu_window, port_histogram, random_surface, shuffled_mu_grid, worst_abs_diff
+from torch_composites import CAPACITY, CELLS, ISO31, ISO1400, capacity_cell, ripple1400, coex31_guesses, ten_peak, coex_grid, ISO_FIVE_DMU2, ISO_NARROW, ISO_PARTIAL, SURFACE_KINDS, cell, iso_grid_args, iso_sources, janus_surfaces, mb_grid, mu_window, port_histogram, random_surface, shuffled_mu_grid, worst_abs_diff
 
 IB = sys.modules["fhmcanalysis_torch.binary.isopleth"]
 
@@ -575,6 +580,80 @@ def test_iso_staged_sources_host_count_equals_library(cuda):
                         assert CI.staged_sources(G, W, NX, NY, N, order, P) == built, (G, P, order, W, NX, NY, N)
                         n += 1
     assert n == 320
+
+
+def _iso_kin(srcs, meta, mu1_v, dmu2_v, lr, wts, beta, order):
+    pro = IB._iso_prologue(srcs, meta, mu1_v, dmu2_v, lr, wts, beta, order, 10.0)
+    return [pro[k] for k in ("lnpi", "op", "xrows", "krows", "a", "edge", "mu", "lr", "wts", "tg", "volume")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("max_phases", [16, 64])
+@pytest.mark.parametrize("surface", ["overflow31", "overflow1400"])
+def test_iso_kernel_wide_xm(cuda, surface, max_phases, order, collect):
+    """K3's wide build with each cell's x_m formed once in shared memory
+    (at G = 1 and N = 31, at G = 32 at both N) against its plain version at
+    the rule's G and at G = 1 and 32, and bit for bit against the same
+    build with x_m formed on read at each G."""
+    if surface == "overflow31":
+        beta, mu1_v, dmu2_v = 1.001, np.linspace(4.9, 5.1, 64), np.linspace(-5.3, -3.7, 32)
+        iso, srcs, mk, lr, wts = _iso(cuda, "n31", order, beta, mu1_v, dmu2_v, lnpi=ten_peak())
+    else:
+        beta, mu1_v, dmu2_v = ISO1400["beta"], np.linspace(*mu_window(**CELLS["n1400"]), 32), np.linspace(-5.3, -3.7, 16)
+        iso, srcs, mk, lr, wts = _iso(cuda, "n1400", order, beta, mu1_v, dmu2_v, lnpi=ripple1400())
+    meta = TS.HistMeta(**dict(mk, max_phases=max_phases))
+    _iso_compare((srcs, [meta] * len(srcs), mu1_v, dmu2_v, lr, wts, beta, order, 10.0, collect), min_ok=0.0 if max_phases == 16 else 0.5)
+    kin = _iso_kin(srcs, meta, mu1_v, dmu2_v, lr, wts, beta, order)
+    N, W, NX, NY = srcs[0].nbins, len(srcs), len(mu1_v), len(dmu2_v)
+    for G in CS.LANES:
+        area = CI.xm_bytes(G, W, NX, NY, N, order, max_phases)
+        assert (area > 0) == (G == 32 or N == 31)
+        off = CI.iso_grid(*kin, mk["smooth"], max_phases, order, 10.0, collect, _lanes=G, _xm=False)
+        for xm in (None, True) if area else (None,):
+            got = CI.iso_grid(*kin, mk["smooth"], max_phases, order, 10.0, collect, _lanes=G, _xm=xm)
+            torch.cuda.synchronize()
+            for k in range(5):
+                assert torch.equal(got[k], off[k]), (G, xm, k)
+
+
+@pytest.mark.gpu
+def test_iso_xm_bytes_host_count_equals_library(cuda):
+    """cuda_iso.xm_bytes (the host's count of K3's x_m area) equals what
+    the built kernel library decides, for both builds and both G, around
+    the edges where the area stops fitting."""
+    n = 0
+    for G in CS.LANES:
+        for P in (8, 64):
+            for order in (1, 2):
+                for W, NX, NY in ((2, 834, 301), (40, 1, 300), (2, 128, 128)):
+                    for N in (31, 94, 95, 102, 103, 113, 114, 1400, 3567, 3568):
+                        built = CI._lib().iso_grid_xm_bytes(G, CS.capacity(P), W, NX, NY, N, CM.n_xrows(2, order), CM.n_groups(2, order, False))
+                        assert CI.xm_bytes(G, W, NX, NY, N, order, P) == built, (G, P, order, W, NX, NY, N)
+                        n += 1
+    assert n == 240
+
+
+@pytest.mark.gpu
+def test_iso_xm_area_past_the_card_raises(cuda):
+    """An x_m area forced past what the card grants a block (G = 1 at N =
+    1400: 2.8 MB) fails the launch, which raises and counts no launch; the
+    refused opt-in leaves nothing behind (the next launch runs), and the
+    first build has no area to force."""
+    mu1_v, dmu2_v = np.linspace(*mu_window(**CELLS["n1400"]), 16), np.linspace(-4.9, -4.1, 8)
+    iso, srcs, mk, lr, wts = _iso(cuda, "n1400", 1, ISO1400["beta"], mu1_v, dmu2_v, lnpi=ripple1400())
+    kin = _iso_kin(srcs, TS.HistMeta(**dict(mk, max_phases=16)), mu1_v, dmu2_v, lr, wts, ISO1400["beta"], 1)
+    n0 = CI.iso_grid.launches
+    with pytest.raises(RuntimeError, match="iso_grid kernel launch failed"):
+        CI.iso_grid(*kin, mk["smooth"], 16, 1, 10.0, _lanes=1, _xm=True)
+    with pytest.raises(ValueError, match="x_m area"):
+        CI.iso_grid(*kin, mk["smooth"], 8, 1, 10.0, _xm=True)
+    assert CI.iso_grid.launches == n0
+    got = CI.iso_grid(*kin, mk["smooth"], 16, 1, 10.0, _lanes=1)
+    want = IB.iso_grid(srcs, [TS.HistMeta(**dict(mk, max_phases=16))] * len(srcs), mu1_v, dmu2_v, lr, wts, ISO1400["beta"], 1, 10.0, engine="torch")
+    _iso_equal(got, want, min_ok=0.0)
+    assert CI.iso_grid.launches == n0 + 1
 
 
 def _paired_inputs(cuda, name, order, props, M, A=64):

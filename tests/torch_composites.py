@@ -270,7 +270,8 @@ def iso_grid_args(g: dict, NX: int | None = None, NY: int | None = None):
 #     6-sum build), max_phases 4 as n573.
 # overflow31 (``ten_peak``) is the surface of the JAX package's fail-code
 # test (tests/test_fail_codes.py, ~10 maxima: fail code 3 at 8 slots) for
-# the isopleth sources.
+# the isopleth sources; overflow1400 (``ripple1400``) the iso1400 sources'
+# surface with a ripple, on ISO1400's grid (K3's wide build at N = 1400).
 CAPACITY = {
     "ten31": dict(N=31, nspec=2, smooth=1, max_phases=16, B=32, beta=1.0, mu0=(5.0, 0.0), seed=31, window=(4.8, 5.2)),
     "ripple121": dict(N=121, nspec=2, smooth=1, max_phases=16, B=48, beta=1.0, mu0=(5.0, 0.0), seed=121, window=(4.0, 6.0)),
@@ -286,6 +287,21 @@ def ten_peak(n: int = 31) -> np.ndarray:
     the way)."""
     x = np.arange(n, dtype=np.float64)
     y = 5.0 * np.sin(2 * np.pi * x / 3.1) - 0.01 * x
+    y[-1] = y.min() - 50.0
+    return y
+
+
+def ripple1400(seed: int = 1400) -> np.ndarray:
+    """overflow1400's surface: the n1400 composite's lnPI plus a ripple
+    8 sin(2 pi n / 50 + phi), phi drawn from ``seed``, its last bin 50
+    below its minimum (as ``ten_peak``: keeps the edge guard out of the
+    way).  Over ISO1400's window at smooth 2 each cell's mixed surface has
+    10-20 maxima: fail code 3 on every cell at 8 slots, some cells ok at
+    16, nearly all at 64."""
+    c = CELLS["n1400"]
+    n = np.arange(c["N"], dtype=np.float64)
+    phase = np.random.default_rng(seed).uniform(0.0, 2 * np.pi)
+    y = make_composite(**c)["lnpi"] + 8.0 * np.sin(2 * np.pi * n / 50.0 + phase)
     y[-1] = y.min() - 50.0
     return y
 
