@@ -135,10 +135,31 @@ Phases (each raises on failure, so any failure exits non-zero):
      the index slots and K1's and K2's row tile; phase 2 holds every
      build's shared bytes to it), K3's with its dynamic x_m area; a
      {"capacity": ...} line;
+  5g. the reference-notebook workflows of examples/torch_*.py, each run on
+     the card with in-memory inputs (tests/torch_windows.example_inputs:
+     the square-well trees patched in memory, the n31 fixture, the binary
+     ideal gas in closed form) with the launch counters set to 0 just
+     before and read just after: the phase diagram (K2's paired mode), the
+     binary isopleth, combining simulations and mutual diffusion (K3), the
+     multivariable extrapolation and the square-well notebook (the class
+     path, no kernel); each against engine="torch" on the card (or, with
+     no kernel, its run on the CPU): segmentation, validity and fail codes
+     equal, floats within 1e-10 relative (the Gibbs-Duhem isobars within
+     1e-8), mu* within 1e-9; each script's acceptance checks, where the
+     in-repo data can meet them; find_phase_eq_state(extrapolate=True)
+     over 256 betas on coex573 and coex31 at 16 slots: its states, built
+     in one pass, against the per-target loop (within 1e-12; bit-identical
+     or not), the host-clock times of the solve, of the states in one
+     pass and of the loop, and thermo + phase_props of the batch;
+     combining_simulations at a production lattice (401 mu_1 x 501 dMu_2,
+     N = 401, order 2) against the ideal gas's closed form, K3 alone
+     there against its plain version with its time and bound; a
+     {"workflows": ...} line;
   6. a {"kernels": [...]} line with each kernel's launches, worst error,
      times and bound (the 2-D path and window patching add none; the
      sharded routes add cells "<cell> mesh cards" / "<cell> mesh x4"
-     with their launches, phase 5f its capacity cells), then the last
+     with their launches, phase 5f its capacity cells, phase 5g its
+     workflow cells), then the last
      line: {"ok": true, "device": {...}}.
 
 --dump PATH runs only phases 1-2 and the main paths of K1, K2 and K3 (a
@@ -1676,6 +1697,235 @@ def capacity_phase(C, ptxas):
     return record, cells, worst, layouts
 
 
+WORKFLOWS = ("square_well_phase_diagram", "binary_isopleth", "combining_simulations", "multivariable_extrapolation", "mutual_diffusion", "square_well_notebook")
+# The workflows whose acceptance checks need the reference's data (not in
+# the repository): the notebook's published values, and the 0.5 bar on
+# multivariable_extrapolation's order-2 peak error, which the exact ideal
+# gas misses at 1.12 (tests/test_torch_examples.py).
+CHECK_WAITS = ("multivariable_extrapolation", "square_well_notebook")
+PRODUCTION_DELTA = (0.005, 0.01)  # combining_simulations at 401 mu_1 x 501 dMu_2
+GIBBS_DUHEM_TOL = 1e-8  # the production bar, for the Gibbs-Duhem isobars: splines through the contour amplify the surface's differences
+
+
+def _same_values(got, want, tol, where, worst):
+    """Two runs' result values (dicts, lists, tuples, arrays, scalars):
+    integers, bools and non-finite entries equal, floats within tol
+    relative to max(1, |want|); worst[where] gets the worst difference."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        if got.keys() != want.keys():
+            raise AssertionError(f"{where}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            _same_values(got[k], want[k], GIBBS_DUHEM_TOL if k in ("errs", "ierrs", "isobars") else tol, f"{where}.{k}", worst)
+    elif isinstance(want, (list, tuple)) and not all(isinstance(v, (int, float, np.number)) for v in want):
+        if len(got) != len(want):
+            raise AssertionError(f"{where}: {len(got)} entries != {len(want)}")
+        for i, (x, y) in enumerate(zip(got, want)):
+            _same_values(x, y, tol, f"{where}[{i}]", worst)
+    elif want is None:
+        if got is not None:
+            raise AssertionError(f"{where}: a value where the reference run has none")
+    else:
+        g, w = np.asarray(got), np.asarray(want)
+        if g.shape != w.shape:
+            raise AssertionError(f"{where}: shape {g.shape} != {w.shape}")
+        if w.dtype.kind in "biuO" or g.dtype.kind in "biuO":
+            if not np.array_equal(g, w):
+                raise AssertionError(f"{where}: differs (segmentation, validity or fail codes)")
+            return
+        fin = np.isfinite(w)
+        if not np.array_equal(np.isfinite(g), fin) or not np.array_equal(g[~fin], w[~fin]):
+            raise AssertionError(f"{where}: non-finite entries differ")
+        d = float(np.max(np.abs(g[fin] - w[fin]) / np.maximum(1.0, np.abs(w[fin])), initial=0.0))
+        worst[where] = d
+        if not d <= tol:
+            raise AssertionError(f"{where}: differs by {d:.3e} relative > {tol}")
+
+
+def _states_loop(h, meta, mu_star, betas, dmus, order):
+    """The T coexistence states one target at a time, stacked per field:
+    find_phase_eq_state's batched extrapolating branch before it built
+    them in one pass."""
+    import dataclasses
+
+    import torch
+
+    from fhmcanalysis_torch.core import extrap, ops, state
+
+    states = [extrap.temp_dmu_extrap(ops.reweight(h, mu_star[t]), meta, betas[t], dmus[t], order=order) for t in range(len(betas))]
+    return state.Hist(**{f.name: torch.stack([getattr(o, f.name) for o in states]) for f in dataclasses.fields(state.Hist)})
+
+
+def host_once(fn):
+    """(fn(), its host-clock ms with the card synchronized before and after)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def workflows_phase(C):
+    """Phase 5g: the reference-notebook workflows of examples/torch_*.py on
+    the card with in-memory inputs (tests/torch_windows.example_inputs: no
+    h5py here), each with the launch counters set to 0 just before its run
+    and read just after, held against engine="torch" (the workflows on K2
+    and K3) or, where the path has no kernel, the same run on the CPU;
+    the batched phase-diagram solve at coex573 and coex31 P = 16 (256
+    betas each): its states against the per-target loop and both times;
+    combining_simulations at the production lattice against the closed
+    form.  Returns (record, {kernel: {cell: ...}}, {kernel: worst})."""
+    import importlib
+    import tempfile
+
+    torch, np, TC = C.torch, C.np, C.TC
+    cuda_sweep, cuda_mb, cuda_iso, segment, state, IB, smi, dev = C.cuda_sweep, C.cuda_mb, C.cuda_iso, C.segment, C.state, C.IB, C.smi, C.dev
+    import torch_windows as TW
+    from fhmcanalysis_torch.core import extrap, ops
+    from fhmcanalysis_torch.core import solve as SV
+
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import torch_example_io as ex
+
+    names = {cuda_sweep.NAME: cuda_sweep.sweep_thermo, cuda_mb.NAME: cuda_mb.mb_sweep_thermo, cuda_iso.NAME: cuda_iso.iso_grid}
+    cells = {n: {} for n in names}
+    worst_k = {n: 0.0 for n in names}
+    rec = {"workflows": {}, "batched_solve": {}, "production": {}}
+
+    def counted(fn):
+        for k in names.values():
+            k.launches = 0
+        out, ms = host_once(fn)
+        return out, ms, {n: k.launches for n, k in names.items()}
+
+    with tempfile.TemporaryDirectory(prefix="workflows_") as tmp:
+        for name in WORKFLOWS:
+            mod = importlib.import_module("torch_" + name)
+            inputs = TW.example_inputs(name, tmp)
+            got, ms, launches = counted(lambda: mod.run(inputs, dev))
+            kernel_path = "engine" in inspect.signature(mod.run).parameters
+            ref_what = 'engine="torch" on the card' if kernel_path else "the CPU"
+            want = mod.run(inputs, dev, engine="torch") if kernel_path else mod.run(inputs, "cpu")
+            worst = {}
+            if name == "square_well_phase_diagram":
+                d_mu = float(np.abs(got["mu_star"] - want["mu_star"]).max())
+                if not d_mu <= 1e-9:
+                    raise AssertionError(f"workflow {name}: mu_star differs from {ref_what} by {d_mu:.3e}")
+                worst["mu_star"] = d_mu
+                _same_values({k: v for k, v in got.items() if k != "mu_star"}, {k: v for k, v in want.items() if k != "mu_star"}, TOL, name, worst)
+                if launches[cuda_mb.NAME] < 2:
+                    raise AssertionError(f"workflow {name}: K2 launched {launches[cuda_mb.NAME]} times")
+            elif name == "square_well_notebook":
+                d_mu = abs(got["mu_kt"] - want["mu_kt"])
+                if not d_mu <= 1e-9:
+                    raise AssertionError(f"workflow {name}: mu*/kT differs from the CPU's by {d_mu:.3e}")
+                worst["mu_kt"] = d_mu
+                _same_values(dict(got, mu_kt=0.0), dict(want, mu_kt=0.0), TOL, name, worst)
+                (_, _, fe1, _), (_, _, fe2, _) = got["rows"]
+                if not got["is_safe"] or not abs(fe1 - fe2) < 1e-3:
+                    raise AssertionError(f"workflow {name}: coexistence not found (is_safe {got['is_safe']}, fe {fe1}, {fe2})")
+            else:
+                _same_values(got, want, TOL, name, worst)
+                if kernel_path and launches[cuda_iso.NAME] != 1:
+                    raise AssertionError(f"workflow {name}: make_grid launched K3 {launches[cuda_iso.NAME]} times")
+            if name in CHECK_WAITS:
+                check = "waits for the reference's data"
+            else:
+                mod.check(got)
+                check = "passed"
+            rec["workflows"][name] = dict(launches=launches, run_ms=ms, against=ref_what, worst=max(worst.values(), default=0.0), check=check)
+            for kname, n in launches.items():
+                if n:
+                    cells[kname]["workflow " + name] = dict(launches=n, run_ms=ms, worst=max(worst.values(), default=0.0))
+                    worst_k[kname] = max(worst_k[kname], max(worst.values(), default=0.0))
+            log(f"workflow {name}: run on the card {ms:.1f} ms (host clock), launches {launches} | against {ref_what}: segmentation and codes equal, "
+                f"worst {max(worst.values(), default=0.0):.3e} | check {check} | {smi}")
+
+    # ---- the batched phase-diagram solve at 256 betas: one pass against the per-target loop ----
+    for cname in ("coex573", "coex31 P=16"):
+        if cname == "coex573":
+            d, mk, betas, guess, kw = TC.coex_grid()
+            dmu = None
+        else:
+            d, mk, _, kw = TC.coex31_guesses()
+            mk = dict(mk, max_phases=16)
+            betas, guess, kw = np.linspace(0.98, 1.02, 256), 5.6, dict(kw, order=1)
+            dmu = [-5.0]
+        h, meta = C.hist(d), state.HistMeta(**mk)
+        solve = lambda: SV.find_phase_eq_state(h, meta, kw["lnZ_tol"], guess, beta=betas, dmu=dmu, order=kw["order"], min_width=kw["min_width"], extrapolate=True)  # noqa: E731
+        (out, mus, _, conv), total_ms, launches = counted(solve)
+        if launches[cuda_mb.NAME] < 2 or out.lnpi.shape != (256, h.nbins) or out.mom.shape != (256,) + h.mom.shape:
+            raise AssertionError(f"batched solve {cname}: K2 launches {launches[cuda_mb.NAME]}, states {tuple(out.lnpi.shape)}")
+        tb, dmus = SV._targets(h, torch.as_tensor(betas, device=dev), None if dmu is None else torch.as_tensor(dmu, device=dev, dtype=torch.float64), 256)
+        batch = lambda: extrap.temp_dmu_extrap(ops.reweight(h, mus), meta, tb, dmus, order=kw["order"])  # noqa: E731
+        build_ms = [host_once(batch)[1] for _ in range(3)]
+        loop, loop_ms = host_once(lambda: _states_loop(h, meta, mus, tb, dmus, kw["order"]))
+        bits = torch.equal(out.lnpi, loop.lnpi) and torch.equal(out.mom, loop.mom)
+        d_ln = float((out.lnpi - loop.lnpi).abs().max())
+        d_mom = float(((out.mom - loop.mom).abs() / loop.mom.abs().clamp(min=1.0)).max())
+        if not (d_ln <= 1e-12 and d_mom <= 1e-12 and torch.equal(out.curr_mu, loop.curr_mu) and torch.equal(out.curr_beta, loop.curr_beta)):
+            raise AssertionError(f"batched solve {cname}: the batch's states differ from the per-target loop's (lnPI {d_ln:.3e}, moments {d_mom:.3e} relative)")
+        (pt, props), thermo_ms = host_once(lambda: (lambda r: (r[1], segment.phase_props(r[1], out.volume)))(segment.thermo(out, meta)))
+        _, pl = segment.thermo(loop, meta)
+        for k in ("left", "right", "mask", "n_phases", "valid"):
+            if not torch.equal(getattr(pt, k), getattr(pl, k)):
+                raise AssertionError(f"batched solve {cname}: thermo of the batch segments differently from the loop's states ({k})")
+        two = int(((pt.n_phases == 2) & pt.valid).sum())
+        r = dict(T=256, N=h.nbins, max_phases=meta.max_phases, launches=launches, converged=int(conv.sum()), two_phase=two, solve_and_states_ms=total_ms,
+                 states_ms=statistics.median(build_ms), states_loop_ms=loop_ms, thermo_ms=thermo_ms, bit_identical=bits, lnpi_abs=d_ln, mom_rel=d_mom)
+        rec["batched_solve"][cname] = r
+        cells[cuda_mb.NAME]["batched solve " + cname] = dict(launches=launches[cuda_mb.NAME], run_ms=total_ms, states_ms=r["states_ms"], states_loop_ms=loop_ms)
+        log(f"batched solve {cname}: find_phase_eq_state(extrapolate=True) over 256 betas N={h.nbins} P={meta.max_phases}: {total_ms:.1f} ms (host clock, solve + states), "
+            f"K2 launches {launches[cuda_mb.NAME]}, converged {int(conv.sum())}/256, two phases {two} | states in one pass {r['states_ms']:.2f} ms (median of 3) against "
+            f"the per-target loop {loop_ms:.1f} ms; {'bit-identical' if bits else f'lnPI within {d_ln:.3e}, moments {d_mom:.3e} relative'} | thermo + phase_props of the batch "
+            f"{thermo_ms:.2f} ms | {smi}")
+
+    # ---- combining_simulations at a production lattice: K3 at full width ----
+    mod = importlib.import_module("torch_combining_simulations")
+    inputs = TC.ideal_gas_sources(1.20)
+    res, ms, launches = counted(lambda: mod.run(inputs, dev, delta=PRODUCTION_DELTA))
+    NY, NX = res["Z"].shape
+    share = float(res["valid"].mean())
+    if (NY, NX) != (501, 401) or launches[cuda_iso.NAME] != 1 or share <= 0.7:
+        raise AssertionError(f"production lattice: grid {(NY, NX)}, K3 launches {launches[cuda_iso.NAME]}, valid share {share:.4f}")
+    x1_max, p_max = float(res["x1_err"].max()), float(res["p_rel"].max())
+    if not (x1_max < 0.02 and p_max < 0.02):
+        raise AssertionError(f"production lattice: against the closed form x1 {x1_max:.3e}, P {p_max:.3e} relative (bar 0.02)")
+    # K3 alone on the lattice, against its plain version, and its bound
+    hs = [ex.load(src, 1.0 / 1.20, [0.0, dm], 10, dev) for dm, src in ex.dmu2_sources(inputs).items()]
+    iso = C.iso_cls(hs, 1.0 / 1.10, order=2)
+    mu1_v, dmu2_v = iso._grids((-6.0, -4.0), (-2.5, 2.5), PRODUCTION_DELTA)
+    lr, wts = iso._bracket(dmu2_v, 2.5)
+    srcs, metas = [hh._hist() for hh in hs], [hh._meta() for hh in hs]
+    pro = IB._iso_prologue(srcs, metas[0], mu1_v, dmu2_v, lr, wts, 1.0 / 1.10, 2, CUTOFF)
+    kin = [pro[k] for k in ("lnpi", "op", "xrows", "krows", "a", "edge", "mu", "lr", "wts", "tg", "volume")]
+    k3 = lambda: cuda_iso.iso_grid(*kin, 10, 8, 2, CUTOFF)  # noqa: E731
+    got = k3()
+    want, p_ms = once_ms(lambda: IB.iso_grid(srcs, metas, mu1_v, dmu2_v, lr, wts, 1.0 / 1.10, 2, CUTOFF, engine="torch"))
+    w = compare_iso(got, want, "production lattice K3 vs plain", min_ok=0.7)
+    k_ms = device_ms(k3, "iso_grid") or cuda_ms(k3)
+    full_x, _ = IB._iso_surfaces(pro, slice(None), 2)
+    ext = segment.relextrema(full_x, 10, 8)
+    lefts, rights, pmask = segment.phase_bounds(ext, full_x.shape[-1], 8)
+    cov = {"left": lefts, "right": rights, "mask": pmask}
+    del full_x, ext
+    x_ops, key_ops = k3_ops(2)
+    ops_n = tail_ops(cov, NY * NX, srcs[0].nbins, 10, x_ops, key_ops)
+    b_ms, b_by = bound(kin, got, ops_n)
+    worst_k[cuda_iso.NAME] = max(worst_k[cuda_iso.NAME], *w.values())
+    rec["production"] = dict(NY=NY, NX=NX, cells=NY * NX, N=srcs[0].nbins, order=2, run_ms=ms, launches=launches, valid_share=share, x1_err=x1_max, p_rel=p_max,
+                             kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, worst=w)
+    cells[cuda_iso.NAME]["combining production lattice"] = dict(NY=NY, NX=NX, B=NY * NX, N=srcs[0].nbins, order=2, lanes=cuda_iso.lanes_per_cell(srcs[0].nbins, NY * NX, cuda_sweep.sm_count(dev.index)),
+                                                                launches=launches[cuda_iso.NAME], kernel_ms=k_ms, plain_ms=p_ms, run_ms=ms, bound_ms=b_ms, bound_by=b_by, ops=ops_n, worst=w)
+    log(f"production lattice combining_simulations: {NY} dMu_2 x {NX} mu_1 = {NY * NX} cells, N={srcs[0].nbins}, order 2: run {ms:.1f} ms (host clock), K3 launches "
+        f"{launches[cuda_iso.NAME]}, valid share {share:.4f}, against the closed form x1 within {x1_max:.3e}, P within {p_max:.3e} relative | K3 {k_ms:.3f} ms, plain {p_ms:.1f} ms "
+        f"(one run), bound {b_ms:.4f} ms by {b_by} | K3 vs plain worst {max(w.values()):.3e} | {smi}")
+    return rec, cells, worst_k
+
+
 def run():
     C = Ctx()
     torch, np, TC = C.torch, C.np, C.TC
@@ -2304,6 +2554,13 @@ def run():
     print(json.dumps({"capacity": cap_rec}))
     for cells_k, kname in ((runs, cuda_sweep.NAME), (mb_runs, cuda_mb.NAME), (iso_runs, cuda_iso.NAME)):
         cells_k.update(cap_cells[kname])
+
+    # ---- 5g. the reference-notebook workflows of examples/ ----
+    wf, wf_cells, wf_worst = workflows_phase(C)
+    print(json.dumps({"workflows": wf}))
+    for cells_k, kname in ((runs, cuda_sweep.NAME), (mb_runs, cuda_mb.NAME), (iso_runs, cuda_iso.NAME)):
+        cells_k.update(wf_cells[kname])
+    cap_worst = {k: max(v, wf_worst[k]) for k, v in cap_worst.items()}
 
     # ---- 6. the kernels line and the last line ----
     def entry(kname, source, cells, err, **extra):

@@ -46,13 +46,20 @@ class DerivEngine:
         self.lnpi = h.lnpi
         self.mom = h.mom
         self.op = h.op
-        self.mu = h.curr_mu
-        self.beta = h.curr_beta
         self.meta = meta
         self.nbins = h.lnpi.shape[-1]
+        # leading state axes of lnpi: one state per row, as ops.reweight(h,
+        # mu[T]) returns them (moments, op and beta may be shared).  Each
+        # state's mu_i and beta become a column [..., 1] and each gc
+        # average a sum over the bins only, so a Taylor series of T states
+        # is one pass of tensor operations, row t that of state t alone.
+        self.batch = tuple(h.lnpi.shape[:-1])
+        self.vshape = self.batch + (self.nbins,)
+        self.mu = h.curr_mu.movedim(-1, 0)[..., None] if self.batch else h.curr_mu
+        self.beta = h.curr_beta[..., None] if self.batch else h.curr_beta
         # probability weights shared by every gc average
         self.prob = torch.exp(h.lnpi)
-        self.sum_prob = torch.sum(self.prob)
+        self.sum_prob = torch.sum(self.prob, dim=-1, keepdim=bool(self.batch))
         self._memo = {}
 
     # ---------- helpers ----------
@@ -60,9 +67,14 @@ class DerivEngine:
     def _zeros(self, shape=None):
         return self.lnpi.new_zeros(self.nbins if shape is None else shape)
 
+    def _stack(self, rows, dim: int = 0):
+        """torch.stack of rows over the bins, each broadcast to the states'
+        [..., N] (a row of shared moments has no state axis)."""
+        return torch.stack([r.expand(self.vshape) for r in rows], dim)
+
     def m(self, a: Addr):
-        """One moment row: f64[N]."""
-        return self.mom[a[0], a[1], a[2], a[3], a[4]]
+        """One moment row: f64[..., N]."""
+        return self.mom[..., a[0], a[1], a[2], a[3], a[4], :]
 
     def opn(self, n: int):
         return self.op**n if n else 1.0
@@ -108,7 +120,7 @@ class DerivEngine:
 
     def gc_ave_v(self, a):
         """<a> under P ~ exp(lnPI).  (gc_hist.pyx:1338-1357)"""
-        return torch.sum(a * self.prob) / self.sum_prob
+        return torch.sum(a * self.prob, dim=-1, keepdim=bool(self.batch)) / self.sum_prob
 
     def gc_ave_i(self, x_idx: Addr):
         """<mom[x]>.  (gc_hist.pyx:1359-1380)"""
@@ -322,10 +334,10 @@ class DerivEngine:
                     for mm in range(meta.mo1):
                         for p in range(meta.mo1):
                             rows.append(fn((i, j, k, mm, p)) if j + mm + p + order <= meta.max_order else zero)
-        return torch.stack(rows).reshape(meta.mom_shape(self.nbins))
+        return self._stack(rows, -2).reshape(self.batch + meta.mom_shape(self.nbins))
 
     def _mom_zeros(self, lead=()):
-        return self._zeros(tuple(lead) + self.meta.mom_shape(self.nbins))
+        return self._zeros(tuple(lead) + self.batch + self.meta.mom_shape(self.nbins))
 
     def dB(self, skip_mom: bool = False):
         """First-order beta Taylor coefficients.  (gc_hist.pyx:2114-2165)"""
@@ -369,7 +381,7 @@ class DerivEngine:
         (gc_hist.pyx:2342-2387)"""
         S1 = self.meta.nspec - 1
         rows = [self.beta * (self.m((i + 1, 1, 0, 0, 0)) - self.gc_ave_i((i + 1, 1, 0, 0, 0))) for i in range(S1)]
-        dlnpi = torch.stack(rows) if rows else self._zeros((0, self.nbins))
+        dlnpi = self._stack(rows) if rows else self._zeros((0,) + self.vshape)
         if skip_mom or not S1:
             dm = self._mom_zeros((S1,))
         else:
@@ -386,8 +398,8 @@ class DerivEngine:
         """Second-order dMu Hessian.  (gc_hist.pyx:2389-2434)"""
         S1 = self.meta.nspec - 1
         if not S1:
-            return self._zeros((0, 0, self.nbins)), self._mom_zeros((0, 0))
-        H = torch.stack([torch.stack([self._dmu_block(i, j) for j in range(S1)]) for i in range(S1)])
+            return self._zeros((0, 0) + self.vshape), self._mom_zeros((0, 0))
+        H = torch.stack([self._stack([self._dmu_block(i, j) for j in range(S1)]) for i in range(S1)])
         if skip_mom:
             Hm = self._mom_zeros((S1, S1))
         else:
@@ -405,7 +417,7 @@ class DerivEngine:
         mrows = [dm_b]
         for q in range(1, S):
             mrows.append(self._mom_zeros() if skip_mom else self._mom_loop(1, lambda a, q=q: self.sg_dX_dMU(q - 1, a)))
-        return torch.stack(rows), torch.stack(mrows)
+        return self._stack(rows), torch.stack(mrows)
 
     def dBMU2(self, skip_mom: bool = False):
         """Joint (beta, dMu) Hessian with beta-dMu cross terms.
@@ -451,7 +463,7 @@ class DerivEngine:
 
         zero = self._mom_zeros()
         Hm = torch.stack([torch.stack([zero if b is None else b for b in row]) for row in Hm])
-        return torch.stack([torch.stack(row) for row in H]), Hm
+        return torch.stack([self._stack(row) for row in H]), Hm
 
 
 class DerivEngineN1(DerivEngine):

@@ -7,6 +7,13 @@ temp_dmu_extrap_multi (gc_hist.pyx:813-887) by computing the derivatives
 once and applying them to every target by broadcasting.  Function for
 function the JAX package's ``core/extrap.py``; its contractions over the
 S <= 2 (beta, dMu) axis are written out as sums here.
+
+``temp_extrap``, ``dmu_extrap`` and ``temp_dmu_extrap`` are also paired:
+given a Hist with a leading state axis [T] (what ``ops.reweight(h,
+mu[T])`` returns) and one target per state, they extrapolate the T states
+in one pass of tensor operations, the counterpart of ``jax.vmap`` over
+the JAX package's single-target functions; row t equals the call on state
+t alone.
 """
 
 from __future__ import annotations
@@ -34,21 +41,34 @@ def _f64(h: Hist, v):
 
 
 def _dmu_of(h: Hist):
-    return h.curr_mu[1:] - h.curr_mu[0]
+    return h.curr_mu[..., 1:] - h.curr_mu[..., :1]
 
 
-def _lin(xi, d):
-    """sum_s xi[..., s] * d[s] over the leading axis of d (tensordot)."""
-    tail = (1,) * (d.dim() - 1)
+def _lead(h: Hist) -> tuple:
+    """The leading state axes of a Hist (() for one state)."""
+    return tuple(h.lnpi.shape[:-1])
+
+
+def _per_state(v, lead: tuple):
+    """v broadcast to one value per state (unchanged for one state)."""
+    return v.expand(lead) if lead else v
+
+
+def _lin(xi, d, lead: int = 0):
+    """sum_s xi[..., s] * d[s] over the leading axis of d (tensordot);
+    ``lead`` of xi's leading axes are also d[s]'s (paired: one target per
+    state), the others broadcast over all of d[s] (a target grid)."""
+    tail = (1,) * (d.dim() - 1 - lead)
     acc = xi[..., 0].reshape(xi.shape[:-1] + tail) * d[0]
     for s in range(1, d.shape[0]):
         acc = acc + xi[..., s].reshape(xi.shape[:-1] + tail) * d[s]
     return acc
 
 
-def _quad(xi, H):
-    """sum_{r,q} xi[..., r] H[r, q] xi[..., q] (the einsum "r,rq...,q")."""
-    tail = (1,) * (H.dim() - 2)
+def _quad(xi, H, lead: int = 0):
+    """sum_{r,q} xi[..., r] H[r, q] xi[..., q] (the einsum "r,rq...,q");
+    ``lead`` as for _lin."""
+    tail = (1,) * (H.dim() - 2 - lead)
     S = H.shape[0]
     acc = None
     for r in range(S):
@@ -68,23 +88,27 @@ def temp_extrap(h: Hist, meta: HistMeta, target_beta, order: int = 1, skip_mom: 
 
     Parity: histogram.temp_extrap driver sequence (gc_hist.pyx:670-740):
     normalize, accumulate Taylor series, set curr_beta, renormalize.
+    Paired over a leading state axis (module docstring): target_beta is
+    then a scalar or one per state.
     """
     h = h.replace(lnpi=normalize_lnpi(h.lnpi))
     eng = engine_cls(h, meta)
-    target_beta = _f64(h, target_beta)
+    target_beta = _per_state(_f64(h, target_beta), _lead(h))
     dB = target_beta - h.curr_beta
+    lnpi_dB = dB.reshape(dB.shape + (1,))  # a column over the bins
+    mom_dB = dB.reshape(dB.shape + (1,) * len(meta.mom_shape(0)))
 
     d1, m1 = eng.dB(skip_mom)
-    lnpi = h.lnpi + dB * d1
-    mom = h.mom + dB * m1
+    lnpi = h.lnpi + lnpi_dB * d1
+    mom = h.mom + mom_dB * m1
     if order >= 2:
         d2, m2 = eng.dB2(skip_mom)
-        lnpi = lnpi + 0.5 * dB * dB * d2
-        mom = mom + 0.5 * dB * dB * m2
+        lnpi = lnpi + 0.5 * lnpi_dB * lnpi_dB * d2
+        mom = mom + 0.5 * mom_dB * mom_dB * m2
     if order >= 3:
         d3, m3 = eng.dB3(skip_mom)
-        lnpi = lnpi + (1.0 / 6.0) * dB * dB * dB * d3
-        mom = mom + (1.0 / 6.0) * dB * dB * dB * m3
+        lnpi = lnpi + (1.0 / 6.0) * lnpi_dB * lnpi_dB * lnpi_dB * d3
+        mom = mom + (1.0 / 6.0) * mom_dB * mom_dB * mom_dB * m3
     _check(order, 1, 3, "temperature")
     return h.replace(lnpi=normalize_lnpi(lnpi), mom=mom, curr_beta=target_beta)
 
@@ -93,29 +117,42 @@ def dmu_extrap(h: Hist, meta: HistMeta, target_dmu, order: int = 1, skip_mom: bo
     """Extrapolate in dMu = mu_{2..S} - mu_1 (orders 1-2).
 
     Parity: histogram.dmu_extrap (gc_hist.pyx:742-811, 2254-2340).
+    Paired over a leading state axis (module docstring): target_dmu is
+    then [S-1] or one per state, [T, S-1].
     """
     h = h.replace(lnpi=normalize_lnpi(h.lnpi))
     eng = DerivEngine(h, meta)
     target_dmu = _f64(h, target_dmu)
-    dDmu = target_dmu - _dmu_of(h)  # [S-1]
+    lead = _lead(h)
+    dDmu = (target_dmu - _dmu_of(h)).expand(lead + (meta.nspec - 1,))  # [..., S-1]
 
     d1, m1 = eng.dMU(skip_mom)
-    lnpi = h.lnpi + _lin(dDmu, d1)
-    mom = h.mom + _lin(dDmu, m1)
+    lnpi = h.lnpi + _lin(dDmu, d1, len(lead))
+    mom = h.mom + _lin(dDmu, m1, len(lead))
     if order >= 2:
         H, Hm = eng.dMU2(skip_mom)
-        lnpi = lnpi + 0.5 * _quad(dDmu, H)
-        mom = mom + 0.5 * _quad(dDmu, Hm)
+        lnpi = lnpi + 0.5 * _quad(dDmu, H, len(lead))
+        mom = mom + 0.5 * _quad(dDmu, Hm, len(lead))
     _check(order, 1, 2, "dMu")
-    return h.replace(lnpi=normalize_lnpi(lnpi), mom=mom, curr_mu=torch.cat([h.curr_mu[:1], h.curr_mu[0] + target_dmu]))
+    return h.replace(lnpi=normalize_lnpi(lnpi), mom=mom, curr_mu=_new_mu(h, target_dmu))
+
+
+def _new_mu(h: Hist, target_dmu):
+    """[mu_1, mu_1 + dMu_2..S] of each state."""
+    mu1 = h.curr_mu[..., :1]
+    rest = mu1 + target_dmu
+    return torch.cat([mu1.expand(rest.shape[:-1] + (1,)), rest], dim=-1)
 
 
 def _xi(h: Hist, target_beta, target_dmu):
-    """[dB, dDmu_2..S] of one target, and the two targets as tensors."""
-    target_beta = _f64(h, target_beta)
+    """[dB, dDmu_2..S] of each state's target ([..., S] over the Hist's
+    leading state axes), and the two targets as tensors (the beta one per
+    state)."""
+    lead = _lead(h)
+    target_beta = _per_state(_f64(h, target_beta), lead)
     target_dmu = _f64(h, target_dmu)
-    xi = torch.cat([(target_beta - h.curr_beta)[None], target_dmu - _dmu_of(h)])  # [S]
-    return xi, target_beta, target_dmu
+    dD = (target_dmu - _dmu_of(h)).expand(lead + (h.curr_mu.shape[-1] - 1,))
+    return torch.cat([(target_beta - h.curr_beta)[..., None], dD], dim=-1), target_beta, target_dmu
 
 
 def temp_dmu_extrap(
@@ -133,6 +170,11 @@ def temp_dmu_extrap(
     Parity: histogram.temp_dmu_extrap (gc_hist.pyx:889-966, 1045-1092,
     1182-1239).  xi = [dB, dDmu_2, ..., dDmu_S].
 
+    Paired over a leading state axis (module docstring): target_beta is
+    then a scalar or [T], target_dmu [S-1] or [T, S-1], and every field
+    of the result but op and volume has the axis (moments too, with
+    skip_mom).
+
     sg_memo: optional derivs.warm_sg_memo(...) dict: the mu-independent
     semigrand rows, shared instead of recomputed.
     """
@@ -141,18 +183,18 @@ def temp_dmu_extrap(
     if sg_memo:
         eng._memo.update(sg_memo)
     xi, target_beta, target_dmu = _xi(h, target_beta, target_dmu)
+    lead = len(_lead(h))
 
     d1, m1 = eng.dBMU(skip_mom)
-    lnpi = h.lnpi + _lin(xi, d1)
-    mom = h.mom + _lin(xi, m1)
+    lnpi = h.lnpi + _lin(xi, d1, lead)
+    mom = h.mom + _lin(xi, m1, lead)
     if order >= 2:
         H, Hm = eng.dBMU2(skip_mom)
-        lnpi = lnpi + 0.5 * _quad(xi, H)
+        lnpi = lnpi + 0.5 * _quad(xi, H, lead)
         if not first_order_mom:
-            mom = mom + 0.5 * _quad(xi, Hm)
+            mom = mom + 0.5 * _quad(xi, Hm, lead)
     _check(order, 1, 2, "temperature + dMu")
-    new_mu = torch.cat([h.curr_mu[:1], h.curr_mu[0] + target_dmu])
-    return h.replace(lnpi=normalize_lnpi(lnpi), mom=mom, curr_beta=target_beta, curr_mu=new_mu)
+    return h.replace(lnpi=normalize_lnpi(lnpi), mom=mom, curr_beta=target_beta, curr_mu=_new_mu(h, target_dmu))
 
 
 def temp_dmu_extrap_key(

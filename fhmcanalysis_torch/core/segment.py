@@ -355,9 +355,19 @@ def _zeros_mom_avg(lnpi, meta: HistMeta):
 
 def thermo(h: Hist, meta: HistMeta, props: bool = True, complete: bool = False, dedupe_mom: bool = True, collect=None):
     """Normalize, segment, and integrate per-phase thermodynamics of one
-    (unbatched) Hist.  Parity: histogram.thermo (gc_hist.pyx:451-554).
-    Returns the normalized state and an unbatched PhaseThermo."""
+    Hist.  Parity: histogram.thermo (gc_hist.pyx:451-554).  Returns the
+    normalized state and a PhaseThermo.
+
+    A Hist with a leading state axis [T] (lnpi [T, N], mom [T, ...] or
+    shared) is the batch JAX's thermo takes under vmap: each state is
+    segmented and integrated with its own moments, and the PhaseThermo
+    has the leading [T].  On the card as on the CPU the batch runs this
+    module's plain body as tensor operations: no kernel takes a batch of
+    arbitrary states with their own moments (K1 and K2 sweep one
+    histogram over mu and targets)."""
     lnpi = normalize_lnpi(h.lnpi)
+    if lnpi.dim() == 2:
+        return h.replace(lnpi=lnpi), thermo_core(lnpi, h.mom, meta, props=props, complete=complete, dedupe_mom=dedupe_mom, collect=collect)
     pt = thermo_core(lnpi[None], h.mom, meta, props=props, complete=complete, dedupe_mom=dedupe_mom, collect=collect)
     return h.replace(lnpi=lnpi), _unbatch(pt)
 
@@ -376,7 +386,7 @@ def thermo_core(
     collect=None,
 ) -> PhaseThermo:
     """Segmentation + integration on [B, N] (possibly unnormalized) lnPI
-    surfaces sharing one moments tensor.
+    surfaces sharing one moments tensor, or each with its own ([B, ...]).
 
     dedupe_mom exploits the storage symmetry mom[i,j,k,m,p] ==
     mom[k,m,i,j,p] (always true for simulator-written composites) to
@@ -389,16 +399,16 @@ def thermo_core(
     fe = _fe(lnpi, m_pf, wsum, mask)
 
     if props:
-        mom2d = mom.reshape(meta.n_addr, N)  # [A, N]
+        mom2d = mom.reshape(mom.shape[:-6] + (meta.n_addr, N))  # [(B,) A, N]
         if dedupe_mom:
             uniq, inverse = unique_row_map(meta.nspec, meta.max_order)
-            mom_rows = mom2d[uniq]  # [U, N]
+            mom_rows = mom2d[..., uniq, :]  # [(B,) U, N]
         else:
             mom_rows = mom2d
         # masked sums as a [P, N] x [N, U] product per point: the 0/1 mask
         # makes every product exact, only the summation order differs
         pm = torch.einsum("bpn,bun->bpu", sel.to(lnpi.dtype), e[:, None, :] * mom_rows)
-        pm = pm + e_last[:, :, None] * mom_rows[:, N - 1]
+        pm = pm + e_last[:, :, None] * mom_rows[..., N - 1].unsqueeze(-2)
         if dedupe_mom:
             pm = pm[:, :, inverse]
         pm = pm / torch.where(wsum > 0, wsum, 1.0)[:, :, None]
@@ -416,11 +426,12 @@ def key_row_addresses(meta: HistMeta) -> list:
 
 
 def key_rows(mom: torch.Tensor, meta: HistMeta) -> torch.Tensor:
-    """The [S+1, N] key moment rows (see key_row_addresses).  Stacked from
-    views: indexing with a list would copy the index from pageable host
-    memory, which waits for the device and stalls the sweep's launch."""
-    mom2d = mom.reshape(meta.n_addr, mom.shape[-1])
-    return torch.stack([mom2d[a] for a in key_row_addresses(meta)])
+    """The [(B,) S+1, N] key moment rows (see key_row_addresses) of one
+    moments tensor or of one per state.  Stacked from views: indexing with
+    a list would copy the index from pageable host memory, which waits for
+    the device and stalls the sweep's launch."""
+    mom2d = mom.reshape(mom.shape[:-6] + (meta.n_addr, mom.shape[-1]))
+    return torch.stack([mom2d[..., a, :] for a in key_row_addresses(meta)], dim=-2)
 
 
 def thermo_core_props(lnpi, mom, meta: HistMeta, volume, complete: bool = False, collect=None):
@@ -462,23 +473,34 @@ def thermo_key_core(lnpi, key, meta: HistMeta, volume, complete: bool = False, c
 
 
 def thermo_props(h: Hist, meta: HistMeta, complete: bool = False, collect=None):
-    """normalize + thermo_core_props for one (unbatched) Hist."""
+    """normalize + thermo_core_props for one Hist, or for a batch of
+    states as ``thermo`` takes it (same route)."""
     lnpi = normalize_lnpi(h.lnpi)
+    if lnpi.dim() == 2:
+        pt, props = thermo_core_props(lnpi, h.mom, meta, _per_state_col(h.volume), complete=complete, collect=collect)
+        return h.replace(lnpi=lnpi), pt, props
     pt, props = thermo_core_props(lnpi[None], h.mom, meta, h.volume, complete=complete, collect=collect)
     return h.replace(lnpi=lnpi), _unbatch(pt), {k: v[0] for k, v in props.items()}
+
+
+def _per_state_col(volume):
+    """A volume per state [B] as a column [B, 1] over the phases; a
+    shared (scalar) volume unchanged."""
+    return volume[..., None] if torch.is_tensor(volume) and volume.dim() else volume
 
 
 def phase_props(pt: PhaseThermo, volume) -> dict:
     """Extensive per-phase properties from averaged moments.
 
     Parity: gc_hist.pyx:543-552 (n_i, ntot, density, u, x_i).  Works on
-    batched and unbatched PhaseThermo alike.
+    batched and unbatched PhaseThermo alike; with a batch the volume is
+    shared or one per state ([B]).
     """
     n_i = pt.mom_avg[..., :, 1, 0, 0, 0]  # [(B,) P, S]
     ntot = n_i.sum(-1)
     u = pt.mom_avg[..., 0, 0, 0, 0, 1]
     x_i = n_i / torch.where(ntot != 0, ntot, 1.0)[..., None]
-    return {"n_i": n_i, "ntot": ntot, "density": ntot / volume, "u": u, "x_i": x_i}
+    return {"n_i": n_i, "ntot": ntot, "density": ntot / _per_state_col(volume), "u": u, "x_i": x_i}
 
 
 def is_safe(h: Hist, meta: HistMeta, cutoff: float = 10.0, complete: bool = False):

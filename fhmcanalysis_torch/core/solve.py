@@ -27,8 +27,6 @@ to JAX's on every mu the solver evaluates).
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from . import cuda_mb, cuda_sweep, pipeline
@@ -278,12 +276,15 @@ def find_phase_eq_state(
         if extrapolate:
             out = temp_dmu_extrap(out, meta, betas[0], dmus[0], order=order, skip_mom=not full_mom)
         return out, mu_star[0], err[0], converged[0]
-    if not extrapolate:  # reweight takes the batch; the fields it leaves get the batch axis too, as under vmap
-        out = reweight(h, mu_star)
-        lead = lambda v: v.expand((T,) + v.shape)  # noqa: E731
-        return out.replace(mom=lead(h.mom), op=lead(h.op), curr_beta=lead(h.curr_beta), volume=lead(h.volume)), mu_star, err, converged
-    states = [temp_dmu_extrap(reweight(h, mu_star[t]), meta, betas[t], dmus[t], order=order, skip_mom=not full_mom) for t in range(T)]
-    return Hist(**{f.name: torch.stack([getattr(o, f.name) for o in states]) for f in dataclasses.fields(Hist)}), mu_star, err, converged
+    # the T states in one pass: reweight takes the batch, the paired
+    # extrapolation one target per state; the fields they leave shared get
+    # the batch axis too, as under vmap
+    out = reweight(h, mu_star)
+    if extrapolate:
+        out = temp_dmu_extrap(out, meta, betas, dmus, order=order, skip_mom=not full_mom)
+    dims = {"lnpi": 1, "mom": 6, "op": 1, "curr_mu": 1, "curr_beta": 0, "volume": 0}
+    lead = {k: v.expand((T,) + v.shape) for k, v in ((k, getattr(out, k)) for k in dims) if v.dim() == dims[k]}
+    return out.replace(**lead), mu_star, err, converged
 
 
 def _trace(h: Hist, meta: HistMeta, betas, mu_guess, lnZ_tol: float, dmu, order: int, min_width: int, engine: str):

@@ -20,6 +20,7 @@ import os
 import subprocess
 import sys
 import sysconfig
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -32,6 +33,10 @@ _TAG = "cp%d%d" % sys.version_info[:2]
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _cache: dict = {}
+# one build at a time in a process: the host flood's threads reach _load
+# together on a cold _build/, and two builds of one file would share its
+# temporary name
+_build_lock = threading.Lock()
 
 
 def _compile(src_name: str, mod_name: str) -> Path | None:
@@ -56,6 +61,13 @@ def _compile(src_name: str, mod_name: str) -> Path | None:
 def _load(src_name: str, mod_name: str):
     if mod_name in _cache:
         return _cache[mod_name]
+    with _build_lock:
+        if mod_name not in _cache:
+            _cache[mod_name] = _build(src_name, mod_name)
+    return _cache[mod_name]
+
+
+def _build(src_name: str, mod_name: str):
     so = _compile(src_name, mod_name)
     mod = False
     if so is not None:
@@ -65,7 +77,6 @@ def _load(src_name: str, mod_name: str):
             spec.loader.exec_module(mod)
         except ImportError:
             mod = False
-    _cache[mod_name] = mod
     return mod
 
 

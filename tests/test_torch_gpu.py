@@ -1079,3 +1079,130 @@ def test_parallel_surfaces_on_card(cuda, smooth):
         assert (torch.cat(parallel.sharded_normalize_long(mesh, x)) - TN.normalize_lnpi(x)).abs().max() <= 1e-12
         got2 = torch.cat(parallel.sharded_normalize_2d(mesh, x2, m2))
         assert (got2 - S2.normalize_2d(x2, m2))[m2].abs().max() <= 1e-12
+
+
+# ---------------------------------------------------------------------------
+# Batched coexistence states and the example workflows on the card.  The T
+# states of find_phase_eq_state(extrapolate=True) are built in one pass
+# (ops.reweight over the batch, the paired temp_dmu_extrap); thermo of a
+# batch segments each state with its own moments.  Each is held against
+# its per-target call on the card: segmentation equal, lnPI within 1e-12,
+# moments and floats within 1e-12 relative to max(1, |value|) (the batch
+# sums each state's bins in one reduction over rows, a single state in a
+# reduction of its own).  Each example's run on the card equals its run on
+# the CPU: segmentation, validity and fail codes equal, floats within
+# 1e-10 relative (the card's exp and log; K2 and K3 on the card against
+# their plain versions on the CPU), mu* within 1e-9.
+# ---------------------------------------------------------------------------
+
+EXAMPLE_NAMES = ("square_well_phase_diagram", "binary_isopleth", "combining_simulations", "multivariable_extrapolation", "mutual_diffusion", "square_well_notebook")
+
+
+def _rel_close(a, b, tol, where):
+    a = a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+    b = b.cpu().numpy() if torch.is_tensor(b) else np.asarray(b)
+    assert a.shape == b.shape, where
+    if a.dtype.kind in "biuO":
+        np.testing.assert_array_equal(a, b, err_msg=where)
+        return
+    fin = np.isfinite(b)
+    np.testing.assert_array_equal(np.isfinite(a), fin, err_msg=where)
+    d = np.abs(a[fin] - b[fin]) / np.maximum(1.0, np.abs(b[fin]))
+    assert np.max(d, initial=0.0) <= tol, (where, float(np.max(d, initial=0.0)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cellname", ["coex573", "coex31"])
+def test_batched_states_and_thermo_on_card(cuda, cellname):
+    """find_phase_eq_state(extrapolate=True) over 32 betas: each state
+    equals reweight -> temp_dmu_extrap of its own target on the card, and
+    thermo / thermo_props of the batch equal the per-state calls."""
+    from fhmcanalysis_torch.core import extrap, ops, segment
+
+    if cellname == "coex573":
+        d, mk, betas, guess, kw = coex_grid(32)
+        dmu = None
+    else:
+        d, mk, _, kw = coex31_guesses(32)
+        betas, guess, kw = np.linspace(0.99, 1.01, 32), 5.5, dict(kw, order=1)
+        dmu = [-5.0]
+    h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
+    out, mus, _, conv = TSV.find_phase_eq_state(h, meta, kw["lnZ_tol"], guess, beta=betas, dmu=dmu, order=kw["order"], min_width=kw["min_width"], extrapolate=True)
+    torch.cuda.synchronize()
+    assert out.lnpi.is_cuda and out.lnpi.shape == (32, h.nbins) and out.mom.shape == (32,) + h.mom.shape
+    dmus = (h.curr_mu[1:] - h.curr_mu[0]) if dmu is None else torch.as_tensor(dmu, dtype=torch.float64, device=cuda)
+    _, pt = segment.thermo(out, meta)
+    _, kp, kprops = segment.thermo_props(out, meta)
+    for t in range(0, 32, 5):
+        one = extrap.temp_dmu_extrap(ops.reweight(h, mus[t]), meta, float(betas[t]), dmus, order=kw["order"])
+        _rel_close(out.lnpi[t], one.lnpi, 1e-12, f"lnpi {t}")
+        _rel_close(out.mom[t], one.mom, 1e-12, f"mom {t}")
+        _, p1 = segment.thermo(one, meta)
+        _, k1, props1 = segment.thermo_props(one, meta)
+        for k in SEG[1:] + ("fe",):
+            _rel_close(getattr(pt, k)[t], getattr(p1, k), 1e-12, f"thermo {k} {t}")
+            _rel_close(getattr(kp, k)[t], getattr(k1, k), 1e-12, f"thermo_props {k} {t}")
+        _rel_close(pt.mom_avg[t], p1.mom_avg, 1e-12, f"mom_avg {t}")
+        for k in PROPS:
+            _rel_close(kprops[k][t], props1[k], 1e-12, f"{k} {t}")
+    # the batch's thermo on the card against the same batch's on the CPU
+    cpu = TS.Hist(**{f: getattr(out, f).cpu() for f in ("lnpi", "mom", "op", "curr_mu", "curr_beta", "volume")})
+    _, pc = segment.thermo(cpu, meta)
+    for k in SEG[1:] + ("fe",):
+        _rel_close(getattr(pt, k), getattr(pc, k), 1e-10, f"card vs cpu {k}")
+
+
+def _example(name):
+    import importlib
+
+    examples = str(__import__("pathlib").Path(__file__).resolve().parents[1] / "examples")
+    if examples not in sys.path:
+        sys.path.insert(0, examples)
+    return importlib.import_module("torch_" + name)
+
+
+def _same_result(a, b, tol, where):
+    """Two runs' result values (dicts, lists, tuples, arrays, scalars)."""
+    if isinstance(b, dict):
+        assert a.keys() == b.keys(), where
+        for k in b:
+            _same_result(a[k], b[k], tol, f"{where}.{k}")
+    elif isinstance(b, (list, tuple)) and not all(isinstance(v, (int, float, np.number)) for v in b):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_result(x, y, tol, f"{where}[{i}]")
+    elif b is None:
+        assert a is None, where
+    else:
+        _rel_close(a, b, tol, where)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", EXAMPLE_NAMES)
+def test_example_workflow_on_card(cuda, name, tmp_path):
+    """Each example workflow's run on the card with in-memory inputs (the
+    card's machine has no h5py) against its run on the CPU; the kernels
+    of its path launched (K2 paired for the phase diagram's solve, K3 for
+    the isopleth surfaces)."""
+    import torch_windows as TW
+
+    mod = _example(name)
+    inputs = TW.example_inputs(name, str(tmp_path))
+    counters = (CS.sweep_thermo, CM.mb_sweep_thermo, CI.iso_grid)
+    n0 = [c.launches for c in counters]
+    got = mod.run(inputs, cuda)
+    torch.cuda.synchronize()
+    launched = [c.launches - n for c, n in zip(counters, n0)]
+    want = mod.run(inputs, "cpu")
+    if name == "square_well_phase_diagram":
+        assert launched[1] >= 2, launched
+        assert np.abs(got["mu_star"] - want["mu_star"]).max() <= 1e-9
+        got, want = dict(got, mu_star=want["mu_star"]), dict(want)
+    if name in ("binary_isopleth", "combining_simulations", "mutual_diffusion"):
+        assert launched[2] == 1, launched
+    if name == "square_well_notebook":
+        assert abs(got["mu_kt"] - want["mu_kt"]) <= 1e-9
+        got = dict(got, mu_kt=want["mu_kt"])
+    _same_result(got, want, 1e-10 if name != "square_well_phase_diagram" else 1e-9, name)
+    if name not in ("multivariable_extrapolation", "square_well_notebook"):  # their checks do not hold on in-repo data
+        mod.check(got)

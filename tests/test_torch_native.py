@@ -115,3 +115,30 @@ def test_rejected(tmp_path, body, parser):
 def test_missing_file_raises(tmp_path):
     with pytest.raises(OSError):
         PN.read_table(str(tmp_path / "absent.dat"))
+
+
+def test_cold_build_from_threads(tmp_path, monkeypatch):
+    """The host flood's threads reach the loader together on a cold build
+    directory: every one gets the module, built once (before the lock, the
+    second thread's rename found the first's temporary file gone and the
+    loader cached the failure)."""
+    import threading
+
+    monkeypatch.setattr(PN, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(PN, "_cache", {})
+    got = []
+
+    def load():
+        try:
+            got.append(PN._load("imaging.cpp", "_fhmc_imaging") is not False)
+        except Exception as e:  # noqa: BLE001 - the failure is the finding
+            got.append(type(e).__name__)
+
+    threads = [threading.Thread(target=load) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert got == [True] * 8
+    assert len(list(tmp_path.glob("_fhmc_imaging_*.so"))) == 1 and not list(tmp_path.glob("*.tmp"))

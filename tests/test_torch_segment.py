@@ -146,3 +146,51 @@ def test_hist_level_thermo(complete):
 def test_stencil_rejects_smooth_zero():
     with pytest.raises(ValueError, match="smooth must be >= 1"):
         TSg.stencil_flags(torch.zeros(2, 8, dtype=torch.float64), 0)
+
+
+def _batched_states(nspec, T=6):
+    """T states, each with its own lnPI and moments: JAX's reweight ->
+    temp_dmu_extrap (full moments) of the composite under vmap, over mu_1
+    values across its two-phase window and T betas."""
+    import jax.numpy as jnp
+
+    import fhmcanalysis_tpu.core.extrap as JE
+    import fhmcanalysis_tpu.core.ops as JO
+
+    d, _, _ = _composite(nspec)
+    d = dict(d, lnpi=janus_surfaces(N)[3] * 20.0)
+    tm, jm = TS.HistMeta(nspec=nspec, max_order=2, smooth=2, max_phases=P), JS.HistMeta(nspec=nspec, max_order=2, smooth=2, max_phases=P)
+    mus = np.linspace(-0.05, 0.05, T)
+    betas = np.linspace(0.98, 1.02, T)
+    dmu = jnp.zeros(nspec - 1)
+    states = jax.vmap(lambda mu, b: JE.temp_dmu_extrap(JO.reweight(JS.make_hist(**d), mu), jm, b, dmu, order=1))(mus, betas)
+    host = {f: np.asarray(getattr(states, f)) for f in ("lnpi", "mom", "op", "curr_mu", "curr_beta", "volume")}
+    return TS.Hist(**{k: torch.tensor(v) for k, v in host.items()}), tm, states, jm
+
+
+@pytest.mark.parametrize("nspec", [1, 2])
+def test_batched_thermo(nspec):
+    """thermo, phase_props and thermo_props of T states, each segmented and
+    integrated with its own moments, against JAX's under vmap; each row
+    against the one-state call."""
+    th, tm, jh, jm = _batched_states(nspec)
+    th2, tp = TSg.thermo(th, tm)
+    jh2, jp = jax.vmap(lambda h: JSg.thermo(h, jm))(jh)
+    _same(th2.lnpi, jh2.lnpi)
+    _pt_same(tp, jp)
+    assert bool(tp.valid.all()) and int(tp.n_phases.min()) >= 2
+    tprops = TSg.phase_props(tp, th.volume)
+    jprops = jax.vmap(JSg.phase_props)(jp, jh.volume)
+    for k in tprops:
+        _same(tprops[k], jprops[k], rel=True)
+    _, kp, kprops = TSg.thermo_props(th, tm)
+    _, jkp, jkprops = jax.vmap(lambda h: JSg.thermo_props(h, jm))(jh)
+    _pt_same(kp, jkp)
+    for k in kprops:
+        _same(kprops[k], jkprops[k], rel=True)
+    for t in range(th.lnpi.shape[0]):
+        one = TS.Hist(**{f.name: getattr(th, f.name)[t] for f in dataclasses.fields(th)})
+        _, op = TSg.thermo(one, tm)
+        for f in ("left", "right", "mask", "n_phases", "valid", "fe"):
+            assert torch.equal(getattr(tp, f)[t], getattr(op, f)), (t, f)
+        _same(tp.mom_avg[t], op.mom_avg, rel=True)

@@ -270,6 +270,21 @@ def test_batched_solves(state, jax_trace):
         assert len(fe) == 2 and abs(float(fe[0] - fe[1])) < 1e-4
 
 
+def test_batched_solves_at_256(state):
+    """test_batched_solves at the phase diagram's 256 betas: the states the
+    batch builds in one pass equal each target's own solve bit for bit
+    (every sum over the bins is its state's alone)."""
+    th, tm, _, _ = state
+    dmu = th.curr_mu[1:] - th.curr_mu[0]
+    betas = np.linspace(0.99, 1.01, 256)
+    out, mus, err, conv = TSV.find_phase_eq_state(th, tm, 1e-6, 5.0, beta=betas, dmu=dmu, order=1, min_width=2, extrapolate=True)
+    assert conv.all() and out.lnpi.shape == (256, th.nbins)
+    for i in (0, 97, 255):
+        one, mu1, err1, _ = TSV.find_phase_eq_state(th, tm, 1e-6, 5.0, beta=betas[i], dmu=dmu, order=1, min_width=2, extrapolate=True)
+        assert (float(mus[i]), float(err[i])) == (float(mu1), float(err1))
+        assert torch.equal(out.lnpi[i], one.lnpi) and torch.equal(out.mom[i], one.mom) and torch.equal(out.curr_mu[i], one.curr_mu)
+
+
 def _check_trace(got, want, mu_bar=1e-9):
     assert set(got) == set(want)
     for k in ("mask", "converged"):

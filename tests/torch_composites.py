@@ -575,3 +575,76 @@ def joint_class_oracle(jh_made, beta, mu_ref, mu_t, nnebr, max_peaks, pore_hist_
     ph.engine, ph.device = "numpy", None
     ph.data = {"hist": jh_made, "ln(PI)": x - (m + np.log(np.sum(np.exp(x[valid] - m)))), "mask": valid, "edge_idx": np.array(hd["bounds_idx"][:, 1], dtype=int)}
     return ph, ph.phase_average(nnebr=nnebr, max_peaks=max_peaks)
+
+
+# ---- the example workflows' inputs (examples/torch_*.py) ----
+
+# The binary ideal gas the combining-simulations, multivariable and
+# mutual-diffusion notebooks read (reference example/ntot/binary_ideal_gas,
+# not in the repository), in closed form: per temperature T and dMu_2 one
+# composite at mu_ref = (0, dMu_2), N_tot 0-400 in a box of V = 512,
+#   lnPI(N) = N ln(V (z_1 + z_2)) - ln N!,   z_1 = exp(beta mu_1),
+#   z_2 = KAPPA exp(beta mu_2),
+# moments the binomial moments of N_1 given N_tot with p = z_1/(z_1 + z_2),
+# N_2 = N_tot - N_1, U = 0.  The dMu_2 values are the keys
+# examples/multivariable_extrapolation.py reads.  KAPPA = (Lambda_1 /
+# Lambda_2)^3 = 1.01, species 2 a little heavier than species 1: with
+# equal species x_1 = 1/2 holds exactly on the grid row dMu_2 = 0 of
+# examples/mutual_diffusion.py, so its x_1 = 0.5 contour runs through grid
+# nodes, marching squares returns repeated points and the script's cubic
+# interp1d raises; simulated data is never exact there.  The scripts'
+# closed forms (x_1 = 1/(1 + exp(beta dMu_2)), P = (z_1 + z_2)/beta with
+# KAPPA = 1) then hold within 0.3% and 0.5%, inside their asserts.
+IDEAL_GAS = dict(V=512.0, N=401, max_order=3, T=(1.20, 1.00), dmu2=(-2.94, -1.10, 0.00, 1.10, 2.94), kappa=1.01)
+
+
+def _lgamma(x):
+    import math
+
+    x = np.asarray(x, dtype=np.float64)
+    return np.array([math.lgamma(v) for v in x.ravel()]).reshape(x.shape)
+
+
+def ideal_gas_composite(T: float, dmu2: float, V: float = IDEAL_GAS["V"], N: int = IDEAL_GAS["N"], max_order: int = IDEAL_GAS["max_order"], kappa: float = IDEAL_GAS["kappa"]) -> dict:
+    """The binary ideal gas at (T, dMu_2) as a ``read_composite`` dict."""
+    beta = 1.0 / T
+    z1, z2 = 1.0, kappa * np.exp(beta * dmu2)
+    p = z1 / (z1 + z2)
+    n = np.arange(N, dtype=np.float64)
+    lnpi = n * np.log(V * (z1 + z2)) - _lgamma(n + 1.0)
+    mo1 = max_order + 1
+    # <N_1^a N_2^b> over the binomial law of N_1 at each N_tot
+    pw = np.zeros((2 * max_order + 1, 2 * max_order + 1, N))
+    for t in range(N):
+        k = np.arange(t + 1, dtype=np.float64)
+        pmf = np.exp(_lgamma(t + 1.0) - _lgamma(k + 1.0) - _lgamma(t - k + 1.0) + k * np.log(p) + (t - k) * np.log1p(-p))
+        for a in range(2 * max_order + 1):
+            for b in range(2 * max_order + 1 - a):
+                pw[a, b, t] = np.sum(pmf * k**a * (t - k) ** b)
+    pw[0, 0] = 1.0
+    mom = np.zeros((2, mo1, 2, mo1, mo1, N))
+    for i, j, k, m in np.ndindex(2, mo1, 2, mo1):
+        a = (j if i == 0 else 0) + (m if k == 0 else 0)
+        mom[i, j, k, m, 0] = pw[a, j + m - a]
+    return {"history": "binary ideal gas, T = %.2f, dMu2 = %.2f" % (T, dmu2), "volume": float(V), "nspec": 2,
+            "max_order": int(max_order), "lnpi": lnpi, "op": np.arange(N, dtype=np.int64), "mom": mom}
+
+
+def ideal_gas_sources(T: float) -> dict:
+    """{dMu_2: read_composite dict} of the simulations at temperature T."""
+    return {d: ideal_gas_composite(T, d) for d in IDEAL_GAS["dmu2"]}
+
+
+def write_ideal_gas(root: str) -> str:
+    """The data tree root/T_%.2f/dMu2_%.2f/composite.nc of every temperature
+    (netCDF through the port's io, which needs h5py); returns root."""
+    import os
+
+    from fhmcanalysis_torch.io import write_composite
+
+    for T in IDEAL_GAS["T"]:
+        for d, raw in ideal_gas_sources(T).items():
+            path = os.path.join(root, "T_%.2f" % T, "dMu2_%.2f" % d)
+            os.makedirs(path, exist_ok=True)
+            write_composite(os.path.join(path, "composite.nc"), raw["lnpi"], raw["op"], raw["mom"], raw["volume"], 2, raw["max_order"], history=raw["history"])
+    return root

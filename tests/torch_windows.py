@@ -298,3 +298,69 @@ def patch_in_memory(fp, seq, offset=2, smooth=False, skip_hist=False):
     if abs(isum - 1.0) > 1.0e-10:
         raise AssertionError("patched PI sums to %r" % isum)
     return wins[end].to_composite(), worst[0], worst[1]
+
+
+# The example workflows' window trees (examples/torch_square_well_*.py;
+# the reference's trees are not in the repository).  SW_DIAGRAM stands in
+# for the test_sim tree of examples/square_well_phase_diagram.py: two
+# species, N_tot 0-30 (the 31 bins of the script's stand-in lnPI, which
+# replaces the patched one), moments to order 2, three windows.
+# SW_NOTEBOOK stands in for example/ntot/square_well/T_0.90 of
+# examples/square_well_notebook.py: one species, N_tot 0-572 in the 22
+# windows of ntot_window_scaling(572, 30, 22, 5), the n573 composite
+# tilted by beta * 4.03 * N so that at mu_ref = 0 it coexists at
+# mu* = -4.006, next to the script's guess of -3.94 (the published
+# -4.0254 is that tree's; its values are not this one's).
+SW_DIAGRAM = dict(N=31, nspec=2, max_order=2, seed=31, beta=1.0 / 1.5, mu0=(2.0, 2.0), bounds=((0, 12), (9, 22), (19, 30)))
+SW_NOTEBOOK = dict(N=573, nspec=1, max_order=2, seed=573, beta=1.0 / 0.90, mu0=(0.0,), windows=(572, 30, 22, 5), tilt=4.03)
+
+
+def sw_diagram_source() -> dict:
+    c = SW_DIAGRAM
+    return ntot_source(c["N"], c["nspec"], c["max_order"], c["seed"], c["beta"], c["mu0"])
+
+
+def sw_notebook_source() -> dict:
+    c = SW_NOTEBOOK
+    src = ntot_source(c["N"], c["nspec"], c["max_order"], c["seed"], c["beta"], c["mu0"])
+    lnpi = src["lnpi"] + c["beta"] * c["tilt"] * np.arange(c["N"])
+    return dict(src, lnpi=lnpi - logsumexp(lnpi))
+
+
+def sw_notebook_bounds() -> list:
+    """The notebook tree's 22 windows (the port's window scaling)."""
+    from fhmcanalysis_torch.win_patch import windows
+
+    return windows.ntot_window_scaling(*SW_NOTEBOOK["windows"])
+
+
+def write_sw_diagram(root: str) -> str:
+    write_fhmc(root, sw_diagram_source(), SW_DIAGRAM["bounds"], seed=SW_DIAGRAM["seed"])
+    return root
+
+
+def write_sw_notebook(root: str) -> str:
+    write_fhmc(root, sw_notebook_source(), sw_notebook_bounds(), seed=SW_NOTEBOOK["seed"])
+    return root
+
+
+def example_inputs(name: str, tmp: str):
+    """The in-memory inputs of example workflow ``name``
+    (examples/torch_<name>.py ``run``), for a machine without h5py: a
+    tree written under ``tmp``, discovered, gated (trust=True) and patched
+    in memory as the workflow patches it; the binary isopleth's fixture,
+    the n31 composite at max_order 2; the binary ideal gas at T = 1.20
+    ({dMu_2: composite}), or at both temperatures ({T: {dMu_2: ...}})."""
+    if name in ("square_well_phase_diagram", "square_well_notebook"):
+        from fhmcanalysis_torch.win_patch import fhmc_equil, fhmc_patch
+
+        diagram = name == "square_well_phase_diagram"
+        root = (write_sw_diagram if diagram else write_sw_notebook)(os.path.join(tmp, name))
+        seq = fhmc_equil.test_nebr_equil(fhmc_patch.get_patch_sequence(root), 10.0 if diagram else 3.0, os.path.join(tmp, name + "_maxEq"), trust=True)
+        return patch_in_memory(fhmc_patch, seq, offset=1, smooth=not diagram)[0]
+    if name == "binary_isopleth":
+        d, meta, _ = TC.cell("n31", 1, max_order=2)
+        return TC.composite_raw(d, meta["nspec"], 2)
+    if name == "multivariable_extrapolation":
+        return {T: TC.ideal_gas_sources(T) for T in TC.IDEAL_GAS["T"]}
+    return TC.ideal_gas_sources(1.20)
