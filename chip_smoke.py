@@ -31,7 +31,7 @@ Phases (each raises on failure, so any failure exits non-zero):
      sources, a partial last block) at <=4,096 cells per case, at the G
      its rule picks and forced to every G: valid and fail_code equal,
      floats within 1e-10 abs on ok cells;
-  4. main paths, each with its launch counter reset just before and read
+  4. main paths, each with its launch counter read just before and again
      just after: pipeline.mu_sweep_thermo(engine="auto") on the N=573
      (B=524,288) and N=31 (B=2,097,152) cells;
      pipeline.mu_beta_sweep_thermo(engine="auto") on mb31 at orders 1 and
@@ -54,8 +54,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      and at the main-path grid -- the measurement behind the rules; then one torch.profiler
      window over three mb31_o2 "auto" calls:
      K2's share of device time and the idle share of the window;
-  5b. coexistence, each path with its launch counter reset just before
-     and read just after: solve.trace_coexistence(engine="auto") on coex573
+  5b. coexistence, each path with its launch counter read just before
+     and again just after: solve.trace_coexistence(engine="auto") on coex573
      (256 betas on the n573 composite, K2's paired mode) and
      solve.find_phase_eq_state over 256 mu guesses on n31 (K1): every beta
      converged to |dF.E./kT| <= lnZ_tol with two phases, the same
@@ -88,7 +88,7 @@ Phases (each raises on failure, so any failure exits non-zero):
      of fhmc_patch._drive_patch in memory (no h5py here) at offset 1,
      smooth False and True -> histogram.from_composite(device=card) ->
      pipeline.mu_sweep_thermo(engine="auto") on the n573-sized mu grid,
-     K1's launch counter reset just before and read just after: the native
+     K1's launch counter read just before and again just after: the native
      parser equal to numpy's on every table, both trees patched alike, lnPI
      within 1e-10 and moments within 1e-12 relative of the source, K1 on
      the patched composite equal in segmentation and within 1e-10 to K1 on
@@ -96,7 +96,7 @@ Phases (each raises on failure, so any failure exits non-zero):
      median of 3) and the host CPU model in a {"win_patch": ...} line;
   5e. parallel/ over grid_mesh() (the machine's cards) and over four
      shards of card 0 (grid_mesh(4, devices=[card] * 4)), each route with
-     its launch counter set to 0 just before it and read just after:
+     its launch counter read just before it and again just after:
      shard_map_mu_sweep on n573 (K1), sharded_mu_beta_sweep on mb31 at
      order 1 (K2), sharded_trace_coexistence on coex573 (K2's paired
      mode), sharded_make_grid on iso31_o1 (834 mu_1 in uneven blocks) and
@@ -111,8 +111,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      {"parallel": ...} line;
   5f. capacity: the kernels' wide builds (64 phase slots, and K1's 6
      per-phase sums for nspec 3-4; cuda_sweep.capacity / accumulators pick
-     them) through the entry points, each launch counter set to 0 just
-     before the path and read just after, each against its plain version
+     them) through the entry points, each launch counter read just
+     before the path and again just after, each against its plain version
      on the card (segmentation, ok and fail_code equal; floats within
      1e-10): mu_sweep_thermo on multi573 (N=573, a rippled surface with
      11-25 maxima) over 524,288 mu at 8 (every point overflows), 16, 32 and
@@ -138,8 +138,8 @@ Phases (each raises on failure, so any failure exits non-zero):
   5g. the reference-notebook workflows of examples/torch_*.py, each run on
      the card with in-memory inputs (tests/torch_windows.example_inputs:
      the square-well trees patched in memory, the n31 fixture, the binary
-     ideal gas in closed form) with the launch counters set to 0 just
-     before and read just after: the phase diagram (K2's paired mode), the
+     ideal gas in closed form) with the launch counters read just
+     before and again just after: the phase diagram (K2's paired mode), the
      binary isopleth, combining simulations and mutual diffusion (K3), the
      multivariable extrapolation and the square-well notebook (the class
      path, no kernel); each against engine="torch" on the card (or, with
@@ -225,6 +225,14 @@ CUTOFF = 10.0  # the isopleth class's is_safe / edge cutoff
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
 EXP_OPS = 26
+
+
+def launch_count(kernel):
+    """Launches of kernel "k1", "k2" or "k3" this process so far (the
+    program's counters)."""
+    from fhmcanalysis_torch.utils import profiling
+
+    return profiling.counters().get(f"launches.{kernel}", 0)
 
 
 def log(*a):
@@ -413,13 +421,17 @@ class Ctx:
             flood, table = flood.result(), table.result()
         log(f"build: {', '.join(mod.NAME for mod in libs)} ready in {time.perf_counter() - t0:.1f} s; native flood (native/imaging.cpp, g++) {'built' if flood else 'not built'}; "
             f"native table reader (native/fast_table.cpp, g++) {'built' if table else 'not built'}")
+        from fhmcanalysis_torch.utils import profiling
+
+        n = getattr(profiling, "counters", dict)()  # a tree from before the counters (--dump run from an older tree) has none
+        log(f"  kernel libraries: {n.get('kernel.builds', 0)} built in {n.get('kernel.build_s', 0.0):.1f} s of nvcc (summed over the parallel builds), "
+            f"{n.get('kernel.loads', 0)} loaded and checked in {n.get('kernel.load_s', 0.0):.3f} s")
         report = {}
         slots = getattr(self.cuda_sweep, "slot_bytes", None)  # None: a tree from before the capacities
         for mod in libs:
             info = self._build.BUILD_INFO.get(mod.NAME, {})
             rows = ptxas_report(info.get("log", ""))
             report[mod.NAME] = [dict(kernel=k, lanes=g, capacity=c, sums=a, registers=r, stack=st, spill_stores=sp, smem=sm) for k, g, c, a, r, st, sp, sm in rows]
-            log(f"  {mod.NAME}: nvcc {info.get('seconds', 0.0):.1f} s")
             for k, g, c, a, r, st, sp, sm in rows:
                 log(f"  ptxas: {k}" + (f" G={g}" if g else "") + (f" cap={c}" if c else "") + (f" sums={a}" if a else "") +
                     f": {r} registers, {st} bytes stack, {sp} bytes spill stores, {sm} bytes smem")
@@ -1092,9 +1104,9 @@ def win_patch_phase(C, worst):
             def k1_call():
                 return sweep(histogram.from_composite(comp, c["beta"], list(c["mu0"]), smooth=c["smooth"], device=C.dev))
 
-            cuda_sweep.sweep_thermo.launches = 0
+            start_k1 = launch_count("k1")
             got = k1_call()
-            launches = cuda_sweep.sweep_thermo.launches
+            launches = launch_count("k1") - start_k1
             if launches < 1:
                 raise AssertionError(f"win800 smooth={smooth}: the main path launched K1 {launches} times")
             if got["fe"].shape != (c["B"], c["max_phases"]) or not bool(torch.isfinite(got["fe"][got["mask"]]).all()):
@@ -1203,14 +1215,14 @@ def parallel_phase(C):
     res = {name: dict(shape=mesh.shape, devices=[str(d) for d in mesh.device_list()]) for name, mesh in meshes.items()}
     cells = {cuda_sweep.NAME: {}, cuda_mb.NAME: {}, cuda_iso.NAME: {}}
 
-    def driven(counter, fn):
-        """fn() with the counter set to 0 just before and read just after;
+    def driven(kernel, fn):
+        """fn() and the launches of kernel ("k1", "k2", "k3") it made;
         the current device must not move."""
         before = torch.cuda.current_device()
-        counter.launches = 0
+        start = launch_count(kernel)
         out = fn()
         torch.cuda.synchronize()
-        n = counter.launches
+        n = launch_count(kernel) - start
         if torch.cuda.current_device() != before:
             raise AssertionError(f"the sharded call left card {torch.cuda.current_device()} current, not {before}")
         return out, n
@@ -1253,7 +1265,7 @@ def parallel_phase(C):
 
         # K1: the mu sweep on n573
         single = pipeline.mu_sweep_thermo(h573, m573, mus573)
-        (got, fe_min), n = driven(cuda_sweep.sweep_thermo, lambda: parallel.shard_map_mu_sweep(mesh, h573, m573, mus573))
+        (got, fe_min), n = driven("k1", lambda: parallel.shard_map_mu_sweep(mesh, h573, m573, mus573))
         B = mus573.shape[0]
         lanes = [cuda_sweep.lanes_per_point(h573.nbins, b, n_sm) for b in sizes(B, k)]
         g1 = cuda_sweep.lanes_per_point(h573.nbins, B, n_sm)
@@ -1269,7 +1281,7 @@ def parallel_phase(C):
 
         # K2's product mode: the (mu, beta, dMu) sweep on mb31 at order 1
         single = pipeline.mu_beta_sweep_thermo(hmb, mmb, musmb, betas, dmus, order=1)
-        (got, _), n = driven(cuda_mb.mb_sweep_thermo, lambda: parallel.sharded_mu_beta_sweep(mesh, hmb, mmb, musmb, betas, dmus, order=1))
+        (got, _), n = driven("k2", lambda: parallel.sharded_mu_beta_sweep(mesh, hmb, mmb, musmb, betas, dmus, order=1))
         M, A = musmb.shape[0], len(betas)
         lanes = [cuda_mb.lanes_per_point(hmb.nbins, b * A, n_sm) for b in sizes(M, k)]
         g1 = cuda_mb.lanes_per_point(hmb.nbins, M * A, n_sm)
@@ -1282,7 +1294,7 @@ def parallel_phase(C):
 
         # K2's paired mode: the coexistence trace on coex573, betas split
         single = SV.trace_coexistence(hco, mco, betas_co, guess, **kwco)
-        got, n = driven(cuda_mb.mb_sweep_thermo, lambda: parallel.sharded_trace_coexistence(mesh, hco, mco, betas_co, guess, **kwco))
+        got, n = driven("k2", lambda: parallel.sharded_trace_coexistence(mesh, hco, mco, betas_co, guess, **kwco))
         T = len(betas_co)
         lanes = [cuda_mb.lanes_per_point(hco.nbins, 5 * b, n_sm) for b in sizes(T, k)]  # a step: 5 candidates a beta
         g1 = cuda_mb.lanes_per_point(hco.nbins, 5 * T, n_sm)
@@ -1298,7 +1310,7 @@ def parallel_phase(C):
             keys = ("Z", "density", "F.E./kT", "valid", "fail_code")
             iso.make_grid(*grid)
             single = {key: iso.data[key].copy() for key in keys}
-            _, n = driven(cuda_iso.iso_grid, lambda: parallel.sharded_make_grid(mesh, iso, *grid))
+            _, n = driven("k3", lambda: parallel.sharded_make_grid(mesh, iso, *grid))
             NX, NY, N = g["NX"], g["NY"], srcs[0].nbins
             cols = sizes(NX, k)
             lanes = [cuda_iso.lanes_per_cell(N, NY * b, n_sm) for b in cols]
@@ -1394,8 +1406,8 @@ def once_ms(fn):
 def capacity_k3(C, note, cells):
     """Phase 5f's K3 cells: make_grid on overflow31 (iso31's 301 x 834
     cells) and overflow1400 (iso1400's 128 x 128 at N = 1400) at 8, 16 and
-    64 slots with the sources' _meta raised, K3's launch counter set to 0
-    just before and read just after, held against the plain version; at 16
+    64 slots with the sources' _meta raised, K3's launch counter read
+    just before and again just after, held against the plain version; at 16
     and 64 the bare wrapper forced to G = 1 and 32 too, and its x_m area
     counted on the host against the library's.  Fills cells {name: run},
     calls note(worst) per comparison; returns {(cell, G): x_m bytes}."""
@@ -1414,10 +1426,10 @@ def capacity_k3(C, note, cells):
                 hh._meta = lambda max_phases=P, _m=type(hh)._meta, _h=hh: _m(_h, max_phases)
             iso = C.iso_cls(hs, beta, order=1)
             cname = f"{oname} P={P}"
-            cuda_iso.iso_grid.launches = 0
+            start_k3 = launch_count("k3")
             iso.make_grid(*grid)
             torch.cuda.synchronize()
-            launches = cuda_iso.iso_grid.launches
+            launches = launch_count("k3") - start_k3
             got = tuple(torch.as_tensor(np.asarray(iso.data[k]), device=dev) for k in ("Z", "density", "F.E./kT", "valid", "fail_code"))
             if launches != 1 or got[4].shape != (NY, NX):
                 raise AssertionError(f"capacity K3 {cname}: {launches} launches, grid {tuple(got[4].shape)}")
@@ -1495,8 +1507,8 @@ def layouts_k3_wide(C, layout):
 
 def capacity_phase(C, ptxas):
     """Phase 5f: the kernels' wide builds (64 phase slots; K1's 6 per-phase
-    sums for nspec 3-4) through the entry points, each launch counter set
-    to 0 just before the path and read just after, each run held against
+    sums for nspec 3-4) through the entry points, each launch counter read
+    just before the path and again just after, each run held against
     its plain version on the card (segmentation, K3's ok and fail_code
     equal; floats within 1e-10): K1 over multi573's 524,288 mu at 8, 16, 32
     and 64 slots and over tern573 / quat573 at 4 (None and janus); K2 over
@@ -1537,11 +1549,11 @@ def capacity_phase(C, ptxas):
         mus = torch.as_tensor(mus_np, device=dev)
         B, N, S = mus.shape[0], h.nbins, meta.nspec
         cname = f"{name} P={P}" + (" janus" if collect else "")
-        cuda_sweep.sweep_thermo.launches = 0
+        start_k1 = launch_count("k1")
         torch.cuda.reset_peak_memory_stats()
         out = pipeline.mu_sweep_thermo(h, meta, mus, props=True, collect=collect)
         torch.cuda.synchronize()
-        launches = cuda_sweep.sweep_thermo.launches
+        launches = launch_count("k1") - start_k1
         k_peak = torch.cuda.max_memory_allocated() / 2**30
         if launches != 1:
             raise AssertionError(f"capacity {cname}: mu_sweep_thermo launched K1 {launches} times")
@@ -1583,11 +1595,11 @@ def capacity_phase(C, ptxas):
         M, N, S = mus.shape[0], h.nbins, meta.nspec
         for order in (1, 2):
             cname = f"multi573 P={P} o{order}"
-            cuda_mb.mb_sweep_thermo.launches = 0
+            start_k2 = launch_count("k2")
             torch.cuda.reset_peak_memory_stats()
             out = pipeline.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order, props=True)
             torch.cuda.synchronize()
-            launches = cuda_mb.mb_sweep_thermo.launches
+            launches = launch_count("k2") - start_k2
             k_peak = torch.cuda.max_memory_allocated() / 2**30
             if launches != 1 or out["fe"].shape != (M, A, P):
                 raise AssertionError(f"capacity K2 {cname}: {launches} launches, fe {tuple(out['fe'].shape)}")
@@ -1623,9 +1635,9 @@ def capacity_phase(C, ptxas):
     betas = np.linspace(0.98, 1.02, 256)
     dmu = h.curr_mu[1:] - h.curr_mu[0]
     solve = lambda engine="auto": SV.find_phase_eq_state(h, meta, kw["lnZ_tol"], 5.6, beta=betas, dmu=dmu, order=1, min_width=kw["min_width"], extrapolate=True, engine=engine)  # noqa: E731
-    cuda_mb.mb_sweep_thermo.launches = 0
+    start_k2 = launch_count("k2")
     (st, mus, err, conv), a_ms = once_ms(solve)
-    launches = cuda_mb.mb_sweep_thermo.launches
+    launches = launch_count("k2") - start_k2
     (_, mus_p, err_p, conv_p), p_ms = once_ms(lambda: solve("torch"))
     d_mu = float((mus - mus_p).abs().max())
     if launches < 2 or not bool(conv.all()) or not torch.equal(conv, conv_p) or not d_mu <= 1e-9:
@@ -1771,8 +1783,8 @@ def host_once(fn):
 def workflows_phase(C):
     """Phase 5g: the reference-notebook workflows of examples/torch_*.py on
     the card with in-memory inputs (tests/torch_windows.example_inputs: no
-    h5py here), each with the launch counters set to 0 just before its run
-    and read just after, held against engine="torch" (the workflows on K2
+    h5py here), each with the launch counters read just before its run
+    and again just after, held against engine="torch" (the workflows on K2
     and K3) or, where the path has no kernel, the same run on the CPU;
     the batched phase-diagram solve at coex573 and coex31 P = 16 (256
     betas each): its states against the per-target loop and both times;
@@ -1790,16 +1802,15 @@ def workflows_phase(C):
     sys.path.insert(0, os.path.join(ROOT, "examples"))
     import torch_example_io as ex
 
-    names = {cuda_sweep.NAME: cuda_sweep.sweep_thermo, cuda_mb.NAME: cuda_mb.mb_sweep_thermo, cuda_iso.NAME: cuda_iso.iso_grid}
+    names = {cuda_sweep.NAME: "k1", cuda_mb.NAME: "k2", cuda_iso.NAME: "k3"}
     cells = {n: {} for n in names}
     worst_k = {n: 0.0 for n in names}
     rec = {"workflows": {}, "batched_solve": {}, "production": {}}
 
     def counted(fn):
-        for k in names.values():
-            k.launches = 0
+        start = {n: launch_count(k) for n, k in names.items()}
         out, ms = host_once(fn)
-        return out, ms, {n: k.launches for n, k in names.items()}
+        return out, ms, {n: launch_count(k) - start[n] for n, k in names.items()}
 
     with tempfile.TemporaryDirectory(prefix="workflows_") as tmp:
         for name in WORKFLOWS:
@@ -2131,10 +2142,10 @@ def run():
         d, mk, mus_np = TC.cell(cname)
         h, meta = hist(d), state.HistMeta(**mk)
         mus = torch.as_tensor(mus_np, device=dev)
-        cuda_sweep.sweep_thermo.launches = 0
+        start_k1 = launch_count("k1")
         out = pipeline.mu_sweep_thermo(h, meta, mus, props=True)
         torch.cuda.synchronize()
-        launches = cuda_sweep.sweep_thermo.launches
+        launches = launch_count("k1") - start_k1
         B = mus.shape[0]
         if launches < 1:
             raise AssertionError(f"{cname}: the main path launched the kernel {launches} times")
@@ -2175,10 +2186,10 @@ def run():
     M, A = mus.shape[0], betas.shape[0]
     for order in MB_ORDERS:
         cname = f"mb31_o{order}"
-        cuda_mb.mb_sweep_thermo.launches = 0
+        start_k2 = launch_count("k2")
         out = pipeline.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order, props=True)
         torch.cuda.synchronize()
-        launches = cuda_mb.mb_sweep_thermo.launches
+        launches = launch_count("k2") - start_k2
         if launches < 1:
             raise AssertionError(f"{cname}: the main path launched K2 {launches} times")
         if out["fe"].shape != (M, A, meta.max_phases) or out["x_i"].shape != (M, A, meta.max_phases, meta.nspec):
@@ -2223,10 +2234,10 @@ def run():
     iso_runs = {}
     for cname, gname, order in ISO_CELLS:
         g, iso, grid, srcs, mk, lr, wts, mu1_v, dmu2_v = C.iso_main(gname, order)
-        cuda_iso.iso_grid.launches = 0
+        start_k3 = launch_count("k3")
         Z, (X, Y) = iso.make_grid(*grid)
         torch.cuda.synchronize()
-        launches = cuda_iso.iso_grid.launches
+        launches = launch_count("k3") - start_k3
         if launches < 1:
             raise AssertionError(f"{cname}: the main path launched K3 {launches} times")
         NY, NX = g["NY"], g["NX"]
@@ -2381,10 +2392,11 @@ def run():
     d, mk, betas, guess, kw = TC.coex_grid()
     h, meta = hist(d), state.HistMeta(**mk)
     T, lnz2 = betas.shape[0], kw["lnZ_tol"] ** 2
-    cuda_mb.mb_sweep_thermo.launches = 0
+    start_k2, start = launch_count("k2"), prof_mod.counters()
     out = SV.trace_coexistence(h, meta, betas, guess, **kw)
     torch.cuda.synchronize()
-    launches = cuda_mb.mb_sweep_thermo.launches
+    launches = launch_count("k2") - start_k2
+    steps, syncs = (prof_mod.counters().get(k, 0) - start.get(k, 0) for k in ("solver.steps", "host_syncs"))
     if launches < 3:
         raise AssertionError(f"coex573: the main path launched K2 {launches} times (the start, the steps and the properties need 3 or more)")
     P = meta.max_phases
@@ -2417,17 +2429,17 @@ def run():
     worst_coex = compare(at_k, at_p, True, "coex573 properties at mu_star")
     note(worst_coex, worst_mb)
     d_props = {k: float(torch.where(out["mask"][..., None] if out[k].dim() == 3 else out["mask"], (out[k] - ref[k]).abs(), 0.0).max()) for k in ("fe",) + PROPS[1:]}
-    log(f"coexistence coex573: N={h.nbins} betas={T} K2 launches={launches} converged {int(out['converged'].sum())}/{T} worst err^2 {float(out['err'].max()):.3e} (|dF.E.| <= {float(out['err'].max()) ** 0.5:.3e}) | "
+    log(f"coexistence coex573: N={h.nbins} betas={T} K2 launches={launches} Nelder-Mead steps={steps} host syncs={syncs} converged {int(out['converged'].sum())}/{T} worst err^2 {float(out['err'].max()):.3e} (|dF.E.| <= {float(out['err'].max()) ** 0.5:.3e}) | "
         f"against engine='torch': converged equal, mu_star within {d_mu:.3e}, properties at the same mu_star within", json.dumps({k: float(f"{v:.3e}") for k, v in worst_coex.items()}),
         "| the two traces' properties apart by", json.dumps({k: float(f"{v:.3e}") for k, v in d_props.items()}))
 
     # K1: find_phase_eq_state over a batch of mu guesses
     d31c, mk31c, guesses, kw31 = TC.coex31_guesses()
     h31c, meta31c = hist(d31c), state.HistMeta(**mk31c)
-    cuda_sweep.sweep_thermo.launches = 0
+    start_k1 = launch_count("k1")
     st31, mus31, err31, conv31 = SV.find_phase_eq_state(h31c, meta31c, kw31["lnZ_tol"], guesses, min_width=kw31["min_width"])
     torch.cuda.synchronize()
-    launches31 = cuda_sweep.sweep_thermo.launches
+    launches31 = launch_count("k1") - start_k1
     if launches31 < 2:
         raise AssertionError(f"coex31: find_phase_eq_state launched K1 {launches31} times")
     _, mus31_p, err31_p, conv31_p = SV.find_phase_eq_state(h31c, meta31c, kw31["lnZ_tol"], guesses, min_width=kw31["min_width"], engine="torch")

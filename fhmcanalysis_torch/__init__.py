@@ -17,7 +17,7 @@ written in CUDA C++ for Hopper (``csrc/sweep_thermo.cu``,
 ``csrc/thermo_tail.cuh``; built at first use by ``_build.py``); and the
 host class shells ``histogram.ntot`` / ``histogram.n1`` with their netCDF
 reader and writer (``io``, which imports ``h5py`` only when a file is
-read or written), with ``utils.profiling`` for traces and timers; and the
+read or written), with ``utils.profiling`` for traces, spans and counters; and the
 2-D surface path: ``two_dim.pore_state_sweep`` over slit-pore lnPI(h, N_tot)
 surfaces and ``two_dim.joint_state_sweep`` over binary lnPI(N_1, N_tot)
 surfaces, on ``core.segment2d`` (surface build, a device watershed and the
@@ -36,6 +36,13 @@ single-device call and its kernel, behind ``make_grid(mesh=...)`` and the
 Tensors live on the CUDA card unless the caller passes ``device="cpu"``.
 Importing the package needs neither ``nvcc`` nor a GPU.
 """
+
+import time as _time
+
+# the package's import is timed from here to its last line (utils.profiling
+# counter setup.import_s); torch's own import counts too where the caller
+# has not imported torch first
+_T_IMPORT = _time.perf_counter()
 
 __version__ = "0.1.0"
 
@@ -68,3 +75,5 @@ __all__ = [
     "utils",
     "win_patch",
 ]
+
+utils.profiling.add("setup.import_s", _time.perf_counter() - _T_IMPORT)

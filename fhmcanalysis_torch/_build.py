@@ -18,6 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from .utils import profiling
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -25,7 +27,7 @@ BUILD_DIR = _PKG / "_build"
 # product and sum as the plain PyTorch versions do
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false", "--ptxas-options=-v", "-shared", "-Xcompiler", "-fPIC")
 
-# seconds and compiler output of the builds this process ran, by name
+# the compiler output of the builds this process ran, by name
 BUILD_INFO: dict = {}
 
 
@@ -47,16 +49,31 @@ def library_path(name: str) -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, declare) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed, with
+    ``declare(lib)`` run on it (its C signatures and capacity checks).  The
+    build's seconds go to the counters ``kernel.builds`` / ``kernel.build_s``
+    and the rest of the load's to ``kernel.loads`` / ``kernel.load_s``
+    (utils.profiling)."""
+    t0 = time.perf_counter()
     so = library_path(name)
+    build_s = None
     if not so.exists():
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {name}.cu:\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, so)
-        BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "log": proc.stdout + proc.stderr}
-    return ctypes.CDLL(str(so))
+        build_s = time.perf_counter() - t1
+        BUILD_INFO[name] = {"log": proc.stdout + proc.stderr}
+    lib = ctypes.CDLL(str(so))
+    declare(lib)
+    load_s = time.perf_counter() - t0 - (build_s or 0.0)
+    if build_s is not None:
+        profiling.add("kernel.builds")
+        profiling.add("kernel.build_s", build_s)
+    profiling.add("kernel.loads")
+    profiling.add("kernel.load_s", load_s)
+    return lib

@@ -35,6 +35,7 @@ from ..core import cuda_iso, cuda_sweep, ops, pipeline, segment
 from ..core.state import HistMeta
 from ..histogram import ntot as gch
 from ..parallel.mesh import _blocks, _on, replicate
+from ..utils import profiling
 
 __all__ = [
     "isopleth",
@@ -114,6 +115,7 @@ def _get_most_stable_phase(hist):
 # XLA engine and against the port's own literal per-cell composition.
 
 
+@profiling.spanned("fhmc.prologue.iso")
 def _iso_prologue(sources, meta: HistMeta, mu1_v, dmu2_v, lr, wts, beta_target, order: int, cutoff: float) -> dict:
     """The tensors both engines read, in cuda_iso's layout, for the W
     sources that ``lr`` names (renumbered 0..W-1 in ``lr``): each source's
@@ -327,6 +329,7 @@ class isopleth(object):
 
     # ------------------------------------------------------------------
 
+    @profiling.spanned("fhmc.prologue.iso_bracket")
     def _bracket(self, dmu2_v, m):
         """Bracketing indices + complementary distance^m weights per row
         (gc_binary.pyx:225-240)."""
@@ -360,6 +363,7 @@ class isopleth(object):
         ny = int(np.ceil((dmu2_bounds[1] - dmu2_bounds[0]) / delta[1])) + 1
         return np.linspace(mu1_bounds[0], mu1_bounds[1], nx), np.linspace(dmu2_bounds[0], dmu2_bounds[1], ny)
 
+    @profiling.spanned("fhmc.entry.make_grid")
     def make_grid(self, mu1_bounds, dmu2_bounds, delta, m=2.5, mu1_chunk=None, mesh=None, engine="auto", collect=None):
         """Compute the discretized 2D (mu_1, dmu_2) isopleth surface in one
         pass on the histograms' device (replaces gc_binary.pyx:355-476).
@@ -409,8 +413,11 @@ class isopleth(object):
                     s, metas, cols, dmu2_v, lr, wts,
                     self.meta["beta"], self.meta["order"], self.meta["cutoff"], collect=collect, engine=engine, mu1_chunk=mu1_chunk,
                 ))
-        for k, key in enumerate(("Z", "density", "F.E./kT", "valid", "fail_code")):
-            self.data[key] = np.concatenate([o[k].cpu().numpy() for o in outs], axis=1)
+        keys = ("Z", "density", "F.E./kT", "valid", "fail_code")
+        with profiling.span("fhmc.post.iso_copy"):
+            for k, key in enumerate(keys):
+                self.data[key] = np.concatenate([o[k].cpu().numpy() for o in outs], axis=1)
+        profiling.add("host_syncs", len(keys) * len(outs))
         return self.data["Z"], (self.data["X"], self.data["Y"])
 
     # the chunked variant of the reference is subsumed by the batched path

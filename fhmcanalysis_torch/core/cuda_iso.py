@@ -36,11 +36,11 @@ Layouts (built by ``binary.isopleth._iso_prologue``; W sources, nspec 2):
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from .. import _build
+from ..utils import profiling
 from .cuda_mb import n_groups, n_xrows
 from .cuda_sweep import CAPACITIES, MAX_PHASES, THREADS, capacity, check_capacities, check_lanes, slot_bytes, sm_count, stages_rows  # noqa: F401  (MAX_PHASES: the kernel's, as cuda_sweep's)
 
@@ -91,10 +91,8 @@ def lanes_per_cell(N: int, B: int, n_sm: int, max_phases: int = 8) -> int:
     return 1 if B >= g1_switch(N, n_sm, max_phases) else 32
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
-    lib = _build.load(NAME)
+def _declare(lib: ctypes.CDLL) -> None:
+    """Declare the library's C signatures and check its builds against this module."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.iso_grid_launch.argtypes = [i, p, i, i, i] + [p] * 11 + [i] * 10 + [ctypes.c_double] + [p] * 5
     lib.iso_grid_launch.restype = i
@@ -104,7 +102,11 @@ def _lib() -> ctypes.CDLL:
     lib.iso_grid_error_string.argtypes = [i]
     lib.iso_grid_error_string.restype = ctypes.c_char_p
     check_capacities(lib, NAME)
-    return lib
+
+
+def _lib() -> ctypes.CDLL:
+    """The built kernel library, loaded once, with its C signatures declared."""
+    return _build.load(NAME, _declare)
 
 
 def _source_bytes(N: int, order: int) -> int:
@@ -144,6 +146,7 @@ def xm_bytes(G: int, W: int, NX: int, NY: int, N: int, order: int, max_phases: i
     return area if fixed + area <= SMEM_OPTIN else 0
 
 
+@profiling.spanned("fhmc.launch.k3")
 def iso_grid(lnpi, op, xrows, krows, a, edge, mu, lr, wts, tg, volume, smooth: int, max_phases: int, order: int, cutoff: float, collect=None, *, _lanes=None, _xm=None):
     """Launch K3 for the NY x NX cells (mu[ix], row iy), b = iy * NX + ix.
 
@@ -221,8 +224,5 @@ def iso_grid(lnpi, op, xrows, krows, a, edge, mu, lr, wts, tg, volume, smooth: i
     )
     if rc != 0:
         raise RuntimeError(f"iso_grid kernel launch failed: {lib.iso_grid_error_string(rc).decode()} ({rc})")
-    iso_grid.launches += 1
+    profiling.add("launches.k3")
     return out["z"], out["rho"], out["fe"], out["ok"], out["code"]
-
-
-iso_grid.launches = 0  # kernel launches this process; chip_smoke.py resets and reads it

@@ -29,11 +29,11 @@ Two modes: the product of the M mu values and the A targets, and with
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from .. import _build
+from ..utils import profiling
 from .cuda_sweep import MAX_PHASES, capacity, check_capacities, check_lanes, lanes_per_point, sm_count  # noqa: F401  (MAX_PHASES: the kernel's, as cuda_sweep's)
 
 NAME = "mb_sweep_thermo"
@@ -48,17 +48,19 @@ def n_groups(S: int, order: int, first_order_mom: bool) -> int:
     return 1 + S + (0 if order < 2 or first_order_mom else (1 if S == 1 else 3))
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
-    lib = _build.load(NAME)
+def _declare(lib: ctypes.CDLL) -> None:
+    """Declare the library's C signatures and check its builds against this module."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mb_sweep_thermo_launch.argtypes = [i, p, i, i] + [p] * 9 + [i] * 10 + [p] * 11
     lib.mb_sweep_thermo_launch.restype = i
     lib.mb_sweep_thermo_error_string.argtypes = [i]
     lib.mb_sweep_thermo_error_string.restype = ctypes.c_char_p
     check_capacities(lib, NAME)
-    return lib
+
+
+def _lib() -> ctypes.CDLL:
+    """The built kernel library, loaded once, with its C signatures declared."""
+    return _build.load(NAME, _declare)
 
 
 def _check_tix(tix, mu, A: int, dev) -> None:
@@ -83,12 +85,16 @@ def _check_tix(tix, mu, A: int, dev) -> None:
         raise ValueError(f"mb_sweep_thermo: tix must be [M] = {tuple(mu.shape)} like mu, got {tuple(tix.shape)}")
     seen = getattr(tix, "_mb_range", None)
     if seen is None or seen[0] != tix._version:
-        lo, hi = torch.stack(torch.aminmax(tix)).tolist() if tix.numel() else (0, -1)
+        lo, hi = (0, -1)
+        if tix.numel():
+            lo, hi = torch.stack(torch.aminmax(tix)).tolist()
+            profiling.add("host_syncs")
         seen = tix._mb_range = (tix._version, lo, hi)
     if seen[1] < 0 or seen[2] >= A:
         raise ValueError(f"mb_sweep_thermo: tix spans [{seen[1]}, {seen[2]}], outside the {A} targets [0, {A})")
 
 
+@profiling.spanned("fhmc.launch.k2")
 def mb_sweep_thermo(
     lnpi, op, xrows, krows, volume, mu, a, tg, nspec: int, smooth: int, max_phases: int, order: int = 1,
     props: bool = True, first_order_mom: bool = False, collect=None, *, tix=None, _lanes=None,
@@ -183,8 +189,5 @@ def mb_sweep_thermo(
     )
     if rc != 0:
         raise RuntimeError(f"mb_sweep_thermo kernel launch failed: {lib.mb_sweep_thermo_error_string(rc).decode()} ({rc})")
-    mb_sweep_thermo.launches += 1
+    profiling.add("launches.k2")
     return out
-
-
-mb_sweep_thermo.launches = 0  # kernel launches this process; chip_smoke.py resets and reads it

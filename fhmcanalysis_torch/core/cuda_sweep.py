@@ -32,6 +32,7 @@ import functools
 import torch
 
 from .. import _build
+from ..utils import profiling
 
 NAME = "sweep_thermo"
 CAPACITIES = (8, 64)  # phase slots of the kernels' builds: csrc/thermo_tail.cuh SMALL, WIDE
@@ -133,10 +134,8 @@ def check_lanes(G) -> int:
     return G
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
-    lib = _build.load(NAME)
+def _declare(lib: ctypes.CDLL) -> None:
+    """Declare the library's C signatures and check its builds against this module."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.sweep_thermo_launch.argtypes = [i, p, i, i, i, p, p, p, p, p] + [i] * 7 + [p] * 11
     lib.sweep_thermo_launch.restype = i
@@ -147,7 +146,11 @@ def _lib() -> ctypes.CDLL:
     lib.sweep_thermo_max_nspec.restype = i
     if lib.sweep_thermo_max_nspec() != MAX_NSPEC:
         raise RuntimeError("sweep_thermo.cu's widest build disagrees with cuda_sweep.MAX_NSPEC")
-    return lib
+
+
+def _lib() -> ctypes.CDLL:
+    """The built kernel library, loaded once, with its C signatures declared."""
+    return _build.load(NAME, _declare)
 
 
 def check_capacities(lib, name: str) -> None:
@@ -159,6 +162,7 @@ def check_capacities(lib, name: str) -> None:
         raise RuntimeError(f"{name}: the library's widest build holds {top()} phase slots, cuda_sweep.MAX_PHASES says {MAX_PHASES}")
 
 
+@profiling.spanned("fhmc.launch.k1")
 def sweep_thermo(lnpi, op, keys, volume, a, smooth: int, max_phases: int, props: bool = True, collect=None, *, _lanes=None) -> dict:
     """Launch the fused sweep kernel for B state points.
 
@@ -251,8 +255,5 @@ def sweep_thermo(lnpi, op, keys, volume, a, smooth: int, max_phases: int, props:
     )
     if rc != 0:
         raise RuntimeError(f"sweep_thermo kernel launch failed: {lib.sweep_thermo_error_string(rc).decode()} ({rc})")
-    sweep_thermo.launches += 1
+    profiling.add("launches.k1")
     return out
-
-
-sweep_thermo.launches = 0  # kernel launches this process; chip_smoke.py resets and reads it

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import cuda_mb, cuda_sweep
 from .derivs import DerivEngine
 from .segment import COLLECT_TRANSFORMS, key_rows, thermo_core, thermo_core_props, thermo_key_core
@@ -71,6 +72,7 @@ def _check_engine(engine: str, collect, lanes=None):
         cuda_sweep.check_lanes(lanes)
 
 
+@profiling.spanned("fhmc.entry.mu_sweep")
 def mu_sweep_thermo(h: Hist, meta: HistMeta, mu_grid, props: bool = True, collect=None, engine: str = "auto", *, _lanes=None) -> dict:
     """Reweight + thermo over a 1-D grid of mu_1 values.
 
@@ -90,12 +92,12 @@ def mu_sweep_thermo(h: Hist, meta: HistMeta, mu_grid, props: bool = True, collec
     _check_engine(engine, collect, _lanes)
     if engine == "torch" or (engine == "auto" and h.device.type != "cuda"):
         return mu_sweep_body(h, meta, mu_grid, props, collect)
-    mu = torch.as_tensor(mu_grid, dtype=torch.float64, device=h.device)
-    keys = key_rows(h.mom, meta).contiguous()
-    return cuda_sweep.sweep_thermo(
-        h.lnpi.contiguous(), h.op.contiguous(), keys, h.volume, _reweight_coeff(h, mu).contiguous(),
-        meta.smooth, meta.max_phases, props, collect, _lanes=_lanes,
-    )
+    with profiling.span("fhmc.prologue.reweight"):
+        mu = torch.as_tensor(mu_grid, dtype=torch.float64, device=h.device)
+        keys = key_rows(h.mom, meta).contiguous()
+        a = _reweight_coeff(h, mu).contiguous()
+        lnpi, op = h.lnpi.contiguous(), h.op.contiguous()
+    return cuda_sweep.sweep_thermo(lnpi, op, keys, h.volume, a, meta.smooth, meta.max_phases, props, collect, _lanes=_lanes)
 
 
 # ---------------------------------------------------------------------
@@ -260,8 +262,10 @@ def _check_mb(meta: HistMeta, order: int) -> None:
 def _mb_inputs(h: Hist, meta: HistMeta, mu_grid, beta_grid, dmu_grid, order: int, props: bool, first_order_mom: bool):
     _check_mb(meta, order)
     mu = torch.atleast_1d(torch.as_tensor(mu_grid, dtype=torch.float64, device=h.device)).contiguous()
-    tg = _mb_targets(h, meta, beta_grid, dmu_grid, order)
-    xrows, krows = _mb_rows(h, meta, order, props, first_order_mom)
+    with profiling.span("fhmc.prologue.mb_targets"):
+        tg = _mb_targets(h, meta, beta_grid, dmu_grid, order)
+    with profiling.span("fhmc.prologue.mb_rows"):
+        xrows, krows = _mb_rows(h, meta, order, props, first_order_mom)
     return mu, _reweight_coeff(h, mu).contiguous(), xrows, krows, tg
 
 
@@ -283,6 +287,7 @@ def mu_beta_sweep_body(
     return _mb_shape(flat, M, A)
 
 
+@profiling.spanned("fhmc.entry.mb_sweep")
 def mu_beta_sweep_thermo(
     h: Hist,
     meta: HistMeta,

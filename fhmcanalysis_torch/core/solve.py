@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from . import cuda_mb, cuda_sweep, pipeline
 from .extrap import temp_dmu_extrap
 from .ops import reweight
@@ -198,32 +199,37 @@ def nelder_mead_1d(f, x0, xtol: float = 1e-4, ftol: float = 1e-4, maxiter: int =
         return (it < maxiter) & ~((torch.abs(b - a) <= xtol) & (torch.abs(fb - fa) <= ftol))
 
     while True:
-        for _ in range(k):
-            act = running(a, fa, b, fb, it)
-            # reflect worst (b) through best (a); expand; outside and inside
-            # contraction; shrink toward a
-            torch.sub(2.0 * a, b, out=cand[0])
-            torch.sub(3.0 * a, 2.0 * b, out=cand[1])
-            torch.sub(1.5 * a, 0.5 * b, out=cand[2])
-            torch.add(0.5 * a, 0.5 * b, out=cand[3])
-            torch.add(a, 0.5 * (b - a), out=cand[4])
-            fr, fe, fc, fcc, fs = f(cand)
-            xr, xe, xc, xcc, xs = cand
-            ex_x, ex_f = torch.where(fe < fr, xe, xr), torch.where(fe < fr, fe, fr)
-            out_x, out_f = torch.where(fc <= fr, xc, xs), torch.where(fc <= fr, fc, fs)
-            in_x, in_f = torch.where(fcc < fb, xcc, xs), torch.where(fcc < fb, fcc, fs)
-            outside = fr < fb
-            co_x, co_f = torch.where(outside, out_x, in_x), torch.where(outside, out_f, in_f)
-            expand = fr < fa
-            nb, nfb = torch.where(expand, ex_x, co_x), torch.where(expand, ex_f, co_f)
-            # re-sort the simplex, on running targets only
-            better = nfb < fa
-            na, nfa = torch.where(better, nb, a), torch.where(better, nfb, fa)
-            nb2, nfb2 = torch.where(better, a, nb), torch.where(better, fa, nfb)
-            a, fa = torch.where(act, na, a), torch.where(act, nfa, fa)
-            b, fb = torch.where(act, nb2, b), torch.where(act, nfb2, fb)
-            it = it + act.to(torch.int32)
-        if not bool(running(a, fa, b, fb, it).any()):
+        with profiling.span("fhmc.solver.steps"):
+            for _ in range(k):
+                act = running(a, fa, b, fb, it)
+                # reflect worst (b) through best (a); expand; outside and inside
+                # contraction; shrink toward a
+                torch.sub(2.0 * a, b, out=cand[0])
+                torch.sub(3.0 * a, 2.0 * b, out=cand[1])
+                torch.sub(1.5 * a, 0.5 * b, out=cand[2])
+                torch.add(0.5 * a, 0.5 * b, out=cand[3])
+                torch.add(a, 0.5 * (b - a), out=cand[4])
+                fr, fe, fc, fcc, fs = f(cand)
+                xr, xe, xc, xcc, xs = cand
+                ex_x, ex_f = torch.where(fe < fr, xe, xr), torch.where(fe < fr, fe, fr)
+                out_x, out_f = torch.where(fc <= fr, xc, xs), torch.where(fc <= fr, fc, fs)
+                in_x, in_f = torch.where(fcc < fb, xcc, xs), torch.where(fcc < fb, fcc, fs)
+                outside = fr < fb
+                co_x, co_f = torch.where(outside, out_x, in_x), torch.where(outside, out_f, in_f)
+                expand = fr < fa
+                nb, nfb = torch.where(expand, ex_x, co_x), torch.where(expand, ex_f, co_f)
+                # re-sort the simplex, on running targets only
+                better = nfb < fa
+                na, nfa = torch.where(better, nb, a), torch.where(better, nfb, fa)
+                nb2, nfb2 = torch.where(better, a, nb), torch.where(better, fa, nfb)
+                a, fa = torch.where(act, na, a), torch.where(act, nfa, fa)
+                b, fb = torch.where(act, nb2, b), torch.where(act, nfb2, fb)
+                it = it + act.to(torch.int32)
+        profiling.add("solver.steps", k)
+        with profiling.span("fhmc.solver.test"):
+            done = not bool(running(a, fa, b, fb, it).any())
+        profiling.add("host_syncs")
+        if done:
             break
     converged = (torch.abs(b - a) <= xtol) & (torch.abs(fb - fa) <= ftol)
     return a.reshape(shape), fa.reshape(shape), it.reshape(shape), converged.reshape(shape)
@@ -302,6 +308,7 @@ def _trace(h: Hist, meta: HistMeta, betas, mu_guess, lnZ_tol: float, dmu, order:
     return {"mu_star": mu_star, **{k: out[k] for k in keys}, "err": err, "converged": converged}, n_iter
 
 
+@profiling.spanned("fhmc.entry.trace_coexistence")
 def trace_coexistence(
     h: Hist,
     meta: HistMeta,

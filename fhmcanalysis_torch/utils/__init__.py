@@ -1,3 +1,3 @@
-from .profiling import Timer, force_completion, trace
+from .profiling import add, counters, span, spanned, trace
 
-__all__ = ["Timer", "force_completion", "trace"]
+__all__ = ["add", "counters", "span", "spanned", "trace"]

@@ -1,21 +1,42 @@
-"""Lightweight tracing and timing helpers.
+"""The port's tracing: a profiler window, spans at its layer boundaries,
+and counters.
 
-The reference has no observability beyond prints (SURVEY §5); these wrap
-torch.profiler for device traces and provide a wall-clock timer that
-waits for the device, the counterparts of the JAX package's
-``utils/profiling.py``.
+``trace(logdir)`` profiles the host and the CUDA device over a block and
+writes the timeline for Perfetto.  ``span(name)`` marks a range of host
+time inside the program (``fhmc.entry.*`` a whole call, then
+``fhmc.prologue.*``, ``fhmc.launch.*``, ``fhmc.post.*``, ``fhmc.solver.*``
+inside it); ``counters()`` is a snapshot of the program's counts since the
+process started (kernel launches, host syncs, solver steps, the kernel
+libraries' load and build seconds, the package's import seconds).
+
+A span records only while a torch profiler is recording: otherwise it is
+one shared no-op, and its cost one flag read.  It records a CPU range on
+the profiler's own clock, not a user annotation, so the profiler mirrors
+nothing of it onto the device's timeline: the device's operations stay
+the kernels and copies alone, and every idle gap between them falls inside
+the spans the host was in.  A counter is one dict add under a lock,
+always on.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
-import time
-from collections import defaultdict
+import threading
 
 import torch
 
-__all__ = ["trace", "Timer", "force_completion"]
+__all__ = ["trace", "span", "spanned", "add", "counters"]
+
+_recording = torch._C._autograd._profiler_enabled
+# a CPU range of the RecordFunction machinery, as torch's own operators
+# record; record_function's ranges are user annotations, which the
+# profiler copies onto the device's timeline
+_Range = torch._C._profiler._RecordFunctionFast
+_OFF = contextlib.nullcontext()
+_counts: dict = {}
+_adding = threading.Lock()  # kernel libraries may load on several threads at once
 
 
 @contextlib.contextmanager
@@ -24,7 +45,8 @@ def trace(logdir: str):
     block and write the timeline to ``logdir/trace.json`` (Chrome trace
     format, readable in Perfetto or TensorBoard); yields the
     ``torch.profiler.profile``, whose ``events()`` and ``key_averages()``
-    are readable after the block."""
+    are readable after the block.  The program's spans appear as
+    ``fhmc.*`` ranges on the host's thread."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
@@ -34,55 +56,43 @@ def trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-def _tensors(tree):
-    if torch.is_tensor(tree):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensors(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _tensors(v)
-    elif hasattr(tree, "__dataclass_fields__"):
-        for name in tree.__dataclass_fields__:
-            yield from _tensors(getattr(tree, name))
+def span(name: str):
+    """A context manager that records the block as the host range ``name``
+    while a profiler records, and does nothing otherwise."""
+    return _Range(name) if _recording() else _OFF
 
 
-def force_completion(tree) -> None:
-    """Wait until the work producing the tensors of a nested dict, list,
-    tuple or dataclass (a Hist) is done: synchronise each CUDA device they
-    lie on.  CPU tensors are complete when returned, so for them this does
-    nothing."""
-    for dev in {t.device for t in _tensors(tree) if t.is_cuda}:
-        torch.cuda.synchronize(dev)
+def spanned(name: str):
+    """Decorator: every call of the function is the span ``name``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            if not _recording():
+                return fn(*args, **kwargs)
+            with _Range(name):
+                return fn(*args, **kwargs)
+
+        return inner
+
+    return wrap
 
 
-class Timer:
-    """Accumulating section timer with forced device completion."""
+def add(name: str, n=1) -> None:
+    """Add n to the counter ``name``."""
+    with _adding:
+        _counts[name] = _counts.get(name, 0) + n
 
-    def __init__(self):
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
 
-    @contextlib.contextmanager
-    def section(self, name: str, result=None):
-        t0 = time.perf_counter()
-        yield
-        if result is not None:
-            force_completion(result)
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
+def counters() -> dict:
+    """A snapshot of every counter: name -> its total in this process.
 
-    def time(self, name: str, fn, *args, **kwargs):
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        force_completion(out)
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
-        return out
-
-    def report(self) -> str:
-        lines = ["%-30s %10s %8s" % ("section", "total_s", "calls")]
-        for k in sorted(self.totals, key=lambda k: -self.totals[k]):
-            lines.append("%-30s %10.4f %8d" % (k, self.totals[k], self.counts[k]))
-        return "\n".join(lines)
+    ``launches.k1`` / ``k2`` / ``k3``: kernel launches; ``host_syncs``:
+    reads of a tensor's value back to the host by the program's own code;
+    ``solver.steps``: Nelder-Mead steps; ``kernel.loads`` /
+    ``kernel.load_s``: kernel libraries loaded and checked, and the seconds
+    that took; ``kernel.builds`` / ``kernel.build_s``: the same for their
+    nvcc builds; ``setup.import_s``: seconds to import the package (torch
+    already imported).  A counter nothing has moved is absent."""
+    with _adding:
+        return dict(_counts)

@@ -51,6 +51,7 @@ import fhmcanalysis_torch.core.pipeline as TP
 import fhmcanalysis_torch.core.solve as TSV
 import fhmcanalysis_torch.core.state as TS
 from fhmcanalysis_torch.binary import isopleth
+from fhmcanalysis_torch.utils.profiling import counters
 from torch_composites import CAPACITY, CELLS, ISO31, ISO1400, capacity_cell, ripple1400, coex31_guesses, ten_peak, coex_grid, ISO_FIVE_DMU2, ISO_NARROW, ISO_PARTIAL, SURFACE_KINDS, cell, iso_grid_args, iso_sources, janus_surfaces, mb_grid, mu_window, port_histogram, random_surface, shuffled_mu_grid, worst_abs_diff
 
 IB = sys.modules["fhmcanalysis_torch.binary.isopleth"]
@@ -71,10 +72,10 @@ def _compare(h, meta, mus, props, collect):
     want = TP.mu_sweep_thermo(h, meta, mus, props=props, collect=collect, engine="torch")
     ok = (want["mask"] & want["valid"][:, None]).cpu()
     for G in LANES:
-        n0 = CS.sweep_thermo.launches
+        n0 = counters().get("launches.k1", 0)
         got = TP.mu_sweep_thermo(h, meta, mus, props=props, collect=collect, engine="cuda", _lanes=G)
         torch.cuda.synchronize()
-        assert CS.sweep_thermo.launches == n0 + 1
+        assert counters().get("launches.k1", 0) == n0 + 1
         assert set(got) == set(want)
         for k in SEG:
             assert torch.equal(got[k], want[k]), (G, k)
@@ -128,7 +129,7 @@ def test_kernel_rejects_unsupported(cuda):
     build, run the kernel and equal the plain version."""
     d, mk, mus = cell("n31", 8)
     h = TS.from_host(d, device=cuda)
-    n0 = CS.sweep_thermo.launches
+    n0 = counters().get("launches.k1", 0)
     with pytest.raises(ValueError, match="max_phases=65 outside the kernels' 1..64"):
         TP.mu_sweep_thermo(h, TS.HistMeta(**dict(mk, max_phases=65)), mus)
     keys5 = torch.zeros((6, h.nbins), dtype=torch.float64, device=cuda)
@@ -136,7 +137,7 @@ def test_kernel_rejects_unsupported(cuda):
         CS.sweep_thermo(h.lnpi, h.op, keys5, h.volume, torch.zeros(3, dtype=torch.float64, device=cuda), 1, 4)
     with pytest.raises(TypeError, match="float64"):
         CS.sweep_thermo(h.lnpi.float(), h.op, h.mom[:2, 1, 0, 0, 0], h.volume, torch.zeros(3, dtype=torch.float64, device=cuda), 1, 4)
-    assert CS.sweep_thermo.launches == n0
+    assert counters().get("launches.k1", 0) == n0
     _compare(h, TS.HistMeta(**dict(mk, max_phases=9)), mus, True, None)
 
 
@@ -254,10 +255,10 @@ def _mb_compare(h, meta, mus, betas, dmus, **kw):
     want = TP.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, engine="torch", **kw)
     ok = (want["mask"] & want["valid"][..., None]).cpu()
     for G in LANES:
-        n0 = CM.mb_sweep_thermo.launches
+        n0 = counters().get("launches.k2", 0)
         got = TP.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, engine="cuda", _lanes=G, **kw)
         torch.cuda.synchronize()
-        assert CM.mb_sweep_thermo.launches == n0 + 1
+        assert counters().get("launches.k2", 0) == n0 + 1
         assert set(got) == set(want)
         for k in SEG:
             assert torch.equal(got[k], want[k]), (G, k)
@@ -298,14 +299,14 @@ def test_mb_main_path_through_k2(cuda):
     plain version, and it raises for what K2 does not take."""
     d, mk, mus, betas, dmus = mb_grid(M=512, A=16)
     h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
-    n0 = CM.mb_sweep_thermo.launches
+    n0 = counters().get("launches.k2", 0)
     out = TP.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=2)
-    assert CM.mb_sweep_thermo.launches == n0 + 1 and out["fe"].is_cuda and out["fe"].shape == (512, 16, meta.max_phases)
+    assert counters().get("launches.k2", 0) == n0 + 1 and out["fe"].is_cuda and out["fe"].shape == (512, 16, meta.max_phases)
     with pytest.raises(ValueError, match="max_phases=65 outside the kernels' 1..64"):
         TP.mu_beta_sweep_thermo(h, TS.HistMeta(**dict(mk, max_phases=65)), mus, betas, dmus)
-    assert CM.mb_sweep_thermo.launches == n0 + 1
+    assert counters().get("launches.k2", 0) == n0 + 1
     out = TP.mu_beta_sweep_thermo(h, TS.HistMeta(**dict(mk, max_phases=9)), mus, betas, dmus, order=2)
-    assert CM.mb_sweep_thermo.launches == n0 + 2 and out["fe"].shape == (512, 16, 9)
+    assert counters().get("launches.k2", 0) == n0 + 2 and out["fe"].shape == (512, 16, 9)
 
 
 @pytest.mark.gpu
@@ -405,13 +406,13 @@ def test_kernel_rejects_invalid_lanes(cuda):
     """A forced G the kernels do not build raises before any launch."""
     d, mk, mus = cell("n31", 8, max_order=3)
     h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
-    n1, n2 = CS.sweep_thermo.launches, CM.mb_sweep_thermo.launches
+    n1, n2 = counters().get("launches.k1", 0), counters().get("launches.k2", 0)
     for G in (0, 3, 4, 64):
         with pytest.raises(ValueError, match="lanes per point"):
             TP.mu_sweep_thermo(h, meta, mus, _lanes=G)
         with pytest.raises(ValueError, match="lanes per point"):
             TP.mu_beta_sweep_thermo(h, meta, mus, [1.0], [[-5.0]], _lanes=G)
-    assert (CS.sweep_thermo.launches, CM.mb_sweep_thermo.launches) == (n1, n2)
+    assert (counters().get("launches.k1", 0), counters().get("launches.k2", 0)) == (n1, n2)
 
 
 def _iso(cuda, name, order, beta, mu1_v, dmu2_v, **kw):
@@ -433,10 +434,10 @@ def _iso_compare(args, min_ok=0.3):
     """K3 at the rule's G and at every G forced against one plain run."""
     want = IB.iso_grid(*args, engine="torch")
     for G in LANES:
-        n0 = CI.iso_grid.launches
+        n0 = counters().get("launches.k3", 0)
         got = IB.iso_grid(*args, engine="cuda", _lanes=G)
         torch.cuda.synchronize()
-        assert CI.iso_grid.launches == n0 + 1, G
+        assert counters().get("launches.k3", 0) == n0 + 1, G
         _iso_equal(got, want, min_ok)
 
 
@@ -503,9 +504,9 @@ def test_make_grid_cuda_matches_torch(cuda, order):
     iso, _, _, _, _ = _iso(cuda, "n31", order, 1.02, mu1_v, dmu2_v)
     out = {}
     for engine in ("cuda", "torch", "auto"):
-        n0 = CI.iso_grid.launches
+        n0 = counters().get("launches.k3", 0)
         iso.make_grid(*grid, engine=engine)
-        assert CI.iso_grid.launches == n0 + (engine != "torch")
+        assert counters().get("launches.k3", 0) == n0 + (engine != "torch")
         out[engine] = {k: iso.data[k] for k in ("Z", "density", "F.E./kT", "valid", "fail_code")}
     for k in ("valid", "fail_code"):
         assert np.array_equal(out["cuda"][k], out["torch"][k]) and np.array_equal(out["auto"][k], out["cuda"][k]), k
@@ -537,17 +538,17 @@ def test_iso_kernel_rejects_unsupported(cuda):
     iso, srcs, mk, lr, wts = _iso(cuda, "n31", 1, 1.02, mu1_v, dmu2_v)
     with pytest.raises(ValueError, match="max_phases=65 outside the kernels' 1..64"):
         IB.iso_grid(srcs, [TS.HistMeta(**dict(mk, max_phases=65))] * 2, mu1_v, dmu2_v, lr, wts, 1.02, 1, 10.0)
-    n9 = CI.iso_grid.launches
+    n9 = counters().get("launches.k3", 0)
     _iso_equal(IB.iso_grid(srcs, [TS.HistMeta(**dict(mk, max_phases=9))] * 2, mu1_v, dmu2_v, lr, wts, 1.02, 1, 10.0),
                IB.iso_grid(srcs, [TS.HistMeta(**dict(mk, max_phases=9))] * 2, mu1_v, dmu2_v, lr, wts, 1.02, 1, 10.0, engine="torch"), min_ok=0.0)
-    assert CI.iso_grid.launches == n9 + 1
+    assert counters().get("launches.k3", 0) == n9 + 1
     with pytest.raises(KeyError):
         IB.iso_grid(srcs, [TS.HistMeta(**mk)] * 2, mu1_v, dmu2_v, lr, wts, 1.02, 1, 10.0, collect="nope")
-    n0 = CI.iso_grid.launches
+    n0 = counters().get("launches.k3", 0)
     for G in (0, 2, 16, 64):
         with pytest.raises(ValueError, match="lanes per point"):
             IB.iso_grid(srcs, [TS.HistMeta(**mk)] * 2, mu1_v, dmu2_v, lr, wts, 1.02, 1, 10.0, _lanes=G)
-    assert CI.iso_grid.launches == n0
+    assert counters().get("launches.k3", 0) == n0
 
 
 @pytest.mark.gpu
@@ -644,16 +645,16 @@ def test_iso_xm_area_past_the_card_raises(cuda):
     mu1_v, dmu2_v = np.linspace(*mu_window(**CELLS["n1400"]), 16), np.linspace(-4.9, -4.1, 8)
     iso, srcs, mk, lr, wts = _iso(cuda, "n1400", 1, ISO1400["beta"], mu1_v, dmu2_v, lnpi=ripple1400())
     kin = _iso_kin(srcs, TS.HistMeta(**dict(mk, max_phases=16)), mu1_v, dmu2_v, lr, wts, ISO1400["beta"], 1)
-    n0 = CI.iso_grid.launches
+    n0 = counters().get("launches.k3", 0)
     with pytest.raises(RuntimeError, match="iso_grid kernel launch failed"):
         CI.iso_grid(*kin, mk["smooth"], 16, 1, 10.0, _lanes=1, _xm=True)
     with pytest.raises(ValueError, match="x_m area"):
         CI.iso_grid(*kin, mk["smooth"], 8, 1, 10.0, _xm=True)
-    assert CI.iso_grid.launches == n0
+    assert counters().get("launches.k3", 0) == n0
     got = CI.iso_grid(*kin, mk["smooth"], 16, 1, 10.0, _lanes=1)
     want = IB.iso_grid(srcs, [TS.HistMeta(**dict(mk, max_phases=16))] * len(srcs), mu1_v, dmu2_v, lr, wts, ISO1400["beta"], 1, 10.0, engine="torch")
     _iso_equal(got, want, min_ok=0.0)
-    assert CI.iso_grid.launches == n0 + 1
+    assert counters().get("launches.k3", 0) == n0 + 1
 
 
 def _paired_inputs(cuda, name, order, props, M, A=64):
@@ -686,11 +687,11 @@ def test_mb_paired_equals_product(cuda, name, order, props, collect):
         t = torch.as_tensor(tix, dtype=torch.int32, device=cuda)
         sub = (mu[:M], a[:M], xrows, krows, tg)
         for G in CS.LANES:
-            n0 = CM.mb_sweep_thermo.launches
+            n0 = counters().get("launches.k2", 0)
             prod = _k2(h, meta, sub, order, props, collect, _lanes=G)
             got = _k2(h, meta, sub, order, props, collect, tix=t, _lanes=G)
             torch.cuda.synchronize()
-            assert CM.mb_sweep_thermo.launches == n0 + 2
+            assert counters().get("launches.k2", 0) == n0 + 2
             rows = torch.arange(M, device=cuda) * A + t.long()
             for k in prod:
                 assert torch.equal(got[k], prod[k][rows]), (M, G, k)
@@ -728,7 +729,7 @@ def test_mb_paired_rejects_bad_tix(cuda):
     point."""
     h, meta, inputs = _paired_inputs(cuda, "n31", 1, True, 16, 8)
     good = torch.zeros(16, dtype=torch.int32, device=cuda)
-    n0 = CM.mb_sweep_thermo.launches
+    n0 = counters().get("launches.k2", 0)
     bad = [
         (ValueError, "outside", torch.full((16,), 8, dtype=torch.int32, device=cuda)),
         (ValueError, "outside", torch.full((16,), -1, dtype=torch.int32, device=cuda)),
@@ -740,12 +741,12 @@ def test_mb_paired_rejects_bad_tix(cuda):
     for exc, msg, tix in bad:
         with pytest.raises(exc, match=msg):
             _k2(h, meta, inputs, 1, False, None, tix=tix)
-    assert CM.mb_sweep_thermo.launches == n0
+    assert counters().get("launches.k2", 0) == n0
     _k2(h, meta, inputs, 1, False, None, tix=good)
     good[3] = 8
     with pytest.raises(ValueError, match="outside"):
         _k2(h, meta, inputs, 1, False, None, tix=good)
-    assert CM.mb_sweep_thermo.launches == n0 + 1
+    assert counters().get("launches.k2", 0) == n0 + 1
     good[3] = 0
     for G in CS.LANES:
         want = _k2(h, meta, inputs, 1, True, None, tix=good, _lanes=G)
@@ -780,10 +781,10 @@ def test_trace_kernels_match_torch(cuda, order):
     d, mk, betas, guess, kw = coex_grid(32)
     kw = dict(kw, order=order)
     h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
-    n0 = CM.mb_sweep_thermo.launches
+    n0 = counters().get("launches.k2", 0)
     got = TSV.trace_coexistence(h, meta, betas, guess, **kw)
     torch.cuda.synchronize()
-    assert CM.mb_sweep_thermo.launches - n0 >= 3  # the start, the steps, the properties
+    assert counters().get("launches.k2", 0) - n0 >= 3  # the start, the steps, the properties
     want = TSV.trace_coexistence(h, meta, betas, guess, engine="torch", **kw)
     assert torch.equal(got["converged"], want["converged"]) and got["converged"].all()
     assert float((got["mu_star"] - want["mu_star"]).abs().max()) <= 1e-9
@@ -802,10 +803,10 @@ def test_find_phase_eq_state_k1_matches_torch(cuda):
     guesses: K1's objective against the plain one."""
     d, mk, guesses, kw = coex31_guesses(64)
     h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
-    n0 = CS.sweep_thermo.launches
+    n0 = counters().get("launches.k1", 0)
     out, mus, err, conv = TSV.find_phase_eq_state(h, meta, kw["lnZ_tol"], guesses, min_width=kw["min_width"])
     torch.cuda.synchronize()
-    assert CS.sweep_thermo.launches - n0 >= 2 and out.lnpi.shape == (64, h.nbins) and out.lnpi.is_cuda
+    assert counters().get("launches.k1", 0) - n0 >= 2 and out.lnpi.shape == (64, h.nbins) and out.lnpi.is_cuda
     _, mus_t, err_t, conv_t = TSV.find_phase_eq_state(h, meta, kw["lnZ_tol"], guesses, min_width=kw["min_width"], engine="torch")
     assert torch.equal(conv, conv_t) and conv.all()
     assert float((mus - mus_t).abs().max()) <= 1e-9 and float(err.max()) <= kw["lnZ_tol"] ** 2
@@ -976,13 +977,13 @@ def _close(got, want, same_g, where, atol=1e-10):
             _same_2d(got[k], want[k], f"{where}: {k}", atol)
 
 
-def _counted(counter, fn):
-    """(fn(), launches it made, the current device unchanged)"""
-    before, n0 = torch.cuda.current_device(), counter.launches
+def _counted(kernel, fn):
+    """(fn(), launches of kernel ("k1", "k2", "k3") it made, the current device unchanged)"""
+    before, n0 = torch.cuda.current_device(), counters().get(f"launches.{kernel}", 0)
     out = fn()
     torch.cuda.synchronize()
     assert torch.cuda.current_device() == before, "a sharded call left another card current"
-    return out, counter.launches - n0
+    return out, counters().get(f"launches.{kernel}", 0) - n0
 
 
 @pytest.mark.gpu
@@ -995,7 +996,7 @@ def test_parallel_mu_sweeps_on_card(cuda, mesh_name):
     h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
     n_sm = CS.sm_count(cuda.index)
     same_g = CS.lanes_per_point(h.nbins, 2048 // mesh.size, n_sm) == CS.lanes_per_point(h.nbins, 2048, n_sm)
-    (got, fe_min), n = _counted(CS.sweep_thermo, lambda: parallel.shard_map_mu_sweep(mesh, h, meta, mus))
+    (got, fe_min), n = _counted("k1", lambda: parallel.shard_map_mu_sweep(mesh, h, meta, mus))
     want = TP.mu_sweep_thermo(h, meta, mus)
     assert n == mesh.size
     _close(got, want, same_g, "K1 sharded")
@@ -1004,7 +1005,7 @@ def test_parallel_mu_sweeps_on_card(cuda, mesh_name):
     dmus = (d["curr_mu"][1:] - d["curr_mu"][0]) + np.linspace(-0.5, 0.5, 8)[:, None]
     same_g = CS.lanes_per_point(h.nbins, 2048 // mesh.size * 8, n_sm) == CS.lanes_per_point(h.nbins, 2048 * 8, n_sm)
     for order in (1, 2):
-        (got, _), n = _counted(CM.mb_sweep_thermo, lambda: parallel.sharded_mu_beta_sweep(mesh, h, meta, mus, betas, dmus, order=order))
+        (got, _), n = _counted("k2", lambda: parallel.sharded_mu_beta_sweep(mesh, h, meta, mus, betas, dmus, order=order))
         assert n == mesh.size
         _close(got, TP.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order), same_g, f"K2 sharded order {order}")
 
@@ -1019,7 +1020,7 @@ def test_parallel_trace_on_card(cuda):
     betas = np.linspace(0.99, 1.01, 8)
     want = TSV.trace_coexistence(h, meta, betas, 5.0, lnZ_tol=1e-6, min_width=2)
     for mesh in _meshes(cuda).values():
-        got, n = _counted(CM.mb_sweep_thermo, lambda: parallel.sharded_trace_coexistence(mesh, h, meta, betas, 5.0, lnZ_tol=1e-6, min_width=2))
+        got, n = _counted("k2", lambda: parallel.sharded_trace_coexistence(mesh, h, meta, betas, 5.0, lnZ_tol=1e-6, min_width=2))
         assert n >= 3 * mesh.size  # each shard: the start, its steps, the properties
         _close(got, want, True, "trace")  # a step's points stay at G = 32 in every shard
 
@@ -1034,7 +1035,7 @@ def test_parallel_make_grid_on_card(cuda):
     one.make_grid(*grid)
     for name, mesh in _meshes(cuda).items():
         iso = isopleth([port_histogram(d, mk, device=cuda) for d in ds], ISO31["beta"], order=1)
-        _, n = _counted(CI.iso_grid, lambda: parallel.sharded_make_grid(mesh, iso, *grid))
+        _, n = _counted("k3", lambda: parallel.sharded_make_grid(mesh, iso, *grid))
         assert n == min(mesh.size, 64)
         for k in ("Z", "density", "F.E./kT", "valid", "fail_code"):
             assert np.array_equal(iso.data[k], one.data[k]) or (k in ("Z", "density", "F.E./kT") and np.abs(iso.data[k] - one.data[k]).max() <= 1e-10), (name, k)
@@ -1188,11 +1189,11 @@ def test_example_workflow_on_card(cuda, name, tmp_path):
 
     mod = _example(name)
     inputs = TW.example_inputs(name, str(tmp_path))
-    counters = (CS.sweep_thermo, CM.mb_sweep_thermo, CI.iso_grid)
-    n0 = [c.launches for c in counters]
+    kernels = ("launches.k1", "launches.k2", "launches.k3")
+    n0 = [counters().get(k, 0) for k in kernels]
     got = mod.run(inputs, cuda)
     torch.cuda.synchronize()
-    launched = [c.launches - n for c, n in zip(counters, n0)]
+    launched = [counters().get(k, 0) - n for k, n in zip(kernels, n0)]
     want = mod.run(inputs, "cpu")
     if name == "square_well_phase_diagram":
         assert launched[1] >= 2, launched

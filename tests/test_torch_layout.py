@@ -23,6 +23,7 @@ import fhmcanalysis_torch.core.pipeline as TP
 import fhmcanalysis_torch.core.segment as TSeg
 import fhmcanalysis_torch.binary.isopleth  # noqa: F401  (the module; the package exports the class under its name)
 import fhmcanalysis_torch.core.state as TS
+from fhmcanalysis_torch.utils.profiling import counters
 import fhmcanalysis_tpu.core.pipeline as JP
 import fhmcanalysis_tpu.core.state as JS
 from torch_composites import CELLS, ISO31, ISO1400, ISO_PARTIAL, cell, iso_grid_args, iso_sources, port_histogram, shuffled_mu_grid, worst_abs_diff
@@ -121,7 +122,7 @@ def test_forced_invalid_lanes_raise_before_launch(lanes):
     wrappers and both entry points; a valid G on CPU tensors still meets
     the device check."""
     h, meta, mus = _cpu_inputs()
-    n1, n2 = CS.sweep_thermo.launches, CM.mb_sweep_thermo.launches
+    n1, n2 = counters().get("launches.k1", 0), counters().get("launches.k2", 0)
     keys = TSeg.key_rows(h.mom, meta).contiguous()
     a = TP._reweight_coeff(h, torch.as_tensor(mus)).contiguous()
     mu, a2, xrows, krows, tg = TP._mb_inputs(h, meta, mus, [1.0, 1.02], [[-5.0], [-4.9]], 1, True, False)
@@ -137,7 +138,7 @@ def test_forced_invalid_lanes_raise_before_launch(lanes):
         for valid in CS.LANES:
             with pytest.raises(ValueError, match="CUDA tensors"):
                 call(valid)
-    assert (CS.sweep_thermo.launches, CM.mb_sweep_thermo.launches) == (n1, n2) == (0, 0)
+    assert (counters().get("launches.k1", 0), counters().get("launches.k2", 0)) == (n1, n2) == (0, 0)
 
 
 @pytest.mark.parametrize("n_sm", [H100_SMS, 114, 1])
@@ -190,4 +191,4 @@ def test_iso_forced_invalid_lanes_raise_before_launch(lanes):
     for engine in ("auto", "torch"):
         with pytest.raises(ValueError, match="lanes per point must be a power of two dividing 32"):
             IB.iso_grid(*args, engine=engine, _lanes=lanes)
-    assert CI.iso_grid.launches == 0
+    assert counters().get("launches.k3", 0) == 0

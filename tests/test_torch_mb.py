@@ -31,6 +31,7 @@ import fhmcanalysis_torch.core.ops as TO
 import fhmcanalysis_torch.core.pipeline as TP
 import fhmcanalysis_torch.core.segment as TSg
 import fhmcanalysis_torch.core.state as TS
+from fhmcanalysis_torch.utils.profiling import counters
 import fhmcanalysis_tpu.core.pipeline as JP
 import fhmcanalysis_tpu.core.state as JS
 from fhmcanalysis_tpu.core.pallas_mb import mu_beta_sweep_thermo_ds
@@ -166,12 +167,12 @@ def test_no_hidden_cpu_path():
     """A CPU tensor never reaches K2: engine='cuda' raises, the launch
     counter stays put, and engine='torch' equals 'auto' here."""
     th, tm, _, _, mus, betas, dmus = _inputs("n31", 4)
-    before = CM.mb_sweep_thermo.launches
+    before = counters().get("launches.k2", 0)
     with pytest.raises(ValueError, match="CUDA tensors"):
         TP.mu_beta_sweep_thermo(th, tm, mus, betas, dmus, engine="cuda")
     a = TP.mu_beta_sweep_thermo(th, tm, mus, betas, dmus, engine="auto")
     b = TP.mu_beta_sweep_thermo(th, tm, mus, betas, dmus, engine="torch")
-    assert CM.mb_sweep_thermo.launches == before == 0
+    assert counters().get("launches.k2", 0) == before == 0
     for k in a:
         assert torch.equal(a[k], b[k]), k
 

@@ -420,14 +420,14 @@ def test_no_hidden_cpu_path(state):
     """engine='cuda' on CPU tensors raises before any launch; 'auto' and
     'torch' agree here; an unknown engine or collect raises."""
     th, tm, _, _ = state
-    n1, n2 = CS.sweep_thermo.launches, CM.mb_sweep_thermo.launches
+    n1, n2 = TPr.counters().get("launches.k1", 0), TPr.counters().get("launches.k2", 0)
     with pytest.raises(ValueError, match="CUDA tensors"):
         TSV.phase_eq_error([5.0], th, tm, min_width=2, engine="cuda")
     with pytest.raises(ValueError, match="CUDA tensors"):
         TSV.phase_eq_error([5.0], th, tm, beta=1.01, min_width=2, extrapolate=True, engine="cuda")
     with pytest.raises(ValueError, match="CUDA tensors"):
         TSV.trace_coexistence(th, tm, BETAS, 5.0, min_width=2, engine="cuda")
-    assert (CS.sweep_thermo.launches, CM.mb_sweep_thermo.launches) == (n1, n2) == (0, 0)
+    assert (TPr.counters().get("launches.k1", 0), TPr.counters().get("launches.k2", 0)) == (n1, n2) == (0, 0)
     a = TSV.trace_coexistence(th, tm, BETAS, 5.0, min_width=2, engine="auto")
     b = TSV.trace_coexistence(th, tm, BETAS, 5.0, min_width=2, engine="torch")
     for k in a:
@@ -442,17 +442,27 @@ def test_no_hidden_cpu_path(state):
 
 def test_profiling_helpers(tmp_path):
     """utils.profiling on the CPU: a trace written as trace.json with the
-    block's operations in it, a Timer whose sections count, and
-    force_completion a no-op."""
+    block's operations and its span in it, the span a CPU range that is not
+    a user annotation; outside a trace, span is the shared no-op; counters
+    add up and counters() is a snapshot."""
     x = torch.arange(1000, dtype=torch.float64)
     with TPr.trace(str(tmp_path / "prof")) as prof:
-        y = (x * 2.0).sum()
+        with TPr.span("fhmc.test.block"):
+            y = (x * 2.0).sum()
     assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
-    assert any("mul" in e.name for e in prof.events())
-    t = TPr.Timer()
-    out = t.time("sum", lambda: {"y": (x + 1.0).sum(), "z": [x]})
-    with t.section("mul", result=out):
-        pass
-    assert t.counts == {"sum": 1, "mul": 1} and float(out["y"]) == float(y) / 2.0 + 1000.0
-    assert TPr.force_completion(out) is None
-    assert t.report().splitlines()[0].split() == ["section", "total_s", "calls"]
+    assert "fhmc.test.block" in (tmp_path / "prof" / "trace.json").read_text()
+    events = {e.name: e for e in prof.events()}
+    assert any("mul" in name for name in events) and float(y) == 999000.0
+    block = events["fhmc.test.block"]
+    assert block.device_type.name == "CPU" and not block.is_user_annotation
+    mul = next(e for name, e in events.items() if "mul" in name)
+    assert block.time_range.start <= mul.time_range.start and mul.time_range.end <= block.time_range.end
+    assert TPr.span("fhmc.test.a") is TPr.span("fhmc.test.b")
+    snap = TPr.counters()
+    TPr.add("test.count")
+    TPr.add("test.count", 2)
+    TPr.add("test.seconds", 0.5)
+    now = TPr.counters()
+    assert now["test.count"] - snap.get("test.count", 0) == 3 and now["test.seconds"] - snap.get("test.seconds", 0.0) == 0.5
+    now["test.count"] = -1
+    assert TPr.counters()["test.count"] != -1
