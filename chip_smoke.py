@@ -30,7 +30,12 @@ Phases (each raises on failure, so any failure exits non-zero):
      4/8, N 31 and 1400, the fail-code surfaces, a narrow grid over five
      sources, a partial last block) at <=4,096 cells per case, at the G
      its rule picks and forced to every G: valid and fail_code equal,
-     floats within 1e-10 abs on ok cells;
+     floats within 1e-10 abs on ok cells; the row former (K2's rows in
+     one launch, cuda_mb.mb_rows) against pipeline._mb_rows bit for bit
+     over orders 1-2, props, first_order_mom, used_ke and max_order 1-4 at
+     N = 31, 573 and 1400 (the cells' composites and random moments),
+     then at order 2 its device time, its call on the host's clock, the
+     plain version's call and its bound;
   4. main paths, each with its launch counter read just before and again
      just after: pipeline.mu_sweep_thermo(engine="auto") on the N=573
      (B=524,288) and N=31 (B=2,097,152) cells;
@@ -40,7 +45,9 @@ Phases (each raises on failure, so any failure exits non-zero):
      binary.isopleth.isopleth(...).make_grid(engine="auto") on iso31 at
      orders 1 and 2 (301 dMu_2 x 834 mu_1 = 251,034 cells) and on iso1400
      (128 x 128 cells at N=1400): most cells valid, one- and two-phase
-     surfaces, a sample agrees with the plain version.  Kernel, plain
+     surfaces, a sample agrees with the plain version.  The sweep's and
+     make_grid's runs also read the row former's counter: one launch a
+     sweep, one a source of the grid.  Kernel, plain
      version and "auto" (and make_grid) timed with CUDA events (warm,
      median of 3);
   5. layouts: K1's time at G = 1 and G = 32 across N = 31, 63, 127, 255,
@@ -58,7 +65,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      and again just after: solve.trace_coexistence(engine="auto") on coex573
      (256 betas on the n573 composite, K2's paired mode) and
      solve.find_phase_eq_state over 256 mu guesses on n31 (K1): every beta
-     converged to |dF.E./kT| <= lnZ_tol with two phases, the same
+     converged to |dF.E./kT| <= lnZ_tol with two phases, the row former
+     launched at least once, the same
      convergence and mu_star within 1e-9 as engine="torch", the properties
      at mu_star within 1e-10 of the plain version's; solves/s for "auto" and
      "torch" (CUDA events, warm, median of 3), K2 launches and Nelder-Mead
@@ -156,7 +164,9 @@ Phases (each raises on failure, so any failure exits non-zero):
      there against its plain version with its time and bound; a
      {"workflows": ...} line;
   6. a {"kernels": [...]} line with each kernel's launches, worst error,
-     times and bound (the 2-D path and window patching add none; the
+     times and bound (the row former last, replacing no TPU kernel, its
+     launches those of the main paths of phases 4 and 5b; the
+     2-D path and window patching add none; the
      sharded routes add cells "<cell> mesh cards" / "<cell> mesh x4"
      with their launches, phase 5f its capacity cells, phase 5g its
      workflow cells), then the last
@@ -228,8 +238,8 @@ EXP_OPS = 26
 
 
 def launch_count(kernel):
-    """Launches of kernel "k1", "k2" or "k3" this process so far (the
-    program's counters)."""
+    """Launches of kernel "k1", "k2", "k3" or "mb_rows" (the row former)
+    this process so far (the program's counters)."""
     from fhmcanalysis_torch.utils import profiling
 
     return profiling.counters().get(f"launches.{kernel}", 0)
@@ -1937,6 +1947,141 @@ def workflows_phase(C):
     return rec, cells, worst_k
 
 
+ROW_ARITH = ("aten::add", "aten::sub", "aten::mul", "aten::div", "aten::neg", "aten::reciprocal", "aten::pow", "aten::rsub")
+
+
+def rows_read(t):
+    """The flat moment rows the row former reads under its table t, walked
+    through the gates of form_bin (csrc/mb_rows.cuh): a zero-power entry,
+    a padded slot, a KE term without ke and a row behind a closed gate
+    read nothing."""
+    S, rows = t.S, set()
+
+    def sgb(r):
+        if not r.zero:
+            rows.update((r.b, r.bu, *r.xni[:S], *t.key[: S + 1]))
+            if r.ke:
+                rows.add(r.bd)
+
+    def sgm(r):
+        if not r.zero:
+            rows.update((r.b, r.xni, t.key[1]))
+
+    sg1 = t.props and t.gate1
+    if t.order >= 2 or sg1:
+        for k in range(S + 1):
+            sgb(t.slot[k].a)
+    if S == 2 and sg1:
+        for k in range(S + 1):
+            sgm(t.slot[k].ma)
+    rows.update(t.key[1 : S + 1])  # r1, mq
+    if t.order >= 2 and S == 2:
+        rows.update(t.f11)  # h11
+    if t.props:
+        rows.update(t.key[: S + 1])  # the key rows themselves
+        if t.khess and t.gate2:
+            for k in range(S + 1):
+                sl = t.slot[k]
+                rows.add(sl.m)
+                sgb(sl.au)
+                for i in range(S):
+                    sgb(sl.an[i])
+                if sl.a.ke:
+                    rows.add(sl.a.bd)
+                    sgb(sl.ad)
+                if S == 2:
+                    rows.add(sl.pn)
+                    sgb(sl.pnb)
+                    sgm(sl.mn)
+    return rows
+
+
+def row_former_phase(C, ptxas):
+    """The row former (cuda_mb.mb_rows, csrc/mb_rows.cuh, in K2's library)
+    against the plain pipeline._mb_rows on the card, bit for bit, over the
+    test grid at N = 31 (n31), 573 (n573) and 1400 (n1400); then at order 2
+    with props on each cell: its device time (profiler, mean of 20
+    launches), its call on the host's clock (wrapper and launch,
+    synchronised), the plain version's call, and its bound.  The bound's
+    bytes are the distinct moment rows it reads (rows_read), op and the
+    rows written; its operations one per bin for each arithmetic torch
+    operation of the plain version over the bins (a profile of it).
+    Returns its kernels-line entry without "launches": phase 4's main
+    paths count those."""
+    torch, TC, cuda_mb, pipeline, state = C.torch, C.TC, C.cuda_mb, C.pipeline, C.state
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    n_cases = n_launch = 0
+    for cname in ("n31", "n573", "n1400"):
+        for max_order in TC.ROW_MAX_ORDERS:
+            for used_ke in (False, True):
+                xs, mk = TC.row_inputs(cname, max_order, used_ke)
+                meta = state.HistMeta(**mk)
+                for x in xs:
+                    h = C.hist(x)
+                    for order, props, fom in TC.ROW_CASES:
+                        where = f"row former {cname} max_order={max_order} ke={used_ke} order={order} props={props} fom={fom}"
+                        try:
+                            want = pipeline._mb_rows(h, meta, order, props, fom)
+                        except (ValueError, IndexError) as e:
+                            try:
+                                cuda_mb.mb_rows(h, meta, order, props, fom)
+                            except type(e):
+                                continue
+                            raise AssertionError(f"{where}: the plain version raises {e!r}, the row former does not")
+                        got = cuda_mb.mb_rows(h, meta, order, props, fom)
+                        n_launch += 1
+                        for g, w, what in ((got[0], want[0], "xrows"), (got[1], want[1], "krows")):
+                            if (g is None) != (w is None) or (g is not None and not torch.equal(g.view(torch.int64), w.view(torch.int64))):
+                                raise AssertionError(f"{where}: {what} differ from the plain version's")
+                        n_cases += 1
+    log(f"parity row former: {n_cases} cases bit for bit equal to pipeline._mb_rows ({n_launch} launches) in {time.perf_counter() - t0:.1f} s")
+
+    cells = {}
+    for cname in ("n31", "n573", "n1400"):
+        d, mk, _ = TC.cell(cname, 8, max_order=3)
+        h, meta = C.hist(d), state.HistMeta(**mk)
+        S, N = meta.nspec, h.nbins
+
+        def former():
+            return cuda_mb.mb_rows(h, meta, 2, True, False)
+
+        def plain():
+            return pipeline._mb_rows(h, meta, 2, True, False)
+
+        def synced(fn):
+            return lambda: (fn(), torch.cuda.synchronize())
+
+        k_ms = device_ms(former, "mb_rows_kernel")
+        call_ms, plain_ms = host_ms(synced(former), reps=20), host_ms(synced(plain), reps=5)
+        with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+            plain()
+        ops = N * sum(1 for e in prof.events() if e.name in ROW_ARITH and any(sh and sh[-1] == N for sh in e.input_shapes))
+        rows = rows_read(cuda_mb.rows_table(meta, 2, True, False))
+        xrows, krows = former()
+        read = torch.empty((len(rows) + 1, N), dtype=torch.float64, device=h.lnpi.device)  # the moment rows and op, by size only
+        b_ms, b_by = bound([read, h.curr_beta, h.curr_mu], [xrows, krows], ops)
+        cells[cname] = dict(N=N, S=S, order=2, kernel_ms=k_ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, ops=ops, moment_rows=len(rows))
+        log(f"row former {cname}: N={N} S={S} order 2, props | kernel {k_ms:.4f} ms (device) | call {call_ms:.4f} ms (host clock, synchronised) | "
+            f"plain _mb_rows {plain_ms:.3f} ms ({ops // N} arithmetic ops over the bins) | bound {b_ms:.6f} ms by {b_by} ({len(rows)} moment rows) | {C.smi}")
+    return {
+        "name": "mb_rows",
+        "route": "cuda",
+        "source": "fhmcanalysis_torch/csrc/mb_rows.cuh (built into mb_sweep_thermo.cu's library)",
+        "replaces": None,  # no TPU kernel: the JAX package forms these rows with jnp operations in its jitted sweep
+        "parity_launches": n_launch,
+        "max_abs_err": 0.0,
+        "ms": cells["n31"]["kernel_ms"],
+        "plain_ms": cells["n31"]["plain_ms"],
+        "bound_ms": cells["n31"]["bound_ms"],
+        "bound_by": cells["n31"]["bound_by"],
+        "library_ms": None,
+        "cells": cells,
+        "ptxas": [r for r in ptxas[cuda_mb.NAME] if r["kernel"] == "mb_rows_kernel"],
+    }
+
+
 def run():
     C = Ctx()
     torch, np, TC = C.torch, C.np, C.TC
@@ -2118,6 +2263,9 @@ def run():
                 raise AssertionError(f"K2 guard G={G}: {k} of an in-range point changed")
     log(f"parity K2 paired guard: {n_hit} of 4096 points with tix out of range (written past the wrapper's check) come back invalid with NaN floats at G in {LANES}; the rest unchanged")
 
+    # the row former: K2's rows in one launch, bit for bit the plain version's
+    row_former = row_former_phase(C, ptxas)
+
     # K3 over its coverage: <= 64 x 64 = 4,096 cells per case, at the rule's G and at every G
     worst_iso: dict = {}
     worst_iso_lanes = {G: 0.0 for G in LANES}
@@ -2179,19 +2327,21 @@ def run():
             f"plain {p_ms:.3f} ms = {B / p_ms * 1e3:.4g} points/s (peak {peak:.2f} GiB) | bound {b_ms:.4f} ms by {b_by} ({ops:.4g} f64 ops) | {smi}"
         )
 
-    mb_runs = {}
+    mb_runs, rows_main = {}, {}  # rows_main: the row former's launches on each main path
     d, mk, mus_np, betas, dmus = TC.mb_grid()
     h, meta = hist(d), state.HistMeta(**mk)
     mus = torch.as_tensor(mus_np, device=dev)
     M, A = mus.shape[0], betas.shape[0]
     for order in MB_ORDERS:
         cname = f"mb31_o{order}"
-        start_k2 = launch_count("k2")
+        start_k2, start_rows = launch_count("k2"), launch_count("mb_rows")
         out = pipeline.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order, props=True)
         torch.cuda.synchronize()
-        launches = launch_count("k2") - start_k2
+        launches, rows_main[cname] = launch_count("k2") - start_k2, launch_count("mb_rows") - start_rows
         if launches < 1:
             raise AssertionError(f"{cname}: the main path launched K2 {launches} times")
+        if rows_main[cname] != 1:
+            raise AssertionError(f"{cname}: the main path launched the row former {rows_main[cname]} times (one a call)")
         if out["fe"].shape != (M, A, meta.max_phases) or out["x_i"].shape != (M, A, meta.max_phases, meta.nspec):
             raise AssertionError(f"{cname}: unexpected output shapes")
         valid = out["valid"]
@@ -2234,12 +2384,15 @@ def run():
     iso_runs = {}
     for cname, gname, order in ISO_CELLS:
         g, iso, grid, srcs, mk, lr, wts, mu1_v, dmu2_v = C.iso_main(gname, order)
-        start_k3 = launch_count("k3")
+        start_k3, start_rows = launch_count("k3"), launch_count("mb_rows")
         Z, (X, Y) = iso.make_grid(*grid)
         torch.cuda.synchronize()
-        launches = launch_count("k3") - start_k3
+        launches, rows_main[cname] = launch_count("k3") - start_k3, launch_count("mb_rows") - start_rows
         if launches < 1:
             raise AssertionError(f"{cname}: the main path launched K3 {launches} times")
+        n_src = len(set(np.asarray(lr).ravel().tolist()))
+        if rows_main[cname] != n_src:
+            raise AssertionError(f"{cname}: the main path launched the row former {rows_main[cname]} times for {n_src} sources (one a source)")
         NY, NX = g["NY"], g["NX"]
         B = NX * NY
         if Z.shape != (NY, NX) or not np.array_equal(X[0], mu1_v) or not np.allclose(Y[:, 0], dmu2_v, rtol=0, atol=1e-12):
@@ -2395,7 +2548,9 @@ def run():
     start_k2, start = launch_count("k2"), prof_mod.counters()
     out = SV.trace_coexistence(h, meta, betas, guess, **kw)
     torch.cuda.synchronize()
-    launches = launch_count("k2") - start_k2
+    launches, rows_main["coex573"] = launch_count("k2") - start_k2, launch_count("mb_rows") - start.get("launches.mb_rows", 0)
+    if rows_main["coex573"] < 1:
+        raise AssertionError("coex573: the main path never launched the row former")
     steps, syncs = (prof_mod.counters().get(k, 0) - start.get(k, 0) for k in ("solver.steps", "host_syncs"))
     if launches < 3:
         raise AssertionError(f"coex573: the main path launched K2 {launches} times (the start, the steps and the properties need 3 or more)")
@@ -2599,6 +2754,7 @@ def run():
         entry(cuda_mb.NAME, "fhmcanalysis_torch/csrc/mb_sweep_thermo.cu", mb_runs, max(*worst_mb.values(), cap_worst[cuda_mb.NAME]), layouts=layout_k2 + cap_layouts[cuda_mb.NAME],
               profile_mb31_o2=profile_mb),
         entry(cuda_iso.NAME, "fhmcanalysis_torch/csrc/iso_grid.cu", iso_runs, max(*worst_iso.values(), cap_worst[cuda_iso.NAME]), layouts=layout_k3 + cap_layouts[cuda_iso.NAME]),
+        dict(row_former, launches=sum(rows_main.values()), main_path_launches=rows_main),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": C.name, "count": torch.cuda.device_count()}}))

@@ -116,14 +116,14 @@ def _get_most_stable_phase(hist):
 
 
 @profiling.spanned("fhmc.prologue.iso")
-def _iso_prologue(sources, meta: HistMeta, mu1_v, dmu2_v, lr, wts, beta_target, order: int, cutoff: float) -> dict:
+def _iso_prologue(sources, meta: HistMeta, mu1_v, dmu2_v, lr, wts, beta_target, order: int, cutoff: float, kernel: bool = False) -> dict:
     """The tensors both engines read, in cuda_iso's layout, for the W
     sources that ``lr`` names (renumbered 0..W-1 in ``lr``): each source's
     lnpi, op and _mb_rows rows; a = beta_ref (mu_1 - mu_ref) and the edge
     flag per (source, mu_1) -- (max - cutoff) > tail of the normalized
     reweighted surface, as the XLA engine's stage 1 computes it; per row
     the weights and each side's target scalars (_mb_targets); the volume
-    of source 0."""
+    of source 0.  kernel: the rows from the row former (pipeline._rows)."""
     lr = np.asarray(lr)
     NY = len(dmu2_v)
     if lr.shape != (NY, 2) or np.shape(wts) != (NY, 2):
@@ -142,7 +142,7 @@ def _iso_prologue(sources, meta: HistMeta, mu1_v, dmu2_v, lr, wts, beta_target, 
         h = sources[j]
         if h.nbins != N or h.device != dev:
             raise Exception("Isopleth source histograms must share the same order-parameter range and device")
-        xrows, krows = pipeline._mb_rows(h, meta, order, True, False)
+        xrows, krows = pipeline._rows(h, meta, order, True, False, kernel)
         rw = ops.reweight(h, mu).lnpi  # [NX, N]
         parts["lnpi"].append(h.lnpi)
         parts["op"].append(h.op)
@@ -276,7 +276,7 @@ def iso_grid(sources, metas, mu1_v, dmu2_v, lr, wts, beta_target, order: int, cu
         return iso_grid_body(sources, metas, mu1_v, dmu2_v, lr, wts, beta_target, order, cutoff, collect, mu1_chunk)
     _iso_check(sources, metas, order, collect)
     meta = metas[0]
-    pro = _iso_prologue(sources, meta, mu1_v, dmu2_v, lr, wts, beta_target, order, cutoff)
+    pro = _iso_prologue(sources, meta, mu1_v, dmu2_v, lr, wts, beta_target, order, cutoff, kernel=True)
     return cuda_iso.iso_grid(
         pro["lnpi"], pro["op"], pro["xrows"], pro["krows"], pro["a"], pro["edge"], pro["mu"], pro["lr"], pro["wts"],
         pro["tg"], pro["volume"], meta.smooth, meta.max_phases, order, cutoff, collect, _lanes=_lanes,

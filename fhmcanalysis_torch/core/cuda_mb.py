@@ -15,11 +15,17 @@ The plain version of this kernel is ``pipeline.mu_beta_sweep_body``;
 nothing on the CUDA path calls it.  ``pipeline.mu_beta_sweep_thermo``
 picks between the two by the tensors' device.
 
-Row layouts (built by ``pipeline._mb_rows`` / ``_mb_targets``):
+Row layouts:
   xrows [R, N]     r1, mq (nspec 2), then at order 2: h00, h01, h11 (nspec 2)
   krows [G, S+1, N] key, sgB, sgM (nspec 2), then at order 2 unless
                     first_order_mom: sgB2, sgX, sgM2 (nspec 2)
   tg    [A, T]     dB, dd (nspec 2), then at order 2: dB^2, 2 dB dd, dd^2
+
+The rows are written by the row former (``mb_rows``, ``csrc/mb_rows.cuh``,
+built into this library): one launch, one thread per bin, over a table of
+moment addresses that ``rows_table`` resolves on the host.  Its plain
+version is ``pipeline._mb_rows``, which it equals bit for bit; CPU tensors
+and ``engine="torch"`` run that.  ``tg`` is ``pipeline._mb_targets``'.
 
 Two modes: the product of the M mu values and the A targets, and with
 ``tix`` the paired mode, one target per mu (the coexistence solver's,
@@ -29,11 +35,15 @@ Two modes: the product of the M mu values and the A targets, and with
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
 from ..utils import profiling
+from .derivs import check_order, xni_addr, zero_power
+from .moments import mom_prod
 from .cuda_sweep import MAX_PHASES, capacity, check_capacities, check_lanes, lanes_per_point, sm_count  # noqa: F401  (MAX_PHASES: the kernel's, as cuda_sweep's)
 
 NAME = "mb_sweep_thermo"
@@ -55,6 +65,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mb_sweep_thermo_launch.restype = i
     lib.mb_sweep_thermo_error_string.argtypes = [i]
     lib.mb_sweep_thermo_error_string.restype = ctypes.c_char_p
+    lib.mb_rows_launch.argtypes = [i, p, ctypes.POINTER(ctypes.c_int)] + [p] * 6 + [i]
+    lib.mb_rows_launch.restype = i
+    lib.mb_rows_table_ints.restype = i
+    if lib.mb_rows_table_ints() != TABLE_INTS:
+        raise RuntimeError(f"{NAME}: the library's row-former table has {lib.mb_rows_table_ints()} ints, this module writes {TABLE_INTS}")
     check_capacities(lib, NAME)
 
 
@@ -191,3 +206,197 @@ def mb_sweep_thermo(
         raise RuntimeError(f"mb_sweep_thermo kernel launch failed: {lib.mb_sweep_thermo_error_string(rc).decode()} ({rc})")
     profiling.add("launches.k2")
     return out
+
+
+# ---------------------------------------------------------------------
+# The row former: pipeline._mb_rows in one launch
+# ---------------------------------------------------------------------
+#
+# csrc/mb_rows.cuh evaluates fixed formulas per bin; which moment rows they
+# read is resolved here, once per (meta, order, props, first_order_mom),
+# into its Table (the same fields, in the same order, flattened to ints).
+# The kernel takes the table as a launch parameter, so no launch copies an
+# index from pageable host memory.
+
+
+class SgB(NamedTuple):
+    """sgB(b) = DerivEngine.sg_dX_dB(b, 0): flat rows of mom [n_addr, N]."""
+
+    zero: int  # no power of N or U: the row is 0
+    b: int  # m(b)
+    bu: int  # m(b + U)
+    xni: tuple  # m(_xni(b, i)), i < nspec, padded to 2
+    ke: int  # b's power of U where used_ke and it is > 0, else 0
+    bd: int  # m(b - U) where ke
+
+
+class SgM(NamedTuple):
+    """sgM(b) = DerivEngine.sg_dX_dMU(0, b) (nspec 2)."""
+
+    zero: int
+    b: int  # m(b)
+    xni: int  # m(_xni(b, 1))
+
+
+class Slot(NamedTuple):
+    """One address a of the key rows (N_i, then U) and what its rows read."""
+
+    m: int  # m(a)
+    a: SgB  # sgB(a)
+    ma: SgM  # sgM(a)
+    au: SgB  # sgB(a*U)
+    an: tuple  # sgB(a*N_i), i < nspec, padded to 2
+    ad: SgB  # sgB(a - U), the KE term of sgB2(a)
+    pn: int  # m(N_1*a)
+    pnb: SgB  # sgB(N_1*a)
+    mn: SgM  # sgM(a*N_1)
+
+
+class Table(NamedTuple):
+    S: int
+    order: int
+    props: int
+    khess: int  # the order-2 key rows are formed
+    gate1: int  # max_order >= 2: the first-order key rows are not zero (_mb_rows' group gate)
+    gate2: int  # max_order >= 3: nor the second-order ones
+    key: tuple  # m(N_i), then m(U) at [nspec], padded to 3
+    f11: tuple  # h11's fluctuation rows (nspec 2)
+    slot: tuple  # one Slot a key address, padded to 3
+
+
+_NO_SGB = SgB(0, 0, 0, (0, 0), 0, 0)
+_NO_SGM = SgM(0, 0, 0)
+_NO_SLOT = Slot(0, _NO_SGB, _NO_SGM, _NO_SGB, (_NO_SGB, _NO_SGB), _NO_SGB, 0, _NO_SGB, _NO_SGM)
+_U = (0, 0, 0, 0, 1)
+
+
+def _ints(v):
+    if isinstance(v, tuple):  # NamedTuples too, in field order
+        for x in v:
+            yield from _ints(x)
+    else:
+        yield int(v)
+
+
+TABLE_INTS = len(list(_ints(Table(0, 0, 0, 0, 0, 0, (0, 0, 0), (0, 0, 0), (_NO_SLOT,) * 3))))
+
+
+@functools.lru_cache(maxsize=None)
+def rows_table(meta, order: int, props: bool, first_order_mom: bool) -> Table:
+    """The row former's table for these arguments.  It walks the moment
+    addresses in the order pipeline._mb_rows reads them, through the same
+    address rules (moments.mom_prod, derivs.xni_addr / check_order /
+    zero_power), so it raises where _mb_rows raises, with its message."""
+    S, mo = meta.nspec, meta.max_order
+    if S not in (1, 2):
+        raise ValueError(f"mb_rows: nspec must be 1 or 2, got {S}")
+    if order not in (1, 2):
+        raise ValueError(f"mb_rows: the row former implements orders 1-2, got {order}")
+    dims = meta.mom_shape(0)[:5]
+
+    def flat(a):
+        for d, (v, n) in enumerate(zip(a, dims)):
+            if not 0 <= v < n:
+                raise IndexError(f"index {v} is out of bounds for dimension {d} with size {n}")
+        i, j, k, m, p = a
+        return (((i * meta.mo1 + j) * S + k) * meta.mo1 + m) * meta.mo1 + p
+
+    def sgb(b):
+        if zero_power(b):
+            return SgB(1, 0, 0, (0, 0), 0, 0)
+        check_order(b, mo)
+        bu, mb = flat(b[:4] + (b[4] + 1,)), flat(b)
+        xni = tuple(flat(xni_addr(b, i, mo)) for i in range(S))
+        ke = b[4] if meta.used_ke and b[4] > 0 else 0
+        return SgB(0, mb, bu, xni + (0,) * (2 - S), ke, flat(b[:4] + (b[4] - 1,)) if ke else 0)
+
+    def sgm(b):
+        if zero_power(b):
+            return SgM(1, 0, 0)
+        check_order(b, mo)
+        return SgM(0, flat(b), flat(xni_addr(b, 1, mo)))
+
+    def prod(x, y):
+        return mom_prod(x, y, S, mo)
+
+    N = [(s, 1, 0, 0, 0) for s in range(S)]
+    addrs = N + [_U]
+    key = [flat(a) for a in addrs]
+    gate1, gate2 = int(2 <= mo), int(3 <= mo)
+    khess = int(order >= 2 and not first_order_mom)
+    f11 = (0, 0, 0)
+    # xrows (at order 2 they read sgB(N_s), sgB(U))
+    if order >= 2:
+        for s in range(1, S):
+            sgb(N[s])
+        sgb(_U)
+        if S == 2:
+            f11 = tuple(flat(a) for a in ((1, 1, 1, 1, 0), (1, 1, 1, 0, 0), (1, 0, 1, 1, 0)))
+    slots = [dict(m=key[k]) for k in range(S + 1)]
+    if order >= 2 or (props and gate1):
+        for k, a in enumerate(addrs):
+            slots[k]["a"] = sgb(a)
+    if props and gate1 and S == 2:
+        for k, a in enumerate(addrs):
+            slots[k]["ma"] = sgm(a)
+    # the order-2 key rows; sgB and sgM of the key addresses themselves
+    # were resolved above (gate2 implies gate1), so only the products can raise
+    if props and khess and gate2:
+        for k, a in enumerate(addrs):  # sg_d2X_dB2(a)
+            slots[k]["au"] = sgb(prod(a, _U))
+            slots[k]["an"] = tuple(sgb(prod(a, N[i])) for i in range(S)) + (_NO_SGB,) * (2 - S)
+            if meta.used_ke and a[4] > 0:
+                slots[k]["ad"] = sgb(a[:4] + (a[4] - 1,))
+        if S == 2:
+            for k, a in enumerate(addrs):  # the cross rows
+                slots[k]["pn"] = flat(prod(N[1], a))
+                slots[k]["pnb"] = sgb(prod(N[1], a))
+            for k, a in enumerate(addrs):  # sg_d2X_dMU2(0, 0, a)
+                slots[k]["mn"] = sgm(prod(a, N[1]))
+    slot = tuple(_NO_SLOT._replace(**s) for s in slots) + (_NO_SLOT,) * (2 - S)
+    return Table(S, order, int(props), khess, gate1, gate2, tuple(key) + (0,) * (2 - S), f11, slot)
+
+
+@functools.lru_cache(maxsize=None)
+def _table_array(meta, order: int, props: bool, first_order_mom: bool):
+    ints = list(_ints(rows_table(meta, order, props, first_order_mom)))
+    return (ctypes.c_int * len(ints))(*ints)
+
+
+@profiling.spanned("fhmc.launch.mb_rows")
+def mb_rows(h, meta, order: int, props: bool, first_order_mom: bool):
+    """pipeline._mb_rows in one launch of the row former on the card:
+    (xrows [R, N], krows [G, S+1, N] or None without props), equal to the
+    plain version's bit for bit.  h is a one-state Hist (lnpi [N]) on a
+    CUDA device; anything else raises before any launch, as do the
+    max_order cases _mb_rows raises for.  Runs on
+    ``torch.cuda.current_stream()``; does not synchronise."""
+    table = _table_array(meta, order, props, first_order_mom)
+    S, N, dev = meta.nspec, h.nbins, h.lnpi.device
+    for name in ("lnpi", "mom", "op", "curr_mu", "curr_beta"):
+        t = getattr(h, name)
+        if not t.is_cuda:
+            raise ValueError(f"mb_rows: {name} is on {t.device}; the CUDA kernel needs CUDA tensors (engine='torch' runs the plain version)")
+        if t.dtype != torch.float64:
+            raise TypeError(f"mb_rows: {name} must be float64, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"mb_rows: {name} is on {t.device}, lnpi on {dev}")
+    if h.lnpi.dim() != 1 or h.op.shape != (N,) or h.mom.shape != meta.mom_shape(N) or h.curr_mu.shape != (S,) or h.curr_beta.numel() != 1:
+        raise ValueError(
+            f"mb_rows: needs one state, lnpi and op [N], mom {meta.mom_shape('N')}, curr_mu [{S}] and a scalar curr_beta; "
+            f"got lnpi {tuple(h.lnpi.shape)}, mom {tuple(h.mom.shape)}, curr_mu {tuple(h.curr_mu.shape)}"
+        )
+    mom, op, mu = h.mom.contiguous(), h.op.contiguous(), h.curr_mu.contiguous()
+    f64 = dict(dtype=torch.float64, device=dev)
+    xrows = torch.empty((n_xrows(S, order), N), **f64)
+    krows = torch.empty((n_groups(S, order, first_order_mom), S + 1, N), **f64) if props else None
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    lib = _lib()
+    rc = lib.mb_rows_launch(
+        index, torch.cuda.current_stream(dev).cuda_stream, table, mom.data_ptr(), op.data_ptr(), h.curr_beta.data_ptr(), mu.data_ptr(),
+        xrows.data_ptr(), None if krows is None else krows.data_ptr(), N,
+    )
+    if rc != 0:
+        raise RuntimeError(f"mb_rows kernel launch failed: {lib.mb_sweep_thermo_error_string(rc).decode()} ({rc})")
+    profiling.add("launches.mb_rows")
+    return xrows, krows

@@ -21,7 +21,37 @@ from .state import Hist, HistMeta
 
 Addr = tuple[int, int, int, int, int]
 
-__all__ = ["DerivEngine", "DerivEngineN1", "warm_sg_memo"]
+__all__ = ["DerivEngine", "DerivEngineN1", "warm_sg_memo", "zero_power", "check_order", "xni_addr"]
+
+
+def zero_power(a: Addr) -> bool:
+    """The address carries no power of N or U: its semigrand derivatives
+    are zero rows."""
+    return a[1] == 0 and a[3] == 0 and a[4] == 0
+
+
+def check_order(a: Addr, max_order: int) -> None:
+    """Raise where the moments are too short for a derivative of mom[a]."""
+    mo = max_order
+    if a[4] >= mo or a[3] >= mo or a[1] >= mo:
+        raise ValueError("max_order too low to take this derivative: %s" % (a,))
+
+
+def xni_addr(x_idx: Addr, i: int, max_order: int) -> Addr:
+    """The address of the X*N_i moment of the semigrand fluctuation f(X,
+    N_i) (the address cases of gc_hist.pyx:1683-1700, 1740-1757)."""
+    mo = max_order
+    if x_idx[0] == i and x_idx[1] + 1 <= mo:
+        return (x_idx[0], x_idx[1] + 1, x_idx[2], x_idx[3], x_idx[4])
+    if x_idx[2] == i and x_idx[3] + 1 <= mo:
+        return (x_idx[0], x_idx[1], x_idx[2], x_idx[3] + 1, x_idx[4])
+    if x_idx[1] == 0:
+        return (i, 1, x_idx[2], x_idx[3], x_idx[4])
+    if x_idx[3] == 0:
+        return (x_idx[0], x_idx[1], i, 1, x_idx[4])
+    if x_idx[0] == x_idx[2] and (x_idx[1] + x_idx[3] <= mo):
+        return (x_idx[0], x_idx[1] + x_idx[3], i, 1, x_idx[4])
+    raise ValueError("max_order too low to take this derivative")
 
 
 def warm_sg_memo(h: Hist, meta, order: int = 2) -> dict:
@@ -87,34 +117,14 @@ class DerivEngine:
     def _prod(self, x: Addr, y: Addr) -> Addr:
         return mom_prod(tuple(x), tuple(y), self.meta.nspec, self.meta.max_order)
 
-    def _zero_power(self, a: Addr) -> bool:
-        return a[1] == 0 and a[3] == 0 and a[4] == 0
-
-    def _check_order(self, a: Addr):
-        mo = self.meta.max_order
-        if a[4] >= mo or a[3] >= mo or a[1] >= mo:
-            raise ValueError("max_order too low to take this derivative: %s" % (a,))
-
     def _memoized(self, key, fn):
         if key not in self._memo:
             self._memo[key] = fn()
         return self._memo[key]
 
     def _xni(self, x_idx: Addr, i: int):
-        """The X*N_i moment row of the semigrand fluctuation f(X, N_i)
-        (the address cases of gc_hist.pyx:1683-1700, 1740-1757)."""
-        mo = self.meta.max_order
-        if x_idx[0] == i and x_idx[1] + 1 <= mo:
-            return self.m((x_idx[0], x_idx[1] + 1, x_idx[2], x_idx[3], x_idx[4]))
-        if x_idx[2] == i and x_idx[3] + 1 <= mo:
-            return self.m((x_idx[0], x_idx[1], x_idx[2], x_idx[3] + 1, x_idx[4]))
-        if x_idx[1] == 0:
-            return self.m((i, 1, x_idx[2], x_idx[3], x_idx[4]))
-        if x_idx[3] == 0:
-            return self.m((x_idx[0], x_idx[1], i, 1, x_idx[4]))
-        if x_idx[0] == x_idx[2] and (x_idx[1] + x_idx[3] <= mo):
-            return self.m((x_idx[0], x_idx[1] + x_idx[3], i, 1, x_idx[4]))
-        raise ValueError("max_order too low to take this derivative")
+        """The X*N_i moment row of the semigrand fluctuation f(X, N_i)."""
+        return self.m(xni_addr(x_idx, i, self.meta.max_order))
 
     # ---------- grand-canonical averages & fluctuations ----------
 
@@ -210,9 +220,9 @@ class DerivEngine:
         x_idx = tuple(x_idx)
 
         def build():
-            if self._zero_power(x_idx):
+            if zero_power(x_idx):
                 return self._zeros()
-            self._check_order(x_idx)
+            check_order(x_idx, self.meta.max_order)
             opn = self.opn(n)
             f_XU = self.m((x_idx[0], x_idx[1], x_idx[2], x_idx[3], x_idx[4] + 1)) * opn - self.m(x_idx) * opn * self.m(
                 (0, 0, 0, 0, 1)
@@ -234,9 +244,9 @@ class DerivEngine:
         x_idx = tuple(x_idx)
 
         def build():
-            if self._zero_power(x_idx):
+            if zero_power(x_idx):
                 return self._zeros()
-            self._check_order(x_idx)
+            check_order(x_idx, self.meta.max_order)
             i = q + 1
             return self.beta * (self._xni(x_idx, i) - self.m(x_idx) * self.m((i, 1, 0, 0, 0)))
 
@@ -267,9 +277,9 @@ class DerivEngine:
         x_idx = tuple(x_idx)
 
         def build():
-            if self._zero_power(x_idx):
+            if zero_power(x_idx):
                 return self._zeros()
-            self._check_order(x_idx)
+            check_order(x_idx, self.meta.max_order)
             der = -self.sg_df_dB((x_idx, n), ((0, 0, 0, 0, 1), 0))
             for i in range(self.meta.nspec):
                 der = der + (self.mu[i] - self.mu[0]) * self.sg_df_dB((x_idx, n), ((i, 1, 0, 0, 0), 0))
@@ -286,9 +296,9 @@ class DerivEngine:
     def sg_d2X_dMU2(self, q: int, r: int, x_idx: Addr):
         """d2<X>_N/d(dMu_q)d(dMu_r).  (gc_hist.pyx:1829-1868)"""
         x_idx = tuple(x_idx)
-        if self._zero_power(x_idx):
+        if zero_power(x_idx):
             return self._zeros()
-        self._check_order(x_idx)
+        check_order(x_idx, self.meta.max_order)
         return self.beta * self.sg_df_dMU(q, x_idx, (r + 1, 1, 0, 0, 0))
 
     def sg_d2f_dB2(self, x_idx_t, y_idx_t):
@@ -309,9 +319,9 @@ class DerivEngine:
     def sg_d3X_dB3(self, x_idx: Addr, n: int = 0):
         """d3<X>_N/dB3; no KE corrections.  (gc_hist.pyx:1870-1912)"""
         x_idx = tuple(x_idx)
-        if self._zero_power(x_idx):
+        if zero_power(x_idx):
             return self._zeros()
-        self._check_order(x_idx)
+        check_order(x_idx, self.meta.max_order)
         der = -self.sg_d2f_dB2((x_idx, n), ((0, 0, 0, 0, 1), 0))
         for i in range(self.meta.nspec):
             der = der + (self.mu[i] - self.mu[0]) * self.sg_d2f_dB2((x_idx, n), ((i, 1, 0, 0, 0), 0))
@@ -497,9 +507,9 @@ class DerivEngineN1(DerivEngine):
         x_idx = tuple(x_idx)
 
         def build():
-            if self._zero_power(x_idx):
+            if zero_power(x_idx):
                 return self._zeros()
-            self._check_order(x_idx)
+            check_order(x_idx, self.meta.max_order)
             f_XU = self.m((x_idx[0], x_idx[1], x_idx[2], x_idx[3], x_idx[4] + 1)) - self.m(x_idx) * self.m((0, 0, 0, 0, 1))
             der = -f_XU
             for i in range(1, self.meta.nspec):
@@ -514,9 +524,9 @@ class DerivEngineN1(DerivEngine):
         x_idx = tuple(x_idx)
 
         def build():
-            if self._zero_power(x_idx):
+            if zero_power(x_idx):
                 return self._zeros()
-            self._check_order(x_idx)
+            check_order(x_idx, self.meta.max_order)
             der = -self.sg_df_dB((x_idx, 0), ((0, 0, 0, 0, 1), 0))
             for i in range(1, self.meta.nspec):
                 der = der + self.mu[i] * self.sg_df_dB((x_idx, 0), ((i, 1, 0, 0, 0), 0))

@@ -118,7 +118,9 @@ def mu_sweep_thermo(h: Hist, meta: HistMeta, mu_grid, props: bool = True, collec
 #   key'_k = key_k + dB sgB_k + sum_q dd_q sgM_qk
 #         + [order 2, not first_order_mom] 1/2 (dB^2 sgB2_k + 2 dB dd sgX_k + dd^2 sgM2_k)
 #
-# from mu-independent semigrand rows computed once per call (_mb_rows).
+# from mu-independent semigrand rows computed once per call: on the kernel
+# route by one launch of the row former (cuda_mb.mb_rows), elsewhere by
+# its plain version _mb_rows, bit for bit the same rows.
 # The plain version below and kernel K2 (cuda_mb) form x' in the same
 # association with elementwise products and sums only, so segmentation
 # agrees bit for bit.  tests/test_torch_mb.py holds the result against the
@@ -132,7 +134,8 @@ def _mb_rows(h: Hist, meta: HistMeta, order: int, props: bool, first_order_mom: 
     krows [G, S+1, N] (key, sgB, sgM..., then at order 2 unless
     first_order_mom sgB2, sgX, sgM2), or None without props.  The moment
     gate of the JAX engine's _mom_loop (j+m+p+order <= max_order) zeroes a
-    key-row derivative the moments are too short for."""
+    key-row derivative the moments are too short for.  The plain version
+    of the row former, cuda_mb.mb_rows (see _rows)."""
     S = meta.nspec
     eng = DerivEngine(h, meta)
     beta = h.curr_beta
@@ -171,6 +174,12 @@ def _mb_rows(h: Hist, meta: HistMeta, order: int, props: bool, first_order_mom: 
         if S == 2:
             groups += [group(2, cross), group(2, lambda a: eng.sg_d2X_dMU2(0, 0, a))]
     return torch.stack(xrows).contiguous(), torch.stack(groups).contiguous()
+
+
+def _rows(h: Hist, meta: HistMeta, order: int, props: bool, first_order_mom: bool, kernel: bool):
+    """_mb_rows' rows: one launch of the row former on the kernel route,
+    which raises for CPU tensors; else the plain _mb_rows."""
+    return (cuda_mb.mb_rows if kernel else _mb_rows)(h, meta, order, props, first_order_mom)
 
 
 def _mb_targets(h: Hist, meta: HistMeta, beta_grid, dmu_grid, order: int) -> torch.Tensor:
@@ -259,13 +268,15 @@ def _check_mb(meta: HistMeta, order: int) -> None:
         raise ValueError(f"the extrapolating sweep implements nspec 1-2 (the moment algebra's limit), got {meta.nspec}")
 
 
-def _mb_inputs(h: Hist, meta: HistMeta, mu_grid, beta_grid, dmu_grid, order: int, props: bool, first_order_mom: bool):
+def _mb_inputs(h: Hist, meta: HistMeta, mu_grid, beta_grid, dmu_grid, order: int, props: bool, first_order_mom: bool, kernel: bool = False):
+    """mu, a, xrows, krows, tg of the extrapolating sweep; kernel: the rows
+    from the row former (see _rows)."""
     _check_mb(meta, order)
     mu = torch.atleast_1d(torch.as_tensor(mu_grid, dtype=torch.float64, device=h.device)).contiguous()
     with profiling.span("fhmc.prologue.mb_targets"):
         tg = _mb_targets(h, meta, beta_grid, dmu_grid, order)
     with profiling.span("fhmc.prologue.mb_rows"):
-        xrows, krows = _mb_rows(h, meta, order, props, first_order_mom)
+        xrows, krows = _rows(h, meta, order, props, first_order_mom, kernel)
     return mu, _reweight_coeff(h, mu).contiguous(), xrows, krows, tg
 
 
@@ -310,16 +321,16 @@ def mu_beta_sweep_thermo(
     mu_sweep_thermo dict with leading axes [M, A].  order 1 or 2;
     first_order_mom keeps the moment rows at first order.
 
-    engine: "auto" follows the tensors' device: CUDA launches kernel K2
-    (cuda_mb) and raises for what it does not cover, CPU runs the plain
-    version.  "torch" forces the plain version on either device; "cuda"
+    engine: "auto" follows the tensors' device: CUDA launches the row
+    former and kernel K2 (cuda_mb) and raises for what they do not cover,
+    CPU runs the plain version.  "torch" forces the plain version on either device; "cuda"
     forces the kernel and raises for CPU tensors.  Nothing falls back.
     _lanes forces K2's lanes per point, as for mu_sweep_thermo.
     """
     _check_engine(engine, collect, _lanes)
     if engine == "torch" or (engine == "auto" and h.device.type != "cuda"):
         return mu_beta_sweep_body(h, meta, mu_grid, beta_grid, dmu_grid, order, props, first_order_mom, collect)
-    mu, a, xrows, krows, tg = _mb_inputs(h, meta, mu_grid, beta_grid, dmu_grid, order, props, first_order_mom)
+    mu, a, xrows, krows, tg = _mb_inputs(h, meta, mu_grid, beta_grid, dmu_grid, order, props, first_order_mom, kernel=True)
     flat = cuda_mb.mb_sweep_thermo(
         h.lnpi.contiguous(), h.op.contiguous(), xrows, krows, h.volume, mu, a, tg,
         meta.nspec, meta.smooth, meta.max_phases, order, props, first_order_mom, collect, _lanes=_lanes,

@@ -7,9 +7,9 @@ CUDA tensors it runs on kernel K1 (``cuda_sweep``) without extrapolation
 and on K2's paired mode (``cuda_mb``, one target per mu) with it, both at
 ``props=False``; on the CPU, or with ``engine="torch"``, on their plain
 versions (``pipeline.mu_sweep_body``, ``pipeline._mb_paired_body``).  The
-rows that depend on neither mu nor the target (K1's key rows, K2's
-``_mb_rows`` / ``_mb_targets``) are built once per solve; a solver step
-changes only the (mu, target) pairs.
+rows that depend on neither mu nor the target (K1's key rows, K2's rows
+from the row former or ``_mb_rows`` on the CPU, ``_mb_targets``) are
+built once per solve; a solver step changes only the (mu, target) pairs.
 
 ``nelder_mead_1d`` has scipy.optimize.fmin's 1-D update rules (the
 reference's solver call, gc_hist.pyx:653), batched over targets: the JAX
@@ -76,7 +76,7 @@ class _Objective:
         if extrapolate:
             pipeline._check_mb(meta, order)
             self.tg = pipeline._mb_targets(h, meta, betas, dmus, order)
-            self.xrows, self.krows = pipeline._mb_rows(h, meta, order, props_rows, False)
+            self.xrows, self.krows = pipeline._rows(h, meta, order, props_rows, False, self.kernel)
         elif self.kernel:
             self.keys = key_rows(h.mom, meta).contiguous()
         self._rows = {}

@@ -55,8 +55,11 @@
 // segmentation agrees bit for bit.  At identity targets every added term
 // is an exact zero and the kernel returns K1's output bit for bit.
 
+#include <string.h>
+
 #include "device_guard.cuh"
 #include "extrap_rows.cuh"
+#include "mb_rows.cuh"
 #include "thermo_tail.cuh"
 
 namespace {
@@ -232,6 +235,27 @@ int mb_sweep_thermo_launch(int device, void* stream, int G, int cap, const doubl
     case tail::WIDE: return (int)launch_g<tail::WIDE>(G, paired, g, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The row former (mb_rows.cuh), which writes the rows this kernel reads.
+// Ints in its Table, for the host's check of the layout (cuda_mb.TABLE_INTS).
+int mb_rows_table_ints() { return (int)(sizeof(mbrows::Table) / sizeof(int)); }
+
+// Launches the row former over N bins on `stream` and returns
+// cudaGetLastError() (0 on success) on `device`, leaving the thread's
+// current device as it found it.  Does not synchronise.  table: the host's
+// mb_rows_table_ints() ints of the Table (cuda_mb.rows_table), copied
+// into the launch's parameters; mom [n_addr, N], op [N], beta [], mu [S]
+// are device pointers, as are xrows and krows (null without props); the
+// caller has checked shapes, dtypes and devices.
+int mb_rows_launch(int device, void* stream, const int* table, const double* mom, const double* op, const double* beta,
+                   const double* mu, double* xrows, double* krows, int N) {
+  const fhmc::DeviceGuard on(device);  // the caller's current device is back on every return
+  if (on.status() != cudaSuccess) return (int)on.status();
+  if (N <= 0) return 0;
+  mbrows::Table t;
+  memcpy(&t, table, sizeof t);
+  return (int)mbrows::launch(t, mom, op, beta, mu, xrows, krows, N, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -128,7 +128,7 @@ def test_warm_sg_memo_matches_jax(name):
 
 
 def test_raises_where_jax_raises():
-    """_check_order: a derivative the moments are too short for."""
+    """check_order: a derivative the moments are too short for."""
     te, je = _engines("n31", False, max_order=2)
     for e in (te, je):
         with pytest.raises(ValueError, match="max_order too low"):

@@ -22,6 +22,9 @@ mode's point (m, tix[m]) bit for bit at each G.  The solver through the
 kernels ends where engine="torch" does: convergence equal, mu_star within
 1e-9 (the JAX package's bar between two trace engines), and the
 properties at its mu_star within 1e-10 of the plain version's.
+The row former (K2's rows in one launch) writes pipeline._mb_rows' rows
+bit for bit, once a sweep and once a source or solve, and the solver's
+and the isopleth's outputs from its rows equal those from the plain rows.
 The wide builds (64 phase slots; K1's 6 per-phase sums for nspec 3-4)
 are held the same way on the capacity inputs (torch_composites CAPACITY,
 ten_peak): K1 at max_phases 9, 16, 32 and 64 and at nspec 3 and 4, K2 in
@@ -52,7 +55,7 @@ import fhmcanalysis_torch.core.solve as TSV
 import fhmcanalysis_torch.core.state as TS
 from fhmcanalysis_torch.binary import isopleth
 from fhmcanalysis_torch.utils.profiling import counters
-from torch_composites import CAPACITY, CELLS, ISO31, ISO1400, capacity_cell, ripple1400, coex31_guesses, ten_peak, coex_grid, ISO_FIVE_DMU2, ISO_NARROW, ISO_PARTIAL, SURFACE_KINDS, cell, iso_grid_args, iso_sources, janus_surfaces, mb_grid, mu_window, port_histogram, random_surface, shuffled_mu_grid, worst_abs_diff
+from torch_composites import CAPACITY, CELLS, ISO31, ISO1400, ROW_CASES, ROW_MAX_ORDERS, capacity_cell, ripple1400, coex31_guesses, ten_peak, coex_grid, ISO_FIVE_DMU2, ISO_NARROW, ISO_PARTIAL, SURFACE_KINDS, cell, iso_grid_args, iso_sources, janus_surfaces, mb_grid, mu_window, port_histogram, random_surface, row_inputs, shuffled_mu_grid, worst_abs_diff
 
 IB = sys.modules["fhmcanalysis_torch.binary.isopleth"]
 
@@ -307,6 +310,112 @@ def test_mb_main_path_through_k2(cuda):
     assert counters().get("launches.k2", 0) == n0 + 1
     out = TP.mu_beta_sweep_thermo(h, TS.HistMeta(**dict(mk, max_phases=9)), mus, betas, dmus, order=2)
     assert counters().get("launches.k2", 0) == n0 + 2 and out["fe"].shape == (512, 16, 9)
+
+
+# The row former (cuda_mb.mb_rows): _mb_rows in one launch, bit for bit.
+
+
+def _bits_equal(got, want):
+    """Equal bit for bit (floats through their int64 view, so -0.0 and a
+    NaN's payload count too)."""
+    if isinstance(got, np.ndarray):
+        return got.dtype == want.dtype and got.shape == want.shape and got.tobytes() == want.tobytes()
+    if got.dtype == torch.float64:
+        return got.shape == want.shape and torch.equal(got.contiguous().view(torch.int64), want.contiguous().view(torch.int64))
+    return torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("used_ke", [False, True])
+@pytest.mark.parametrize("max_order", ROW_MAX_ORDERS)
+@pytest.mark.parametrize("name", ["n31", "n573", "n1400"])
+def test_mb_rows_equal_plain_bit_for_bit(cuda, name, max_order, used_ke):
+    """One launch of the row former writes _mb_rows' rows bit for bit on
+    the card, at N = 31, 573 and 1400, over orders 1-2, props, first_order_mom,
+    used_ke and max_order 1-4, on the cell's composite and on moments of
+    random normals; where _mb_rows raises, it raises the same before any
+    launch."""
+    xs, mk = row_inputs(name, max_order, used_ke)
+    meta = TS.HistMeta(**mk)
+    for x in xs:
+        h = TS.from_host(x, device=cuda)
+        for order, props, fom in ROW_CASES:
+            n0 = counters().get("launches.mb_rows", 0)
+            try:
+                want = TP._mb_rows(h, meta, order, props, fom)
+            except (ValueError, IndexError) as e:
+                with pytest.raises(type(e)):
+                    CM.mb_rows(h, meta, order, props, fom)
+                assert counters().get("launches.mb_rows", 0) == n0
+                continue
+            got = CM.mb_rows(h, meta, order, props, fom)
+            assert counters().get("launches.mb_rows", 0) == n0 + 1
+            assert _bits_equal(got[0], want[0]), (order, props, fom)
+            assert (got[1] is None) == (not props) and (not props or _bits_equal(got[1], want[1])), (order, props, fom)
+
+
+@pytest.mark.gpu
+def test_mb_rows_once_a_sweep(cuda):
+    """mu_beta_sweep_thermo on CUDA launches the row former once a call
+    ("cuda" and "auto"), the plain version ("torch") never; a Hist of more
+    than one state is refused before any launch."""
+    d, mk, mus, betas, dmus = mb_grid(M=64, A=4)
+    h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
+    for engine, launches in (("cuda", 1), ("auto", 1), ("torch", 0)):
+        n0 = counters().get("launches.mb_rows", 0)
+        TP.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=2, engine=engine)
+        assert counters().get("launches.mb_rows", 0) == n0 + launches, engine
+    n0 = counters().get("launches.mb_rows", 0)
+    with pytest.raises(ValueError, match="mb_rows: needs one state"):
+        CM.mb_rows(h.replace(lnpi=h.lnpi[None].expand(2, -1)), meta, 2, True, False)
+    assert counters().get("launches.mb_rows", 0) == n0
+
+
+def _plain_rows(monkeypatch):
+    """Route every caller of pipeline._rows to the plain _mb_rows."""
+    monkeypatch.setattr(TP, "_rows", lambda h, meta, order, props, fom, kernel: TP._mb_rows(h, meta, order, props, fom))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", [1, 2])
+def test_mb_rows_in_the_solver(cuda, order, monkeypatch):
+    """trace_coexistence on the kernel route builds its rows with the row
+    former, and its outputs equal those from the plain rows bit for bit."""
+    d, mk, betas, guess, kw = coex_grid(16)
+    kw = dict(kw, order=order)
+    h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
+    n0 = counters().get("launches.mb_rows", 0)
+    got = TSV.trace_coexistence(h, meta, betas, guess, **kw)
+    torch.cuda.synchronize()
+    assert counters().get("launches.mb_rows", 0) - n0 >= 1
+    _plain_rows(monkeypatch)
+    n0 = counters().get("launches.mb_rows", 0)
+    want = TSV.trace_coexistence(h, meta, betas, guess, **kw)
+    assert counters().get("launches.mb_rows", 0) == n0
+    assert set(got) == set(want)
+    for k in got:
+        assert _bits_equal(got[k], want[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", [1, 2])
+def test_mb_rows_in_the_isopleth(cuda, order, monkeypatch):
+    """make_grid on the kernel route forms each source's rows with one
+    launch of the row former, and its grid equals the one from the plain
+    rows bit for bit."""
+    grid = iso_grid_args(ISO31, NX=48, NY=12)
+    mu1_v, dmu2_v = np.linspace(*grid[0], 48), np.linspace(*grid[1], 12)
+    iso, srcs, _, lr, _ = _iso(cuda, "n31", order, 1.02, mu1_v, dmu2_v)
+    keys = ("Z", "density", "F.E./kT", "valid", "fail_code")
+    n0 = counters().get("launches.mb_rows", 0)
+    iso.make_grid(*grid, engine="cuda")
+    assert counters().get("launches.mb_rows", 0) - n0 == len(set(np.asarray(lr).ravel().tolist())) == len(srcs)
+    got = {k: iso.data[k].copy() for k in keys}
+    _plain_rows(monkeypatch)
+    iso.make_grid(*grid, engine="cuda")
+    assert got["valid"].mean() > 0.3
+    for k in keys:
+        assert _bits_equal(got[k], iso.data[k]), k
 
 
 @pytest.mark.gpu

@@ -84,21 +84,24 @@ def test_entry_spans_on_the_plain_engine(tmp_path, run, entry, inside):
     "run, entry, inside",
     [
         (_sweep, "fhmc.entry.mu_sweep", ["fhmc.launch.k1", "fhmc.prologue.reweight"]),
-        (_mb_sweep, "fhmc.entry.mb_sweep", ["fhmc.launch.k2", "fhmc.prologue.mb_rows", "fhmc.prologue.mb_targets"]),
+        (_mb_sweep, "fhmc.entry.mb_sweep", ["fhmc.launch.mb_rows", "fhmc.prologue.mb_rows", "fhmc.prologue.mb_targets"]),
     ],
     ids=["mu_sweep", "mb_sweep"],
 )
 def test_entry_spans_on_the_kernel_route(tmp_path, run, entry, inside):
-    """engine "cuda" on CPU tensors runs the kernel route's prologue, then
-    the wrapper's checks refuse the tensors inside its launch span; the
-    prologue ends before the launch starts."""
+    """engine "cuda" on CPU tensors runs the kernel route's prologue until
+    the first wrapper's checks refuse the tensors inside its launch span:
+    K1's, after the prologue has ended; in the extrapolating sweep the row
+    former's, which is the work of its rows' prologue and lies inside it,
+    after the targets' prologue has ended."""
     with TPr.trace(str(tmp_path)) as prof:
         with pytest.raises(ValueError, match="CUDA tensors"):
             run("cuda")
     spans = _spans(prof)
     assert _inside(spans, entry) == inside
-    launch = next(s for n, s, _ in spans if n.startswith("fhmc.launch."))
-    assert all(t <= launch for n, _, t in spans if n.startswith("fhmc.prologue."))
+    launch, end = next((s, t) for n, s, t in spans if n.startswith("fhmc.launch."))
+    assert all(t <= launch or (s <= launch and end <= t) for n, s, t in spans if n.startswith("fhmc.prologue."))
+    assert [n for n, s, t in spans if n.startswith("fhmc.prologue.") and s <= launch and end <= t] == (["fhmc.prologue.mb_rows"] if run is _mb_sweep else [])
 
 
 def test_make_grid_spans_and_copies(tmp_path):

@@ -133,6 +133,25 @@ def mb_grid(M: int | None = None, A: int | None = None, **over):
     return d, meta, mus, betas, dmus
 
 
+# The row former's grid (cuda_mb.mb_rows held to pipeline._mb_rows bit for
+# bit): every (order, props, first_order_mom) the extrapolating sweep
+# admits, first_order_mom only where it changes the rows (order 2 with
+# props), each over used_ke and ROW_MAX_ORDERS.
+ROW_CASES = [(o, p, f) for o in (1, 2) for p in (True, False) for f in (False, True) if not f or (o == 2 and p)]
+ROW_MAX_ORDERS = (1, 2, 3, 4)
+
+
+def row_inputs(name: str, max_order: int, used_ke: bool):
+    """((composite, random), meta kwargs) of the row former's checks on a
+    cell: its composite dict, and the same with every moment, beta and mu
+    drawn from normals, where no two addresses hold the same row, so a
+    wrong address cannot agree by chance."""
+    d, mk, _ = cell(name, 8, max_order=max_order, used_ke=used_ke)
+    rng = np.random.default_rng((CELLS[name]["N"], max_order, int(used_ke)))
+    rand = dict(d, mom=rng.normal(size=d["mom"].shape), curr_beta=float(rng.uniform(0.5, 2.0)), curr_mu=rng.normal(size=mk["nspec"]) * 3.0)
+    return (d, rand), mk
+
+
 # The coexistence cell: trace_coexistence on the n573 composite built at
 # max_order 3, in the JAX bench's coexistence shape (bench.py:797-815):
 # 256 betas evenly spaced, lnZ_tol 1e-6, min_width = 2 * smooth, order 1,
