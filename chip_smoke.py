@@ -238,8 +238,9 @@ EXP_OPS = 26
 
 
 def launch_count(kernel):
-    """Launches of kernel "k1", "k2", "k3" or "mb_rows" (the row former)
-    this process so far (the program's counters)."""
+    """Launches of kernel "k1", "k2", "k3" or "mb_rows" (the row former), or
+    "k2_xarea" (K2's that formed x' into its area), this process so far (the
+    program's counters)."""
     from fhmcanalysis_torch.utils import profiling
 
     return profiling.counters().get(f"launches.{kernel}", 0)
@@ -361,9 +362,9 @@ def ptxas_report(text):
     bytes, spill store bytes, static shared bytes)] from nvcc
     --ptxas-options=-v output: G, the phase-slot capacity and (K1) the
     per-phase sums from the kernel's template arguments, and " paired" after
-    the name of K2's paired-mode instantiation, " xm" after K3's
-    instantiation with the x_m area.  A tree from before the capacities has
-    G only (capacity None)."""
+    the name of K2's paired-mode instantiation, " xa" after K2's with the x'
+    area, " xm" after K3's with the x_m area.  A tree from before the
+    capacities has G only (capacity None)."""
     rows, fn, stack, spill = [], None, 0, 0
     for line in text.splitlines():
         if m := re.search(r"Function properties for (\S+)", line):
@@ -375,9 +376,12 @@ def ptxas_report(text):
             targs = re.search(r"_kernelI((?:L[ib]\d+E)+)E", fn)
             args = re.findall(r"L([ib])(\d+)E", targs.group(1)) if targs else []
             ints = [int(v) for t, v in args if t == "i"]
-            flag = ("b", "1") in args
+            flags = [v == "1" for t, v in args if t == "b"]
             name = kname.group(1) if kname else fn
-            name += (" xm" if name.startswith("iso_grid") else " paired") if flag else ""
+            if name.startswith("iso_grid"):
+                name += " xm" if any(flags) else ""
+            else:
+                name += (" paired" if flags and flags[0] else "") + (" xa" if len(flags) > 1 and flags[1] else "")
             smem = re.search(r"(\d+) bytes smem", line)
             rows.append((name, ints[0] if ints else None, ints[1] if len(ints) > 1 else None, ints[2] if len(ints) > 2 else None,
                          int(m.group(1)), stack, spill, int(smem.group(1)) if smem else 0))
@@ -447,18 +451,21 @@ class Ctx:
                     f": {r} registers, {st} bytes stack, {sp} bytes spill stores, {sm} bytes smem")
                 if slots is not None and c is not None:
                     # the block's static shared memory is its index slots, and K3's staged-source list or K1's and K2's row tile
-                    want = self.shared_bytes(mod, g, c)
+                    want = self.shared_bytes(mod, g, c, k)
                     if sm != want:
                         raise AssertionError(f"ptxas: {k} G={g} cap={c} reserves {sm} bytes of static shared memory; cuda_sweep counts {want}")
         return report
 
-    def shared_bytes(self, mod, G, cap):
+    def shared_bytes(self, mod, G, cap, kernel=""):
         """The static shared bytes the host counts for a block of mod's
         kernel: K3 its index slots and staged-source list (G < 32), K1 and
         K2 their index slots and row tile (a tree without the row tile:
-        the slots alone)."""
+        the slots alone), K2's build with the x' area those of its own
+        block of cuda_mb.XAREA_THREADS points."""
         if mod is self.cuda_iso:
             return self.cuda_sweep.slot_bytes(G, cap) + (self.cuda_iso.LIST_BYTES if G < 32 else 0)
+        if kernel.endswith(" xa"):
+            return self.cuda_mb.xarea_static_bytes(cap)
         return getattr(self.cuda_sweep, "shared_bytes", self.cuda_sweep.slot_bytes)(G, cap)
 
     def hist(self, d):
@@ -1605,7 +1612,7 @@ def capacity_phase(C, ptxas):
         M, N, S = mus.shape[0], h.nbins, meta.nspec
         for order in (1, 2):
             cname = f"multi573 P={P} o{order}"
-            start_k2 = launch_count("k2")
+            start_k2, start_xa = launch_count("k2"), launch_count("k2_xarea")
             torch.cuda.reset_peak_memory_stats()
             out = pipeline.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order, props=True)
             torch.cuda.synchronize()
@@ -1613,6 +1620,8 @@ def capacity_phase(C, ptxas):
             k_peak = torch.cuda.max_memory_allocated() / 2**30
             if launches != 1 or out["fe"].shape != (M, A, P):
                 raise AssertionError(f"capacity K2 {cname}: {launches} launches, fe {tuple(out['fe'].shape)}")
+            if launch_count("k2_xarea") != start_xa:
+                raise AssertionError(f"capacity K2 {cname}: N = {h.nbins} took the x' area, which does not fit there")
             torch.cuda.reset_peak_memory_stats()
             want, p_ms = once_ms(lambda: pipeline.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order, props=True, engine="torch"))
             p_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1707,7 +1716,7 @@ def capacity_phase(C, ptxas):
     for kname, rows in ptxas.items():
         for r in rows:
             if r["capacity"] == cuda_sweep.CAPACITIES[-1]:
-                counted = C.shared_bytes(mods[kname], r["lanes"], r["capacity"])
+                counted = C.shared_bytes(mods[kname], r["lanes"], r["capacity"], r["kernel"])
                 areas = {c: v for (c, G), v in xm_areas.items() if G == r["lanes"] and v} if r["kernel"].endswith(" xm") else {}
                 builds.append(dict(r, library=kname, slot_bytes=cuda_sweep.slot_bytes(r["lanes"], r["capacity"]), shared_bytes_counted=counted, xm_bytes=areas))
                 log(f"capacity ptxas {r['kernel']} G={r['lanes']} cap={r['capacity']}" + (f" sums={r['sums']}" if r["sums"] else "") +
@@ -2327,14 +2336,14 @@ def run():
             f"plain {p_ms:.3f} ms = {B / p_ms * 1e3:.4g} points/s (peak {peak:.2f} GiB) | bound {b_ms:.4f} ms by {b_by} ({ops:.4g} f64 ops) | {smi}"
         )
 
-    mb_runs, rows_main = {}, {}  # rows_main: the row former's launches on each main path
+    mb_runs, rows_main, xarea_main = {}, {}, {}  # the row former's launches, and K2's that took the x' area, on each main path
     d, mk, mus_np, betas, dmus = TC.mb_grid()
     h, meta = hist(d), state.HistMeta(**mk)
     mus = torch.as_tensor(mus_np, device=dev)
     M, A = mus.shape[0], betas.shape[0]
     for order in MB_ORDERS:
         cname = f"mb31_o{order}"
-        start_k2, start_rows = launch_count("k2"), launch_count("mb_rows")
+        start_k2, start_rows, start_xa = launch_count("k2"), launch_count("mb_rows"), launch_count("k2_xarea")
         out = pipeline.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order, props=True)
         torch.cuda.synchronize()
         launches, rows_main[cname] = launch_count("k2") - start_k2, launch_count("mb_rows") - start_rows
@@ -2342,6 +2351,9 @@ def run():
             raise AssertionError(f"{cname}: the main path launched K2 {launches} times")
         if rows_main[cname] != 1:
             raise AssertionError(f"{cname}: the main path launched the row former {rows_main[cname]} times (one a call)")
+        xarea_main[cname] = launch_count("k2_xarea") - start_xa
+        if xarea_main[cname] != launches:
+            raise AssertionError(f"{cname}: {xarea_main[cname]} of the main path's {launches} K2 launches formed x' into the area (all of them should)")
         if out["fe"].shape != (M, A, meta.max_phases) or out["x_i"].shape != (M, A, meta.max_phases, meta.nspec):
             raise AssertionError(f"{cname}: unexpected output shapes")
         valid = out["valid"]
@@ -2373,7 +2385,7 @@ def run():
         key_ops = (S + 1) * (2 + 2 + 2 + (7 if order == 2 else 0))  # key' per row (dB, dd, order-2 terms), then its multiply-add
         ops = tail_ops(mb_flat(out), B, h.nbins, meta.smooth, x_ops, key_ops)
         b_ms, b_by = bound([h.lnpi, h.op, xrows, krows, h.volume, mu_t, a, tg], out.values(), ops)
-        mb_runs[cname] = dict(M=M, A=A, B=B, N=h.nbins, order=order, lanes=cuda_mb.lanes_per_point(h.nbins, M * A, n_sm), launches=launches, kernel_ms=k_ms, plain_ms=p_ms, auto_ms=e_ms,
+        mb_runs[cname] = dict(M=M, A=A, B=B, N=h.nbins, order=order, lanes=cuda_mb.lanes_per_point(h.nbins, M * A, n_sm), launches=launches, xarea_launches=xarea_main[cname], kernel_ms=k_ms, plain_ms=p_ms, auto_ms=e_ms,
                               phases=nph[1:3], valid_share=share, bound_ms=b_ms, bound_by=b_by, ops=ops, covered_bins=covered_bins(mb_flat(out)))
         log(
             f"main path {cname}: N={h.nbins} M={M} A={A} B={B} G={mb_runs[cname]['lanes']} launches={launches} valid share {share:.6f} phases(1,2)={nph[1:3]} | "
@@ -2551,6 +2563,9 @@ def run():
     launches, rows_main["coex573"] = launch_count("k2") - start_k2, launch_count("mb_rows") - start.get("launches.mb_rows", 0)
     if rows_main["coex573"] < 1:
         raise AssertionError("coex573: the main path never launched the row former")
+    xarea_main["coex573"] = launch_count("k2_xarea") - start.get("launches.k2_xarea", 0)
+    if xarea_main["coex573"] != 0:
+        raise AssertionError(f"coex573: {xarea_main['coex573']} paired steps (G = 32) took K2's x' area")
     steps, syncs = (prof_mod.counters().get(k, 0) - start.get(k, 0) for k in ("solver.steps", "host_syncs"))
     if launches < 3:
         raise AssertionError(f"coex573: the main path launched K2 {launches} times (the start, the steps and the properties need 3 or more)")

@@ -10,6 +10,10 @@ why).  So K2 is K1's tail (``csrc/thermo_tail.cuh``) fed a richer x'(i)
 and richer key rows, both recomputed from a few mu-independent rows; the
 source is ``csrc/mb_sweep_thermo.cu``, G lanes per point with K1's rule
 (``cuda_sweep.lanes_per_point``), and its header says what bounds it.
+Where ``xarea_fits`` holds (G = 1 and N up to 33-36) each point's x' is
+formed once a bin into an area of shared memory, and elsewhere at every
+read of it; counter ``launches.k2_xarea`` counts the launches that take the
+area.
 
 The plain version of this kernel is ``pipeline.mu_beta_sweep_body``;
 nothing on the CUDA path calls it.  ``pipeline.mu_beta_sweep_thermo``
@@ -44,9 +48,19 @@ from .. import _build
 from ..utils import profiling
 from .derivs import check_order, xni_addr, zero_power
 from .moments import mom_prod
-from .cuda_sweep import MAX_PHASES, capacity, check_capacities, check_lanes, lanes_per_point, sm_count  # noqa: F401  (MAX_PHASES: the kernel's, as cuda_sweep's)
+from .cuda_sweep import CAPACITIES, LANES, MAX_PHASES, capacity, check_capacities, check_lanes, lanes_per_point, sm_count  # noqa: F401  (MAX_PHASES: the kernel's, as cuda_sweep's)
 
 NAME = "mb_sweep_thermo"
+# K2's x' area (csrc/mb_sweep_thermo.cu): shared memory of one Hopper SM,
+# what the runtime keeps of it for each resident block, the points of a
+# block of the area's build, the blocks an SM it is made for, and the most
+# rows a block stages beside the area (lnpi, op, 5 x-rows, 18 key rows:
+# nspec 2, order 2, props)
+SMEM_SM = 233_472
+SMEM_RESERVED = 1_024
+XAREA_THREADS = 64
+XAREA_MIN_BLOCKS = 8
+XAREA_ROWS = 25
 
 
 def n_xrows(S: int, order: int) -> int:
@@ -58,11 +72,58 @@ def n_groups(S: int, order: int, first_order_mom: bool) -> int:
     return 1 + S + (0 if order < 2 or first_order_mom else (1 if S == 1 else 3))
 
 
+def xarea_bytes(G: int, N: int) -> int:
+    """Bytes of K2's x' area a block: N doubles for each of its points."""
+    return XAREA_THREADS // G * N * 8
+
+
+def xarea_fits(G: int, cap: int, N: int) -> bool:
+    """Whether K2 at G lanes a point, in the build of cap phase slots,
+    forms each point's x' once a bin into an area of shared memory (else
+    on every read): at G = 1 where a block's area, its index slots and row
+    tile and the most rows it stages (XAREA_ROWS) leave the
+    XAREA_MIN_BLOCKS blocks an SM its build is made for.
+    csrc/mb_sweep_thermo.cu decides; this counts it the same way on the
+    host (the library is held to it as it loads, and a GPU test over every
+    N)."""
+    if G != 1:
+        return False
+    block = xarea_bytes(G, N) + XAREA_ROWS * N * 8 + xarea_static_bytes(cap) + SMEM_RESERVED
+    return XAREA_MIN_BLOCKS * block <= SMEM_SM
+
+
+def xarea_static_bytes(cap: int) -> int:
+    """Static shared bytes of a block of K2's build with the x' area, of
+    XAREA_THREADS points: its index slots in the build of 8 slots, its row
+    tile (1 KB a warp) in that of 64 (chip_smoke.py holds them to the
+    ptxas lines)."""
+    T = XAREA_THREADS
+    return (2 * cap + 1) * 4 * T if cap <= CAPACITIES[0] else T // 32 * 1024
+
+
+def xarea_limit(G: int, cap: int) -> int:
+    """The largest N that xarea_fits admits (0 if none)."""
+    n = 0
+    while xarea_fits(G, cap, n + 1):
+        n += 1
+    return n
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     """Declare the library's C signatures and check its builds against this module."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mb_sweep_thermo_launch.argtypes = [i, p, i, i] + [p] * 9 + [i] * 10 + [p] * 11
+    lib.mb_sweep_thermo_launch.argtypes = [i, p, i, i, i] + [p] * 9 + [i] * 10 + [p] * 11
     lib.mb_sweep_thermo_launch.restype = i
+    lib.mb_sweep_thermo_xarea_fits.argtypes = [i] * 3
+    lib.mb_sweep_thermo_xarea_fits.restype = i
+    lib.mb_sweep_thermo_blocks_per_sm.argtypes = [i] * 10
+    lib.mb_sweep_thermo_blocks_per_sm.restype = i
+    for G in LANES:
+        for cap in CAPACITIES:
+            top = xarea_limit(G, cap)
+            for N in {1, 31, top, top + 1, 573}:
+                if bool(lib.mb_sweep_thermo_xarea_fits(G, cap, N)) != xarea_fits(G, cap, N):
+                    raise RuntimeError(f"{NAME}: the library's x' area rule disagrees with cuda_mb.xarea_fits at G={G}, cap={cap}, N={N}")
     lib.mb_sweep_thermo_error_string.argtypes = [i]
     lib.mb_sweep_thermo_error_string.restype = ctypes.c_char_p
     lib.mb_rows_launch.argtypes = [i, p, ctypes.POINTER(ctypes.c_int)] + [p] * 6 + [i]
@@ -112,7 +173,7 @@ def _check_tix(tix, mu, A: int, dev) -> None:
 @profiling.spanned("fhmc.launch.k2")
 def mb_sweep_thermo(
     lnpi, op, xrows, krows, volume, mu, a, tg, nspec: int, smooth: int, max_phases: int, order: int = 1,
-    props: bool = True, first_order_mom: bool = False, collect=None, *, tix=None, _lanes=None,
+    props: bool = True, first_order_mom: bool = False, collect=None, *, tix=None, _lanes=None, _xarea=None,
 ) -> dict:
     """Launch K2 for the M x A points (mu_m, target_t), b = m * A + t, or
     with ``tix`` for the M points (mu_b, target tix[b]).
@@ -131,10 +192,16 @@ def mb_sweep_thermo(
     range at launch comes back invalid).
 
     _lanes forces G, the lanes per point (tests and chip_smoke.py); by
-    default ``lanes_per_point`` picks it, as for K1.
+    default ``lanes_per_point`` picks it, as for K1.  _xarea (True /
+    False) forces x' formed once into the area or on every read (tests;
+    the area only at G = 1); by default ``xarea_fits`` picks.  An area
+    past what the card grants a block fails the launch, which raises.
+    Either way the outputs are the same bits.
     """
     if _lanes is not None:
         check_lanes(_lanes)
+    if _xarea not in (None, True, False):
+        raise ValueError(f"mb_sweep_thermo: _xarea must be None, True or False, got {_xarea!r}")
     S = nspec
     tensors = {"lnpi": lnpi, "op": op, "xrows": xrows, "volume": volume, "mu": mu, "a": a, "tg": tg}
     if props:
@@ -175,6 +242,9 @@ def mb_sweep_thermo(
 
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     G = lanes_per_point(N, B, sm_count(index), P) if _lanes is None else _lanes
+    xarea = xarea_fits(G, cap, N) if _xarea is None else _xarea
+    if xarea and G != 1:
+        raise ValueError(f"mb_sweep_thermo: the x' area is the layout of one lane a point, not G={G}")
     f64 = dict(dtype=torch.float64, device=dev)
     out = {
         "fe": torch.empty((B, P), **f64),
@@ -195,7 +265,7 @@ def mb_sweep_thermo(
     ptr = {k: v.data_ptr() for k, v in out.items()}
     lib = _lib()
     rc = lib.mb_sweep_thermo_launch(
-        index, torch.cuda.current_stream(dev).cuda_stream, G, cap,
+        index, torch.cuda.current_stream(dev).cuda_stream, G, cap, int(xarea),
         lnpi.data_ptr(), op.data_ptr(), xrows.data_ptr(), krows.data_ptr() if props else None,
         volume.data_ptr(), mu.data_ptr(), a.data_ptr(), tg.data_ptr(), None if tix is None else tix.data_ptr(),
         M, A, N, S, P, smooth, order, int(props), int(first_order_mom and order >= 2), int(collect == "janus"),
@@ -205,6 +275,8 @@ def mb_sweep_thermo(
     if rc != 0:
         raise RuntimeError(f"mb_sweep_thermo kernel launch failed: {lib.mb_sweep_thermo_error_string(rc).decode()} ({rc})")
     profiling.add("launches.k2")
+    if xarea:
+        profiling.add("launches.k2_xarea")
     return out
 
 

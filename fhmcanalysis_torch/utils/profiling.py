@@ -87,7 +87,9 @@ def add(name: str, n=1) -> None:
 def counters() -> dict:
     """A snapshot of every counter: name -> its total in this process.
 
-    ``launches.k1`` / ``k2`` / ``k3``: kernel launches; ``host_syncs``:
+    ``launches.k1`` / ``k2`` / ``k3``: kernel launches; ``launches.k2_xarea``:
+    K2's launches that formed x' once into its shared-memory area;
+    ``launches.mb_rows``: the row former's launches; ``host_syncs``:
     reads of a tensor's value back to the host by the program's own code;
     ``solver.steps``: Nelder-Mead steps; ``kernel.loads`` /
     ``kernel.load_s``: kernel libraries loaded and checked, and the seconds

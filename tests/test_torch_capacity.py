@@ -303,6 +303,34 @@ def test_row_tile_and_shared_bytes():
     assert n573 + CS.shared_bytes(1, 64) <= CS.STATIC_SMEM
 
 
+# K2's x' area: the largest N it admits at G = 1, by build (cuda_mb.xarea_fits)
+XAREA_TOP = {8: 33, 64: 36}
+
+
+@pytest.mark.parametrize("N", [31, "top", "top+1", 573, 1400])
+@pytest.mark.parametrize("cap", CS.CAPACITIES)
+@pytest.mark.parametrize("G", CS.LANES)
+def test_mb_xarea_fits(G, cap, N):
+    """K2 forms x' once a bin into shared memory at G = 1 where a block's
+    area (64 points of N doubles), its index slots (4,352 bytes in the
+    build of 8 slots) or row tile (2,048 in the build of 64), the most rows
+    it stages (25 of N doubles) and the runtime's 1 KB leave eight blocks in
+    an SM's 228 KB; never at G = 32, nor at N = 573 or 1400."""
+    top = XAREA_TOP[cap]
+    n = {"top": top, "top+1": top + 1}.get(N, N)
+    block = 64 * n * 8 + 25 * n * 8 + {8: 4_352, 64: 2_048}[cap] + 1_024
+    want = G == 1 and 8 * block <= 228 * 1024
+    assert CM.xarea_fits(G, cap, n) == want == (G == 1 and n <= top)
+    assert CM.xarea_limit(G, cap) == (top if G == 1 else 0)
+    assert CM.xarea_bytes(G, n) == 64 // G * n * 8
+
+
+def test_mb_xarea_argument_checked_first():
+    """_xarea takes None, True or False, checked before any tensor is."""
+    with pytest.raises(ValueError, match="_xarea must be None, True or False"):
+        CM.mb_sweep_thermo(*[None] * 8, 2, 1, 4, _xarea="on")
+
+
 def test_iso_staged_sources_count():
     """K3's staging at G = 1: a block's 256 cells span (255 // NX) + 2 rows,
     2 sources each, staged where they fit beside the build's slots and the

@@ -37,7 +37,11 @@ wide build, which forms each cell's x_m once in shared memory where a
 block's area fits, is held on overflow31 and overflow1400 (ripple1400)
 against its plain version and bit for bit against x_m formed on read;
 the host's count of the area equals the library's, and an area forced
-past what the card grants raises.
+past what the card grants raises.  K2's x' area (each point's x' formed
+once a bin into shared memory at G = 1 and small N) returns the re-forming
+route's outputs bit for bit over orders, nspec, props, first_order_mom,
+janus, both modes and both builds; the host's rule equals the library's,
+and launches.k2_xarea counts the launches that take it.
 """
 
 import sys
@@ -55,7 +59,7 @@ import fhmcanalysis_torch.core.solve as TSV
 import fhmcanalysis_torch.core.state as TS
 from fhmcanalysis_torch.binary import isopleth
 from fhmcanalysis_torch.utils.profiling import counters
-from torch_composites import CAPACITY, CELLS, ISO31, ISO1400, ROW_CASES, ROW_MAX_ORDERS, capacity_cell, ripple1400, coex31_guesses, ten_peak, coex_grid, ISO_FIVE_DMU2, ISO_NARROW, ISO_PARTIAL, SURFACE_KINDS, cell, iso_grid_args, iso_sources, janus_surfaces, mb_grid, mu_window, port_histogram, random_surface, row_inputs, shuffled_mu_grid, worst_abs_diff
+from torch_composites import CAPACITY, CELLS, make_composite, ISO31, ISO1400, ROW_CASES, ROW_MAX_ORDERS, capacity_cell, ripple1400, coex31_guesses, ten_peak, coex_grid, ISO_FIVE_DMU2, ISO_NARROW, ISO_PARTIAL, SURFACE_KINDS, cell, iso_grid_args, iso_sources, janus_surfaces, mb_grid, mu_window, port_histogram, random_surface, row_inputs, shuffled_mu_grid, worst_abs_diff
 
 IB = sys.modules["fhmcanalysis_torch.binary.isopleth"]
 
@@ -919,6 +923,141 @@ def test_find_phase_eq_state_k1_matches_torch(cuda):
     _, mus_t, err_t, conv_t = TSV.find_phase_eq_state(h, meta, kw["lnZ_tol"], guesses, min_width=kw["min_width"], engine="torch")
     assert torch.equal(conv, conv_t) and conv.all()
     assert float((mus - mus_t).abs().max()) <= 1e-9 and float(err.max()) <= kw["lnZ_tol"] ** 2
+
+
+# ---------------------------------------------------------------------------
+# K2's x' area: where cuda_mb.xarea_fits holds (G = 1, small N), each point's
+# x' is formed once a bin into shared memory; elsewhere it is re-formed at
+# every read.  The two routes return the same bits; both hold against the
+# plain version at the kernels' bar.
+# ---------------------------------------------------------------------------
+
+
+def _xarea_inputs(cuda, N, nspec, max_phases, M=256, A=8):
+    """(h, meta, mus, betas, dmus) of a two-phase composite of N bins and
+    nspec species, max_order 3, smooth 1, with M mu over its window and A
+    (beta, dMu) targets."""
+    c = dict(CELLS["n31"], N=N, nspec=nspec, mu0=(5.0, 0.0)[:nspec])
+    d = make_composite(**dict(c, max_order=3))
+    mus = np.linspace(*mu_window(**c), M)
+    meta = TS.HistMeta(nspec=nspec, max_order=3, used_ke=False, smooth=1, max_phases=max_phases)
+    dmus = (d["curr_mu"][1:] - d["curr_mu"][0]) + np.linspace(-0.5, 0.5, A)[:, None] if nspec == 2 else np.zeros((1, 0))
+    return TS.from_host(d, device=cuda), meta, mus, np.linspace(0.92, 1.08, A), dmus
+
+
+def _k2_launch(h, meta, inputs, order, props, fom, collect, **kw):
+    mu, a, xrows, krows, tg = inputs
+    return CM.mb_sweep_thermo(h.lnpi, h.op, xrows, krows if props else None, h.volume, mu, a, tg, meta.nspec, meta.smooth, meta.max_phases, order, props, fom, collect, **kw)
+
+
+@pytest.mark.gpu
+def test_mb_xarea_rule_host_equals_library(cuda):
+    """cuda_mb.xarea_fits (the host's rule) equals the library's for every
+    G, build and N up to 2,048, and where it holds the area's build keeps
+    at least two blocks an SM with the most rows a block stages; the
+    re-form route at G = 1 keeps its three."""
+    lib = CM._lib()
+    for G in CS.LANES:
+        for cap in CS.CAPACITIES:
+            for N in list(range(1, 2049)) + [4096]:
+                assert bool(lib.mb_sweep_thermo_xarea_fits(G, cap, N)) == CM.xarea_fits(G, cap, N), (G, cap, N)
+    for cap in CS.CAPACITIES:
+        top = CM.xarea_limit(1, cap)
+        assert top >= 31
+        for paired in (0, 1):
+            for N in (31, top):
+                assert lib.mb_sweep_thermo_blocks_per_sm(0, 1, cap, -1, paired, N, 2, 2, 1, 0) >= CM.XAREA_MIN_BLOCKS, (cap, paired, N)
+            assert lib.mb_sweep_thermo_blocks_per_sm(0, 1, cap, 0, paired, 31, 2, 2, 1, 0) >= 3, (cap, paired)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("props", [True, False])
+@pytest.mark.parametrize("order,fom", [(1, False), (2, False), (2, True)])
+@pytest.mark.parametrize("nspec", [1, 2])
+@pytest.mark.parametrize("at", ["31", "top"])
+@pytest.mark.parametrize("max_phases", [4, 16])
+def test_mb_xarea_bits_equal_reform(cuda, max_phases, at, nspec, order, fom, props, collect):
+    """At G = 1 the area route and the re-form route return every output
+    field bit for bit, in the product and the paired mode, in the build of
+    8 slots and of 64, at N = 31 and at the largest N the rule admits
+    (where the rule picks the area, and one bin more it does not); both
+    agree with the plain version."""
+    cap = CS.capacity(max_phases)
+    N = 31 if at == "31" else CM.xarea_limit(1, cap)
+    h, meta, mus, betas, dmus = _xarea_inputs(cuda, N, nspec, max_phases)
+    inputs = TP._mb_inputs(h, meta, mus, betas, dmus, order, props, fom, kernel=True)
+    M, A = len(mus), len(betas)
+    tix = torch.as_tensor(np.random.default_rng(N + nspec).integers(0, A, size=M), dtype=torch.int32, device=cuda)
+    want = TP.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order, props=props, first_order_mom=fom, collect=collect, engine="torch")
+    want_p = TP._mb_paired_body(h, meta, *inputs, tix, order, props, collect)
+    for mode, t, ref in (("product", None, {k: v.reshape(M * A, *v.shape[2:]) for k, v in want.items()}), ("paired", tix, want_p)):
+        n0, x0 = counters().get("launches.k2", 0), counters().get("launches.k2_xarea", 0)
+        area = _k2_launch(h, meta, inputs, order, props, fom, collect, tix=t, _lanes=1)
+        reform = _k2_launch(h, meta, inputs, order, props, fom, collect, tix=t, _lanes=1, _xarea=False)
+        forced = _k2_launch(h, meta, inputs, order, props, fom, collect, tix=t, _lanes=1, _xarea=True)
+        torch.cuda.synchronize()
+        assert counters().get("launches.k2", 0) == n0 + 3 and counters().get("launches.k2_xarea", 0) == x0 + 2, mode
+        assert set(area) == set(ref)
+        for k in area:
+            assert _bits_equal(area[k], reform[k]) and _bits_equal(forced[k], area[k]), (mode, k)
+        ok = (ref["mask"] & ref["valid"][:, None]).cpu()
+        for k in SEG:
+            assert torch.equal(area[k], ref[k]), (mode, k)
+        for k in ("fe",) + (PROPS if props else ()):
+            assert worst_abs_diff(area[k].cpu(), ref[k].cpu(), ok) <= 1e-10, (mode, k)
+    if at == "top":
+        # one bin more: the rule re-forms on read
+        h, meta, mus, betas, dmus = _xarea_inputs(cuda, N + 1, nspec, max_phases)
+        inputs = TP._mb_inputs(h, meta, mus, betas, dmus, order, props, fom, kernel=True)
+        x0 = counters().get("launches.k2_xarea", 0)
+        reform = _k2_launch(h, meta, inputs, order, props, fom, collect, _lanes=1)
+        area = _k2_launch(h, meta, inputs, order, props, fom, collect, _lanes=1, _xarea=True)
+        torch.cuda.synchronize()
+        assert counters().get("launches.k2_xarea", 0) == x0 + 1
+        for k in area:
+            assert _bits_equal(area[k], reform[k]), k
+
+
+@pytest.mark.gpu
+def test_mb_xarea_refused_where_it_cannot_run(cuda):
+    """The area is the layout of one lane a point: forced at G = 32 it
+    raises before any launch; forced past what a block may opt in to
+    (N = 1400 at G = 1) the launch fails and raises."""
+    h, meta, mus, betas, dmus = _mb_inputs(cuda, "n1400", M=64, A=2)
+    inputs = TP._mb_inputs(h, meta, mus, betas, dmus, 1, True, False, kernel=True)
+    n0 = counters().get("launches.k2", 0)
+    with pytest.raises(ValueError, match="one lane a point"):
+        _k2_launch(h, meta, inputs, 1, True, False, None, _lanes=32, _xarea=True)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _k2_launch(h, meta, inputs, 1, True, False, None, _lanes=1, _xarea=True)
+    with pytest.raises(ValueError, match="_xarea must be"):
+        _k2_launch(h, meta, inputs, 1, True, False, None, _xarea="on")
+    assert counters().get("launches.k2", 0) == n0
+
+
+@pytest.mark.gpu
+def test_mb_xarea_counter_by_route(cuda):
+    """launches.k2_xarea advances once for each sweep at N = 31 (G = 1 by the
+    rule), and not for a sweep at N = 573 at G = 1 nor for the solver's
+    paired steps (G = 32)."""
+    d, mk, mus, betas, dmus = mb_grid(M=512, A=16)
+    h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
+    for _ in range(2):
+        n0, x0 = counters().get("launches.k2", 0), counters().get("launches.k2_xarea", 0)
+        TP.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=2)
+        assert counters().get("launches.k2", 0) - n0 == counters().get("launches.k2_xarea", 0) - x0 == 1
+    h, meta, mus, betas, dmus = _mb_inputs(cuda, "n573", M=1024, A=64)
+    assert CS.lanes_per_point(h.nbins, 1024 * 64, CS.sm_count(0)) == 1
+    n0, x0 = counters().get("launches.k2", 0), counters().get("launches.k2_xarea", 0)
+    TP.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=2)
+    assert counters().get("launches.k2", 0) - n0 == 1 and counters().get("launches.k2_xarea", 0) == x0
+    d, mk, betas, guess, kw = coex_grid(16)
+    h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
+    n0 = counters().get("launches.k2", 0)
+    TSV.trace_coexistence(h, meta, betas, guess, **kw)
+    torch.cuda.synchronize()
+    assert counters().get("launches.k2", 0) - n0 >= 3 and counters().get("launches.k2_xarea", 0) == x0
 
 
 # ---------------------------------------------------------------------------
