@@ -134,14 +134,15 @@ Phases (each raises on failure, so any failure exits non-zero):
      1400) at 8 slots (fail code 3 everywhere) and, with the sources'
      _meta raised, at 16 and 64 (overflow31: every cell ok; overflow1400:
      some cells ok at 16, most at 64), the bare K3 wrapper at 16
-     and 64 forced to G = 1 and 32 against the plain version, and K3's x_m
-     area counted on the host against the library's; kernel ms (median
+     and 64 forced to G = 1 and 32 against the plain version, and the
+     x_m area K3's library reserves; kernel ms (median
      of 3), plain ms (one run), make_grid ms, launches, bound, peak GiB,
      and layout lines of K1, K2 and K3 at 16 and 64 slots (K3 at N = 31
      and 1400); each wide build's ptxas registers, stack, spill stores and
-     static shared bytes beside the host's count (cuda_sweep.shared_bytes:
-     the index slots and K1's and K2's row tile; phase 2 holds every
-     build's shared bytes to it), K3's with its dynamic x_m area; a
+     static shared bytes beside its library's count (<name>_static_smem:
+     the index slots, and K1's and K2's row tile or K3's staged-source
+     list; phase 2 holds every build's shared bytes to it), K3's with its
+     dynamic x_m area; a
      {"capacity": ...} line;
   5g. the reference-notebook workflows of examples/torch_*.py, each run on
      the card with in-memory inputs (tests/torch_windows.example_inputs:
@@ -406,7 +407,11 @@ class Ctx:
         from fhmcanalysis_torch.binary import isopleth as iso_cls
         from fhmcanalysis_torch.core import cuda_iso, cuda_mb, cuda_sweep, pipeline, segment, state
 
-        self.torch, self.np, self.TC, self._build = torch, np, TC, _build
+        try:
+            from fhmcanalysis_torch.core import launch
+        except ImportError:  # a tree from before the launch module (--dump run from an older tree) kept its facts in cuda_sweep
+            launch = cuda_sweep
+        self.torch, self.np, self.TC, self._build, self.launch = torch, np, TC, _build, launch
         self.iso_cls, self.IB = iso_cls, sys.modules["fhmcanalysis_torch.binary.isopleth"]
         self.cuda_iso, self.cuda_mb, self.cuda_sweep = cuda_iso, cuda_mb, cuda_sweep
         self.pipeline, self.segment, self.state = pipeline, segment, state
@@ -441,7 +446,6 @@ class Ctx:
         log(f"  kernel libraries: {n.get('kernel.builds', 0)} built in {n.get('kernel.build_s', 0.0):.1f} s of nvcc (summed over the parallel builds), "
             f"{n.get('kernel.loads', 0)} loaded and checked in {n.get('kernel.load_s', 0.0):.3f} s")
         report = {}
-        slots = getattr(self.cuda_sweep, "slot_bytes", None)  # None: a tree from before the capacities
         for mod in libs:
             info = self._build.BUILD_INFO.get(mod.NAME, {})
             rows = ptxas_report(info.get("log", ""))
@@ -449,24 +453,30 @@ class Ctx:
             for k, g, c, a, r, st, sp, sm in rows:
                 log(f"  ptxas: {k}" + (f" G={g}" if g else "") + (f" cap={c}" if c else "") + (f" sums={a}" if a else "") +
                     f": {r} registers, {st} bytes stack, {sp} bytes spill stores, {sm} bytes smem")
-                if slots is not None and c is not None:
+                want = self.shared_bytes(mod, g, c, k) if c is not None else None
+                if want is not None and sm != want:
                     # the block's static shared memory is its index slots, and K3's staged-source list or K1's and K2's row tile
-                    want = self.shared_bytes(mod, g, c, k)
-                    if sm != want:
-                        raise AssertionError(f"ptxas: {k} G={g} cap={c} reserves {sm} bytes of static shared memory; cuda_sweep counts {want}")
+                    raise AssertionError(f"ptxas: {k} G={g} cap={c} reserves {sm} bytes of static shared memory; its library counts {want}")
         return report
 
     def shared_bytes(self, mod, G, cap, kernel=""):
-        """The static shared bytes the host counts for a block of mod's
-        kernel: K3 its index slots and staged-source list (G < 32), K1 and
-        K2 their index slots and row tile (a tree without the row tile:
-        the slots alone), K2's build with the x' area those of its own
-        block of cuda_mb.XAREA_THREADS points."""
-        if mod is self.cuda_iso:
-            return self.cuda_sweep.slot_bytes(G, cap) + (self.cuda_iso.LIST_BYTES if G < 32 else 0)
-        if kernel.endswith(" xa"):
-            return self.cuda_mb.xarea_static_bytes(cap)
-        return getattr(self.cuda_sweep, "shared_bytes", self.cuda_sweep.slot_bytes)(G, cap)
+        """The static shared bytes mod's library counts for a block of its
+        kernel (<name>_static_smem): K3 its index slots and staged-source
+        list (G < 32), K1 and K2 their index slots and row tile, K2's build
+        with the x' area those of its own smaller block; None for a library
+        without the count (a tree from before it)."""
+        lib = mod._lib()
+        if not hasattr(lib, f"{mod.NAME}_static_smem"):
+            return None
+        if mod is self.cuda_mb:
+            return lib.mb_sweep_thermo_static_smem(G, cap, int(kernel.endswith(" xa")))
+        return getattr(lib, f"{mod.NAME}_static_smem")(G, cap)
+
+    def k3_layout(self, rule, G, W, NX, NY, N, order, max_phases=8):
+        """K3's "staged_sources" or "xm_bytes" for a grid of W sources, NX x
+        NY cells and N bins, as its library decides them."""
+        cm = self.cuda_mb
+        return getattr(self.cuda_iso._lib(), f"iso_grid_{rule}")(G, self.launch.capacity(max_phases), W, NX, NY, N, cm.n_xrows(2, order), cm.n_groups(2, order, False))
 
     def hist(self, d):
         return self.state.from_host(d, device=self.dev)
@@ -1425,13 +1435,13 @@ def capacity_k3(C, note, cells):
     cells) and overflow1400 (iso1400's 128 x 128 at N = 1400) at 8, 16 and
     64 slots with the sources' _meta raised, K3's launch counter read
     just before and again just after, held against the plain version; at 16
-    and 64 the bare wrapper forced to G = 1 and 32 too, and its x_m area
-    counted on the host against the library's.  Fills cells {name: run},
+    and 64 the bare wrapper forced to G = 1 and 32 too, and the x_m area
+    its library reserves.  Fills cells {name: run},
     calls note(worst) per comparison; returns {(cell, G): x_m bytes}."""
     torch, np, TC, dev, smi = C.torch, C.np, C.TC, C.dev, C.smi
-    cuda_sweep, cuda_iso, segment, state, IB = C.cuda_sweep, C.cuda_iso, C.segment, C.state, C.IB
+    cuda_sweep, cuda_iso, segment, state, IB, launch = C.cuda_sweep, C.cuda_iso, C.segment, C.state, C.IB, C.launch
     n_sm = cuda_sweep.sm_count(dev.index)
-    xm_areas = {}  # (cell, G) -> the wide build's x_m area a block reserves, host == library
+    xm_areas = {}  # (cell, G) -> the wide build's x_m area a block reserves
     for oname in ("overflow31", "overflow1400"):
         ds, mk3, mu1_g, dmu2_g, beta = C.overflow_inputs(oname)
         NX, NY = len(mu1_g), len(dmu2_g)
@@ -1470,15 +1480,11 @@ def capacity_k3(C, note, cells):
             k_ms = cuda_ms(k3)
             lane_ms = {}
             if P > 8:  # the wide build at each G against the plain version
-                for Gf in cuda_sweep.LANES:
+                for Gf in launch.LANES:
                     wg = compare_iso(k3(Gf), want, f"capacity K3 {cname} G={Gf}")
                     note(wg)
                     lane_ms[Gf] = cuda_ms(lambda Gf=Gf: k3(Gf))
-                    host = cuda_iso.xm_bytes(Gf, len(srcs), NX, NY, N, 1, P)
-                    lib = cuda_iso._lib().iso_grid_xm_bytes(Gf, cuda_sweep.capacity(P), len(srcs), NX, NY, N, *(pro[k].shape[1] for k in ("xrows", "krows")))
-                    if host != lib:
-                        raise AssertionError(f"capacity K3 {cname} G={Gf}: the host counts an x_m area of {host} bytes, the library reserves {lib}")
-                    xm_areas[(oname, Gf)] = host
+                    xm_areas[(oname, Gf)] = C.k3_layout("xm_bytes", Gf, len(srcs), NX, NY, N, 1, P)
             full_x, _ = IB._iso_surfaces(pro, slice(None), 1)
             ext = segment.relextrema(full_x, mk3["smooth"], P)
             lefts, rights, pmask = segment.phase_bounds(ext, full_x.shape[-1], P)
@@ -1488,7 +1494,7 @@ def capacity_k3(C, note, cells):
             b_ms, b_by = bound(kin, k3(), ops)
             m_ms = cuda_ms(lambda: iso.make_grid(*grid))
             cells[cname] = dict(NX=NX, NY=NY, B=NX * NY, N=N, order=1, max_phases=P, capacity=cuda_sweep.capacity(P), lanes=G,
-                                staged_sources=cuda_iso.staged_sources(G, len(srcs), NX, NY, N, 1, P), xm_bytes=cuda_iso.xm_bytes(G, len(srcs), NX, NY, N, 1, P),
+                                staged_sources=C.k3_layout("staged_sources", G, len(srcs), NX, NY, N, 1, P), xm_bytes=C.k3_layout("xm_bytes", G, len(srcs), NX, NY, N, 1, P),
                                 launches=launches, kernel_ms=k_ms, kernel_ms_by_lanes=lane_ms, plain_ms=p_ms, plain_ms_from="one run", make_grid_ms=m_ms,
                                 bound_ms=b_ms, bound_by=b_by, ops=ops, covered_bins=covered_bins(cov, N), fail_codes=codes, worst=w)
             log(f"capacity K3 {cname}: N={N} {NY}x{NX} cells build cap={cuda_sweep.capacity(P)} G={G} x_m area {cells[cname]['xm_bytes']} B launches={launches} "
@@ -1533,11 +1539,11 @@ def capacity_phase(C, ptxas):
     and its paired mode through one batched find_phase_eq_state at 16;
     make_grid on overflow31's 301 x 834 cells and overflow1400's 128 x 128
     at 8 slots (fail code 3) and at 16 and 64 (the sources' _meta raised),
-    the bare K3 wrapper at G = 1 and 32, its x_m area host == library;
+    the bare K3 wrapper at G = 1 and 32, the x_m area its library reserves;
     layout lines at 16 and 64 slots.  Returns (record, {kernel: {cell:
     run}}, {kernel: worst abs diff}, {kernel: layout lines})."""
     torch, np, TC = C.torch, C.np, C.TC
-    cuda_sweep, cuda_mb, cuda_iso, pipeline, segment, state, IB = C.cuda_sweep, C.cuda_mb, C.cuda_iso, C.pipeline, C.segment, C.state, C.IB
+    cuda_sweep, cuda_mb, cuda_iso, pipeline, segment, state, IB, launch = C.cuda_sweep, C.cuda_mb, C.cuda_iso, C.pipeline, C.segment, C.state, C.IB, C.launch
     from fhmcanalysis_torch.core import solve as SV
 
     dev, smi = C.dev, C.smi
@@ -1552,7 +1558,7 @@ def capacity_phase(C, ptxas):
         worst[kname] = max([worst[kname], *w.values()])
 
     def layout(kname, key, N, B, P, time_g, rule, switch):
-        row = {G: cuda_ms(lambda G=G: time_g(G)) for G in cuda_sweep.LANES}
+        row = {G: cuda_ms(lambda G=G: time_g(G)) for G in launch.LANES}
         g = rule(N, B, n_sm, P)
         log(f"layout {key} P={P} B={B}: " + ", ".join(f"G={G} {t:.3f} ms" for G, t in row.items()) +
             f" | switch at B={switch}, rule G={g}: {row[g] / row[32 if g == 1 else 1]:.3f}x the time of G={32 if g == 1 else 1} | {smi}")
@@ -1692,7 +1698,7 @@ def capacity_phase(C, ptxas):
             h, meta = C.hist(d), state.HistMeta(**mk)
             N, S = h.nbins, meta.nspec
             keys = segment.key_rows(h.mom, meta).contiguous()
-            switch = n_sm * min(N, cuda_sweep.G1_PER_SM_CAP_WIDE)
+            switch = n_sm * min(N, launch.G1_PER_SM_CAP_WIDE)
             betas = d["curr_beta"] * np.linspace(0.98, 1.02, A)
             dmus = (d["curr_mu"][1:] - d["curr_mu"][0]) + np.linspace(-0.5, 0.5, A)[:, None]
             counts = sorted({n_sm * k for k in WIDE_PER_SM} | ({TC.CAPACITY[name]["B"]} if name == "multi573" else set()))
@@ -1708,21 +1714,20 @@ def capacity_phase(C, ptxas):
     layouts_k3_wide(C, lambda *a: layout(K3, *a))
     # the wide builds' ptxas lines: each lane's stack (the compacted lists
     # at G = 1, the phases' bounds, maxima, fe and sums), spills, and the
-    # static shared memory phase 2 held to the host's count; K3's build with
-    # the x_m area also its dynamic area on the capacity cells that use it
-    # (the host's count, held to the library's above)
+    # static shared memory phase 2 held to the library's count; K3's build
+    # with the x_m area also its dynamic area on the capacity cells that use
+    # it
     builds = []
     mods = {cuda_sweep.NAME: cuda_sweep, cuda_mb.NAME: cuda_mb, cuda_iso.NAME: cuda_iso}
     for kname, rows in ptxas.items():
         for r in rows:
-            if r["capacity"] == cuda_sweep.CAPACITIES[-1]:
+            if r["capacity"] == launch.CAPACITIES[-1]:
                 counted = C.shared_bytes(mods[kname], r["lanes"], r["capacity"], r["kernel"])
                 areas = {c: v for (c, G), v in xm_areas.items() if G == r["lanes"] and v} if r["kernel"].endswith(" xm") else {}
-                builds.append(dict(r, library=kname, slot_bytes=cuda_sweep.slot_bytes(r["lanes"], r["capacity"]), shared_bytes_counted=counted, xm_bytes=areas))
+                builds.append(dict(r, library=kname, shared_bytes_counted=counted, xm_bytes=areas))
                 log(f"capacity ptxas {r['kernel']} G={r['lanes']} cap={r['capacity']}" + (f" sums={r['sums']}" if r["sums"] else "") +
                     f": {r['registers']} registers, {r['stack']} bytes stack, {r['spill_stores']} bytes spill stores, {r['smem']} bytes smem "
-                    f"(slot_bytes {cuda_sweep.slot_bytes(r['lanes'], r['capacity'])}, row tile {cuda_sweep.row_tile_bytes(r['lanes'], r['capacity']) if mods[kname] is not cuda_iso else 0}, "
-                    f"counted {counted})" + "".join(f"; x_m area {v} bytes dynamic on {c} (host = library)" for c, v in areas.items()) + f" | {smi}")
+                    f"(counted {counted})" + "".join(f"; x_m area {v} bytes dynamic on {c}" for c, v in areas.items()) + f" | {smi}")
     record = dict(seconds=time.perf_counter() - t0, cells={k: list(v) for k, v in cells.items()}, worst=worst, ptxas=builds)
     log(f"capacity phase: {record['seconds']:.1f} s, worst abs diff by kernel", json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
     return record, cells, worst, layouts
@@ -2096,7 +2101,7 @@ def run():
     torch, np, TC = C.torch, C.np, C.TC
     cuda_sweep, cuda_mb, cuda_iso, pipeline, segment, state, IB = C.cuda_sweep, C.cuda_mb, C.cuda_iso, C.pipeline, C.segment, C.state, C.IB
     dev, smi, hist = C.dev, C.smi, C.hist
-    LANES = cuda_sweep.LANES
+    LANES = C.launch.LANES
     n_sm = cuda_sweep.sm_count(dev.index)
 
     # ---- 2. build ----
@@ -2441,7 +2446,7 @@ def run():
         args = (srcs, metas, mu1_v, dmu2_v, lr, wts, g["beta"], order, CUTOFF)
         N = srcs[0].nbins
         lanes = cuda_iso.lanes_per_cell(N, B, n_sm)
-        staged = cuda_iso.staged_sources(lanes, len(srcs), NX, NY, N, order)
+        staged = C.k3_layout("staged_sources", lanes, len(srcs), NX, NY, N, order)
         k_ms = cuda_ms(k3)
         torch.cuda.reset_peak_memory_stats()
         p_ms = cuda_ms(lambda: IB.iso_grid(*args, engine="torch"))
@@ -2477,7 +2482,7 @@ def run():
     # ---- 5. layouts: K1, K2 and K3 at G = 1 and G = 32 on each side of their rule's switch ----
     def switch(N):
         """The least point count at which K1's and K2's rule picks G = 1 for N bins."""
-        return n_sm * min(N, cuda_sweep.G1_PER_SM_CAP)
+        return n_sm * min(N, C.launch.G1_PER_SM_CAP)
 
     def layout_line(kind, key, N, B, time_g, rule_of=cuda_sweep.lanes_per_point, switch_of=switch):
         row = {G: cuda_ms(lambda G=G: time_g(G)) for G in LANES}
@@ -2529,7 +2534,7 @@ def run():
             _, srcs, mk, lr, wts = C.iso_setup(g["name"], order, g["beta"], mu1_v, dmu2_v)
             pro = IB._iso_prologue(srcs, state.HistMeta(**dict(mk, max_phases=8)), mu1_v, dmu2_v, lr, wts, g["beta"], order, CUTOFF)
             kin = [pro[k] for k in ("lnpi", "op", "xrows", "krows", "a", "edge", "mu", "lr", "wts", "tg", "volume")]
-            staged = cuda_iso.staged_sources(1, len(srcs), NX, NY, N, order)
+            staged = C.k3_layout("staged_sources", 1, len(srcs), NX, NY, N, order)
             layout_k3.append(dict(order=order, NX=NX, NY=NY, staged_sources_g1=staged, **layout_line(
                 "K3", f"N={N} o{order} {NY}x{NX} (G=1 stages {staged} sources)", N, B,
                 lambda G: cuda_iso.iso_grid(*kin, mk["smooth"], 8, order, CUTOFF, _lanes=G), cuda_iso.lanes_per_cell, lambda N: cuda_iso.g1_switch(N, n_sm))))

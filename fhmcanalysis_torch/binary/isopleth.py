@@ -31,7 +31,7 @@ import scipy.interpolate
 import scipy.ndimage
 import torch
 
-from ..core import cuda_iso, cuda_sweep, ops, pipeline, segment
+from ..core import cuda_iso, ops, pipeline, segment
 from ..core.state import HistMeta
 from ..histogram import ntot as gch
 from ..parallel.mesh import _blocks, _on, replicate
@@ -63,7 +63,7 @@ FAIL_SEGMENTATION = 2  # extrema alternation/order checks failed on the
 #                        mixed surface (relextrema repairs could not fix it)
 FAIL_PHASE_OVERFLOW = 3  # more maxima than max_phases padding slots; retry
 #                          with a larger max_phases in _meta() (K3 holds up
-#                          to 64 on the card, cuda_sweep.MAX_PHASES)
+#                          to 64 on the card, launch.MAX_PHASES)
 
 
 def _find_left_right(ordered_dmu2, val, bound=False):
@@ -268,11 +268,7 @@ def iso_grid(sources, metas, mu1_v, dmu2_v, lr, wts, beta_target, order: int, cu
     _lanes forces K3's lanes per cell (cuda_iso.lanes_per_cell picks it
     otherwise); tests and chip_smoke.py use it.
     """
-    if _lanes is not None:
-        cuda_sweep.check_lanes(_lanes)
-    if engine not in ("auto", "torch", "cuda"):
-        raise ValueError(f"engine must be 'auto', 'torch' or 'cuda', got {engine!r}")
-    if engine == "torch" or (engine == "auto" and sources[0].device.type != "cuda"):
+    if not pipeline._on_kernel(engine, sources[0].device, lanes=_lanes):
         return iso_grid_body(sources, metas, mu1_v, dmu2_v, lr, wts, beta_target, order, cutoff, collect, mu1_chunk)
     _iso_check(sources, metas, order, collect)
     meta = metas[0]

@@ -9,11 +9,11 @@ they shift lnPI' by a constant the thermo tail cancels (pipeline.py says
 why).  So K2 is K1's tail (``csrc/thermo_tail.cuh``) fed a richer x'(i)
 and richer key rows, both recomputed from a few mu-independent rows; the
 source is ``csrc/mb_sweep_thermo.cu``, G lanes per point with K1's rule
-(``cuda_sweep.lanes_per_point``), and its header says what bounds it.
-Where ``xarea_fits`` holds (G = 1 and N up to 33-36) each point's x' is
-formed once a bin into an area of shared memory, and elsewhere at every
-read of it; counter ``launches.k2_xarea`` counts the launches that take the
-area.
+(``launch.lanes_per_point``), and its header says what bounds it.
+Where the library's rule holds (``csrc/mb_xarea.cuh``: G = 1 and N up to
+33-36) each point's x' is formed once a bin into an area of shared memory,
+and elsewhere at every read of it; counter ``launches.k2_xarea`` counts the
+launches that take the area.
 
 The plain version of this kernel is ``pipeline.mu_beta_sweep_body``;
 nothing on the CUDA path calls it.  ``pipeline.mu_beta_sweep_thermo``
@@ -44,23 +44,13 @@ from typing import NamedTuple
 
 import torch
 
-from .. import _build
 from ..utils import profiling
+from . import launch
 from .derivs import check_order, xni_addr, zero_power
+from .launch import capacity, check_lanes, lanes_per_point, sm_count
 from .moments import mom_prod
-from .cuda_sweep import CAPACITIES, LANES, MAX_PHASES, capacity, check_capacities, check_lanes, lanes_per_point, sm_count  # noqa: F401  (MAX_PHASES: the kernel's, as cuda_sweep's)
 
 NAME = "mb_sweep_thermo"
-# K2's x' area (csrc/mb_sweep_thermo.cu): shared memory of one Hopper SM,
-# what the runtime keeps of it for each resident block, the points of a
-# block of the area's build, the blocks an SM it is made for, and the most
-# rows a block stages beside the area (lnpi, op, 5 x-rows, 18 key rows:
-# nspec 2, order 2, props)
-SMEM_SM = 233_472
-SMEM_RESERVED = 1_024
-XAREA_THREADS = 64
-XAREA_MIN_BLOCKS = 8
-XAREA_ROWS = 25
 
 
 def n_xrows(S: int, order: int) -> int:
@@ -72,43 +62,6 @@ def n_groups(S: int, order: int, first_order_mom: bool) -> int:
     return 1 + S + (0 if order < 2 or first_order_mom else (1 if S == 1 else 3))
 
 
-def xarea_bytes(G: int, N: int) -> int:
-    """Bytes of K2's x' area a block: N doubles for each of its points."""
-    return XAREA_THREADS // G * N * 8
-
-
-def xarea_fits(G: int, cap: int, N: int) -> bool:
-    """Whether K2 at G lanes a point, in the build of cap phase slots,
-    forms each point's x' once a bin into an area of shared memory (else
-    on every read): at G = 1 where a block's area, its index slots and row
-    tile and the most rows it stages (XAREA_ROWS) leave the
-    XAREA_MIN_BLOCKS blocks an SM its build is made for.
-    csrc/mb_sweep_thermo.cu decides; this counts it the same way on the
-    host (the library is held to it as it loads, and a GPU test over every
-    N)."""
-    if G != 1:
-        return False
-    block = xarea_bytes(G, N) + XAREA_ROWS * N * 8 + xarea_static_bytes(cap) + SMEM_RESERVED
-    return XAREA_MIN_BLOCKS * block <= SMEM_SM
-
-
-def xarea_static_bytes(cap: int) -> int:
-    """Static shared bytes of a block of K2's build with the x' area, of
-    XAREA_THREADS points: its index slots in the build of 8 slots, its row
-    tile (1 KB a warp) in that of 64 (chip_smoke.py holds them to the
-    ptxas lines)."""
-    T = XAREA_THREADS
-    return (2 * cap + 1) * 4 * T if cap <= CAPACITIES[0] else T // 32 * 1024
-
-
-def xarea_limit(G: int, cap: int) -> int:
-    """The largest N that xarea_fits admits (0 if none)."""
-    n = 0
-    while xarea_fits(G, cap, n + 1):
-        n += 1
-    return n
-
-
 def _declare(lib: ctypes.CDLL) -> None:
     """Declare the library's C signatures and check its builds against this module."""
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -116,47 +69,32 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mb_sweep_thermo_launch.restype = i
     lib.mb_sweep_thermo_xarea_fits.argtypes = [i] * 3
     lib.mb_sweep_thermo_xarea_fits.restype = i
+    lib.mb_sweep_thermo_static_smem.argtypes = [i] * 3
+    lib.mb_sweep_thermo_static_smem.restype = i
     lib.mb_sweep_thermo_blocks_per_sm.argtypes = [i] * 10
     lib.mb_sweep_thermo_blocks_per_sm.restype = i
-    for G in LANES:
-        for cap in CAPACITIES:
-            top = xarea_limit(G, cap)
-            for N in {1, 31, top, top + 1, 573}:
-                if bool(lib.mb_sweep_thermo_xarea_fits(G, cap, N)) != xarea_fits(G, cap, N):
-                    raise RuntimeError(f"{NAME}: the library's x' area rule disagrees with cuda_mb.xarea_fits at G={G}, cap={cap}, N={N}")
-    lib.mb_sweep_thermo_error_string.argtypes = [i]
-    lib.mb_sweep_thermo_error_string.restype = ctypes.c_char_p
     lib.mb_rows_launch.argtypes = [i, p, ctypes.POINTER(ctypes.c_int)] + [p] * 6 + [i]
     lib.mb_rows_launch.restype = i
     lib.mb_rows_table_ints.restype = i
     if lib.mb_rows_table_ints() != TABLE_INTS:
         raise RuntimeError(f"{NAME}: the library's row-former table has {lib.mb_rows_table_ints()} ints, this module writes {TABLE_INTS}")
-    check_capacities(lib, NAME)
 
 
 def _lib() -> ctypes.CDLL:
     """The built kernel library, loaded once, with its C signatures declared."""
-    return _build.load(NAME, _declare)
+    return launch.load(NAME, _declare)
 
 
-def _check_tix(tix, mu, A: int, dev) -> None:
-    """tix is an int32 [M] CUDA tensor beside mu with every entry in
-    [0, A).  The range is read from the card once per tensor and again after
-    an in-place write to it (its version counter), so a caller that
-    launches with one tix at every step, as the coexistence solver does,
-    waits for the card once.  This check gives the early error; the
-    kernel itself marks a point whose tix lies outside [0, A) invalid
-    (valid False, no phase, NaN floats), so a write the version counter
-    misses (through ``.data`` or a raw pointer) cannot make it read out of
-    bounds."""
-    if not tix.is_cuda:
-        raise ValueError(f"mb_sweep_thermo: tix is on {tix.device}; the CUDA kernel needs CUDA tensors (engine='torch' runs the plain version)")
-    if tix.dtype != torch.int32:
-        raise TypeError(f"mb_sweep_thermo: tix must be int32, got {tix.dtype}")
-    if not tix.is_contiguous():
-        raise ValueError("mb_sweep_thermo: tix must be contiguous")
-    if tix.device != dev:
-        raise ValueError(f"mb_sweep_thermo: tix is on {tix.device}, lnpi on {dev}")
+def _check_tix(tix, mu, A: int) -> None:
+    """tix (an int32 CUDA tensor beside mu: launch.check_tensors) is [M]
+    like mu, with every entry in [0, A).  The range is read from the card
+    once per tensor and again after an in-place write to it (its version
+    counter), so a caller that launches with one tix at every step, as the
+    coexistence solver does, waits for the card once.  This check gives
+    the early error; the kernel itself marks a point whose tix lies
+    outside [0, A) invalid (valid False, no phase, NaN floats), so a write
+    the version counter misses (through ``.data`` or a raw pointer) cannot
+    make it read out of bounds."""
     if tix.shape != mu.shape:
         raise ValueError(f"mb_sweep_thermo: tix must be [M] = {tuple(mu.shape)} like mu, got {tuple(tix.shape)}")
     seen = getattr(tix, "_mb_range", None)
@@ -194,9 +132,10 @@ def mb_sweep_thermo(
     _lanes forces G, the lanes per point (tests and chip_smoke.py); by
     default ``lanes_per_point`` picks it, as for K1.  _xarea (True /
     False) forces x' formed once into the area or on every read (tests;
-    the area only at G = 1); by default ``xarea_fits`` picks.  An area
-    past what the card grants a block fails the launch, which raises.
-    Either way the outputs are the same bits.
+    the area only at G = 1); by default the library's rule
+    (``csrc/mb_xarea.cuh``) picks.  An area past what the card grants a
+    block fails the launch, which raises.  Either way the outputs are the
+    same bits.
     """
     if _lanes is not None:
         check_lanes(_lanes)
@@ -206,22 +145,17 @@ def mb_sweep_thermo(
     tensors = {"lnpi": lnpi, "op": op, "xrows": xrows, "volume": volume, "mu": mu, "a": a, "tg": tg}
     if props:
         tensors["krows"] = krows
-    for name, t in tensors.items():
-        if t is None or not t.is_cuda:
-            raise ValueError(f"mb_sweep_thermo: {name} is {'missing' if t is None else t.device}; the CUDA kernel needs CUDA tensors (engine='torch' runs the plain version)")
-        if t.dtype != torch.float64:
-            raise TypeError(f"mb_sweep_thermo: {name} must be float64, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"mb_sweep_thermo: {name} must be contiguous")
-        if t.device != lnpi.device:
-            raise ValueError(f"mb_sweep_thermo: {name} is on {t.device}, lnpi on {lnpi.device}")
+    if tix is not None:
+        tensors["tix"] = tix
+    dev = launch.check_tensors("mb_sweep_thermo", tensors, {"tix": torch.int32})
     if S not in (1, 2):
         raise ValueError(f"mb_sweep_thermo: nspec must be 1 or 2, got {S}")
     if order not in (1, 2):
         raise ValueError(f"mb_sweep_thermo: the kernel implements orders 1-2, got {order}")
-    N = lnpi.shape[0] if lnpi.dim() == 1 else -1
-    if N < 1 or N >= 2**31 - 1 or op.shape != lnpi.shape or volume.numel() != 1:
-        raise ValueError("mb_sweep_thermo: need lnpi, op [N] with 1 <= N < 2**31-1 and a scalar volume")
+    if lnpi.dim() != 1 or op.shape != lnpi.shape or volume.numel() != 1:
+        raise ValueError("mb_sweep_thermo: need lnpi, op [N] and a scalar volume")
+    N = lnpi.shape[0]
+    launch.check_scalars("mb_sweep_thermo", N, smooth, collect)
     if xrows.shape != (n_xrows(S, order), N):
         raise ValueError(f"mb_sweep_thermo: xrows must be [{n_xrows(S, order)}, {N}], got {tuple(xrows.shape)}")
     if props and krows.shape != (n_groups(S, order, first_order_mom), S + 1, N):
@@ -229,53 +163,27 @@ def mb_sweep_thermo(
     if mu.dim() != 1 or a.shape != mu.shape or tg.dim() != 2 or tg.shape[1] != n_xrows(S, order):
         raise ValueError(f"mb_sweep_thermo: need mu, a [M] and tg [A, {n_xrows(S, order)}]")
     cap = capacity(max_phases)
-    if smooth < 1:
-        raise ValueError("smooth must be >= 1 to find relative extrema (scipy argrelextrema rejects order 0 too)")
-    if collect not in (None, "janus"):
-        raise NotImplementedError(f"mb_sweep_thermo: the kernel implements collect None and 'janus', not {collect!r}")
     M, A = mu.shape[0], tg.shape[0]
-    B, P, dev = (M * A if tix is None else M), max_phases, lnpi.device
+    B, P = (M * A if tix is None else M), max_phases
     if B >= 2**31:
         raise ValueError(f"mb_sweep_thermo: {B} points exceed the kernel's int32 grid")
     if tix is not None:
-        _check_tix(tix, mu, A, dev)
+        _check_tix(tix, mu, A)
 
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    index, stream = launch.device_stream(dev)
     G = lanes_per_point(N, B, sm_count(index), P) if _lanes is None else _lanes
-    xarea = xarea_fits(G, cap, N) if _xarea is None else _xarea
-    if xarea and G != 1:
+    if _xarea and G != 1:
         raise ValueError(f"mb_sweep_thermo: the x' area is the layout of one lane a point, not G={G}")
-    f64 = dict(dtype=torch.float64, device=dev)
-    out = {
-        "fe": torch.empty((B, P), **f64),
-        "mask": torch.empty((B, P), dtype=torch.bool, device=dev),
-        "left": torch.empty((B, P), dtype=torch.int32, device=dev),
-        "right": torch.empty((B, P), dtype=torch.int32, device=dev),
-        "n_phases": torch.empty((B,), dtype=torch.int32, device=dev),
-        "valid": torch.empty((B,), dtype=torch.bool, device=dev),
-    }
-    if props:
-        out.update(
-            n_i=torch.empty((B, P, S), **f64),
-            x_i=torch.empty((B, P, S), **f64),
-            ntot=torch.empty((B, P), **f64),
-            u=torch.empty((B, P), **f64),
-            density=torch.empty((B, P), **f64),
-        )
-    ptr = {k: v.data_ptr() for k, v in out.items()}
+    out = launch.sweep_outputs(B, P, S, props, dev)
     lib = _lib()
-    rc = lib.mb_sweep_thermo_launch(
-        index, torch.cuda.current_stream(dev).cuda_stream, G, cap, int(xarea),
+    launch.run(
+        "mb_sweep_thermo", "k2", lib, lib.mb_sweep_thermo_launch, index, stream, G, cap, -1 if _xarea is None else int(_xarea),
         lnpi.data_ptr(), op.data_ptr(), xrows.data_ptr(), krows.data_ptr() if props else None,
         volume.data_ptr(), mu.data_ptr(), a.data_ptr(), tg.data_ptr(), None if tix is None else tix.data_ptr(),
         M, A, N, S, P, smooth, order, int(props), int(first_order_mom and order >= 2), int(collect == "janus"),
-        ptr["fe"], ptr["left"], ptr["right"], ptr["mask"], ptr["n_phases"], ptr["valid"],
-        *(ptr.get(k) for k in ("n_i", "x_i", "ntot", "u", "density")),
+        *launch.sweep_pointers(out),
     )
-    if rc != 0:
-        raise RuntimeError(f"mb_sweep_thermo kernel launch failed: {lib.mb_sweep_thermo_error_string(rc).decode()} ({rc})")
-    profiling.add("launches.k2")
-    if xarea:
+    if _xarea or (_xarea is None and lib.mb_sweep_thermo_xarea_fits(G, cap, N)):
         profiling.add("launches.k2_xarea")
     return out
 
@@ -444,15 +352,8 @@ def mb_rows(h, meta, order: int, props: bool, first_order_mom: bool):
     max_order cases _mb_rows raises for.  Runs on
     ``torch.cuda.current_stream()``; does not synchronise."""
     table = _table_array(meta, order, props, first_order_mom)
-    S, N, dev = meta.nspec, h.nbins, h.lnpi.device
-    for name in ("lnpi", "mom", "op", "curr_mu", "curr_beta"):
-        t = getattr(h, name)
-        if not t.is_cuda:
-            raise ValueError(f"mb_rows: {name} is on {t.device}; the CUDA kernel needs CUDA tensors (engine='torch' runs the plain version)")
-        if t.dtype != torch.float64:
-            raise TypeError(f"mb_rows: {name} must be float64, got {t.dtype}")
-        if t.device != dev:
-            raise ValueError(f"mb_rows: {name} is on {t.device}, lnpi on {dev}")
+    S, N = meta.nspec, h.nbins
+    dev = launch.check_tensors("mb_rows", {k: getattr(h, k) for k in ("lnpi", "mom", "op", "curr_mu", "curr_beta")}, contiguous=False)
     if h.lnpi.dim() != 1 or h.op.shape != (N,) or h.mom.shape != meta.mom_shape(N) or h.curr_mu.shape != (S,) or h.curr_beta.numel() != 1:
         raise ValueError(
             f"mb_rows: needs one state, lnpi and op [N], mom {meta.mom_shape('N')}, curr_mu [{S}] and a scalar curr_beta; "
@@ -462,13 +363,10 @@ def mb_rows(h, meta, order: int, props: bool, first_order_mom: bool):
     f64 = dict(dtype=torch.float64, device=dev)
     xrows = torch.empty((n_xrows(S, order), N), **f64)
     krows = torch.empty((n_groups(S, order, first_order_mom), S + 1, N), **f64) if props else None
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    index, stream = launch.device_stream(dev)
     lib = _lib()
-    rc = lib.mb_rows_launch(
-        index, torch.cuda.current_stream(dev).cuda_stream, table, mom.data_ptr(), op.data_ptr(), h.curr_beta.data_ptr(), mu.data_ptr(),
+    launch.run(
+        "mb_rows", "mb_rows", lib, lib.mb_rows_launch, index, stream, table, mom.data_ptr(), op.data_ptr(), h.curr_beta.data_ptr(), mu.data_ptr(),
         xrows.data_ptr(), None if krows is None else krows.data_ptr(), N,
     )
-    if rc != 0:
-        raise RuntimeError(f"mb_rows kernel launch failed: {lib.mb_sweep_thermo_error_string(rc).decode()} ({rc})")
-    profiling.add("launches.mb_rows")
     return xrows, krows

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import profiling
-from . import cuda_mb, cuda_sweep
+from . import cuda_mb, cuda_sweep, launch
 from .derivs import DerivEngine
 from .segment import COLLECT_TRANSFORMS, key_rows, thermo_core, thermo_core_props, thermo_key_core
 from .state import Hist, HistMeta
@@ -34,6 +34,24 @@ def _reweight_coeff(h: Hist, mu: torch.Tensor) -> torch.Tensor:
     return (mu - h.curr_mu[0]) * h.curr_beta
 
 
+def _sweep_out(pt, pp) -> dict:
+    """The sweep's output dict from the tail's (pt, pp): the segmentation
+    fields, then with props (pp not None) the phase properties."""
+    out = {"fe": pt.fe, "mask": pt.mask, "left": pt.left, "right": pt.right, "n_phases": pt.n_phases, "valid": pt.valid}
+    if pp is not None:
+        out.update(pp)
+    return out
+
+
+def _chunked(fn, n: int, per: int) -> dict:
+    """fn(sl) over consecutive slices sl of at most `per` of n points (one
+    slice where n <= per), the sweep dicts concatenated along the points."""
+    if n <= per:
+        return fn(slice(0, n))
+    outs = [fn(slice(i, i + per)) for i in range(0, n, per)]
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+
 def _point_thermo(h: Hist, meta: HistMeta, mu: torch.Tensor, props: bool, collect=None) -> dict:
     """Fused reweight+thermo for a [B] batch of mu_1 values (plain version).
 
@@ -43,13 +61,8 @@ def _point_thermo(h: Hist, meta: HistMeta, mu: torch.Tensor, props: bool, collec
     """
     x = h.lnpi + _reweight_coeff(h, mu)[:, None] * h.op
     if props:
-        pt, pp = thermo_core_props(x, h.mom, meta, h.volume, collect=collect)
-    else:
-        pt, pp = thermo_core(x, h.mom, meta, props=False, collect=collect), None
-    out = {"fe": pt.fe, "mask": pt.mask, "left": pt.left, "right": pt.right, "n_phases": pt.n_phases, "valid": pt.valid}
-    if props:
-        out.update(pp)
-    return out
+        return _sweep_out(*thermo_core_props(x, h.mom, meta, h.volume, collect=collect))
+    return _sweep_out(thermo_core(x, h.mom, meta, props=False, collect=collect), None)
 
 
 def mu_sweep_body(h: Hist, meta: HistMeta, mu_grid, props: bool = True, collect=None) -> dict:
@@ -57,19 +70,21 @@ def mu_sweep_body(h: Hist, meta: HistMeta, mu_grid, props: bool = True, collect=
     [B, P, N] intermediates fit in memory."""
     mu = torch.as_tensor(mu_grid, dtype=torch.float64, device=h.device)
     per = max(1, _PLAIN_CHUNK_ELEMS // (meta.max_phases * h.nbins))
-    if mu.shape[0] <= per:
-        return _point_thermo(h, meta, mu, props, collect)
-    outs = [_point_thermo(h, meta, mu[i : i + per], props, collect) for i in range(0, mu.shape[0], per)]
-    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    return _chunked(lambda sl: _point_thermo(h, meta, mu[sl], props, collect), mu.shape[0], per)
 
 
-def _check_engine(engine: str, collect, lanes=None):
+def _on_kernel(engine: str, device: torch.device, collect=None, lanes=None) -> bool:
+    """The route of an entry point: True for the kernels (engine "cuda",
+    or "auto" on a CUDA device), False for the plain version ("torch", or
+    "auto" elsewhere).  Raises for an engine, a collect or a forced
+    layout (lanes) the package does not have."""
     if engine not in ("auto", "torch", "cuda"):
         raise ValueError(f"engine must be 'auto', 'torch' or 'cuda', got {engine!r}")
     if collect is not None and collect not in COLLECT_TRANSFORMS:
         raise KeyError(collect)
     if lanes is not None:
-        cuda_sweep.check_lanes(lanes)
+        launch.check_lanes(lanes)
+    return engine == "cuda" or (engine == "auto" and device.type == "cuda")
 
 
 @profiling.spanned("fhmc.entry.mu_sweep")
@@ -86,11 +101,10 @@ def mu_sweep_thermo(h: Hist, meta: HistMeta, mu_grid, props: bool = True, collec
     kernel (cuda_sweep), CPU runs the plain version.  "torch" forces the
     plain version on either device; "cuda" forces the kernel and raises
     for CPU tensors.  A kernel failure raises; nothing falls back.
-    _lanes forces the kernel's lanes per point (cuda_sweep.lanes_per_point
+    _lanes forces the kernel's lanes per point (launch.lanes_per_point
     picks it otherwise); tests and chip_smoke.py use it.
     """
-    _check_engine(engine, collect, _lanes)
-    if engine == "torch" or (engine == "auto" and h.device.type != "cuda"):
+    if not _on_kernel(engine, h.device, collect, _lanes):
         return mu_sweep_body(h, meta, mu_grid, props, collect)
     with profiling.span("fhmc.prologue.reweight"):
         mu = torch.as_tensor(mu_grid, dtype=torch.float64, device=h.device)
@@ -230,24 +244,19 @@ def _mb_chunk(h: Hist, meta: HistMeta, mu, a, xrows, krows, tg, order: int, prop
         xp = xp + 0.5 * q
     xp = xp.reshape(B, N)
     if not props:
-        pt, pp = thermo_core(xp, h.mom, meta, props=False, collect=collect), None
-    else:
-        kc = lambda j: tg[:, j][:, None, None]  # noqa: E731  a target scalar against [A, S+1, N]
-        kp = krows[0] + kc(0) * krows[1]
+        return _sweep_out(thermo_core(xp, h.mom, meta, props=False, collect=collect), None)
+    kc = lambda j: tg[:, j][:, None, None]  # noqa: E731  a target scalar against [A, S+1, N]
+    kp = krows[0] + kc(0) * krows[1]
+    if S == 2:
+        kp = kp + kc(1) * krows[2]
+    if krows.shape[0] > 1 + S:
+        q = kc(S) * krows[1 + S]
         if S == 2:
-            kp = kp + kc(1) * krows[2]
-        if krows.shape[0] > 1 + S:
-            q = kc(S) * krows[1 + S]
-            if S == 2:
-                q = q + kc(3) * krows[4]
-                q = q + kc(4) * krows[5]
-            kp = kp + 0.5 * q
-        kp = kp[None].expand((mu.shape[0],) + kp.shape).reshape(B, S + 1, N) if tix is None else kp[tix]
-        pt, pp = thermo_key_core(xp, kp, meta, h.volume, collect=collect)
-    out = {"fe": pt.fe, "mask": pt.mask, "left": pt.left, "right": pt.right, "n_phases": pt.n_phases, "valid": pt.valid}
-    if props:
-        out.update(pp)
-    return out
+            q = q + kc(3) * krows[4]
+            q = q + kc(4) * krows[5]
+        kp = kp + 0.5 * q
+    kp = kp[None].expand((mu.shape[0],) + kp.shape).reshape(B, S + 1, N) if tix is None else kp[tix]
+    return _sweep_out(*thermo_key_core(xp, kp, meta, h.volume, collect=collect))
 
 
 def _mb_paired_body(h: Hist, meta: HistMeta, mu, a, xrows, krows, tg, tix, order: int, props: bool, collect=None) -> dict:
@@ -256,9 +265,7 @@ def _mb_paired_body(h: Hist, meta: HistMeta, mu, a, xrows, krows, tg, tix, order
     [B, P, N] intermediates fit in memory; rows and targets as
     _mb_rows / _mb_targets build them."""
     per = max(1, _PLAIN_CHUNK_ELEMS // (meta.max_phases * h.nbins))
-    M = mu.shape[0]
-    outs = [_mb_chunk(h, meta, mu[i : i + per], a[i : i + per], xrows, krows, tg, order, props, collect, tix[i : i + per]) for i in range(0, M, per)]
-    return outs[0] if len(outs) == 1 else {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    return _chunked(lambda sl: _mb_chunk(h, meta, mu[sl], a[sl], xrows, krows, tg, order, props, collect, tix[sl]), mu.shape[0], per)
 
 
 def _check_mb(meta: HistMeta, order: int) -> None:
@@ -293,9 +300,7 @@ def mu_beta_sweep_body(
     mu, a, xrows, krows, tg = _mb_inputs(h, meta, mu_grid, beta_grid, dmu_grid, order, props, first_order_mom)
     M, A = mu.shape[0], tg.shape[0]
     per = max(1, _PLAIN_CHUNK_ELEMS // (meta.max_phases * h.nbins * A))
-    outs = [_mb_chunk(h, meta, mu[i : i + per], a[i : i + per], xrows, krows, tg, order, props, collect) for i in range(0, M, per)]
-    flat = outs[0] if len(outs) == 1 else {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
-    return _mb_shape(flat, M, A)
+    return _mb_shape(_chunked(lambda sl: _mb_chunk(h, meta, mu[sl], a[sl], xrows, krows, tg, order, props, collect), M, per), M, A)
 
 
 @profiling.spanned("fhmc.entry.mb_sweep")
@@ -327,8 +332,7 @@ def mu_beta_sweep_thermo(
     forces the kernel and raises for CPU tensors.  Nothing falls back.
     _lanes forces K2's lanes per point, as for mu_sweep_thermo.
     """
-    _check_engine(engine, collect, _lanes)
-    if engine == "torch" or (engine == "auto" and h.device.type != "cuda"):
+    if not _on_kernel(engine, h.device, collect, _lanes):
         return mu_beta_sweep_body(h, meta, mu_grid, beta_grid, dmu_grid, order, props, first_order_mom, collect)
     mu, a, xrows, krows, tg = _mb_inputs(h, meta, mu_grid, beta_grid, dmu_grid, order, props, first_order_mom, kernel=True)
     flat = cuda_mb.mb_sweep_thermo(

@@ -68,9 +68,8 @@ class _Objective:
     paired mode or its plain version); without it there are none (K1)."""
 
     def __init__(self, h: Hist, meta: HistMeta, betas, dmus, order: int, min_width: int, extrapolate: bool, collect, engine: str, props_rows: bool = False):
-        pipeline._check_engine(engine, collect)
+        self.kernel = pipeline._on_kernel(engine, h.device, collect)
         self.h, self.meta, self.order, self.min_width, self.extrapolate, self.collect = h, meta, order, min_width, extrapolate, collect
-        self.kernel = engine == "cuda" or (engine == "auto" and h.device.type == "cuda")
         P = meta.max_phases
         self.pairs = torch.triu_indices(P, P, 1, device=h.device)
         if extrapolate:

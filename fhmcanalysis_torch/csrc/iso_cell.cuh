@@ -5,7 +5,8 @@
 // Shared by csrc/iso_grid.cu (the kernel: staging, layout, launch) and
 // tests/tail_host/ (the same code built with g++ for one lane, which the
 // CPU tests hold bit for bit against the plain version,
-// fhmcanalysis_torch/binary/isopleth.py iso_grid_body):
+// fhmcanalysis_torch/binary/isopleth.py iso_grid_body, and its layout
+// rules, which they hold to their numbers):
 //
 //   for each side s in {L, R}: x'_s, key'_s as K2 forms them
 //     (extrap_rows.cuh) from source lr[iy, s]'s rows, a[j, ix], mu_1[ix]
@@ -70,6 +71,73 @@ __host__ __device__ __forceinline__ Rows global_rows(const Args& g, int j) {
   const size_t N = g.N;
   return Rows{g.lnpi + j * N, g.op + j * N, g.xrows + j * g.R * N, g.krows + j * g.KG * 3 * N};
 }
+
+// The kernel's shared-memory layout rules (csrc/iso_grid.cu launches by
+// them and exports them; tests/tail_host/ builds them for the CPU tests).
+//
+// Sources a block at G = 1 may stage.
+constexpr int MAX_STAGED = 32;
+// Static shared bytes of the staged-source list (s_src, s_cnt): 132,
+// rounded up to 16 as ptxas rounds a block's static area for the 16-byte
+// aligned dynamic rows that follow it (the index slots are multiples of
+// 16 already), so that the staging rule counts what the launch reserves.
+constexpr size_t LIST_BYTES = (sizeof(int) * (MAX_STAGED + 1) + 15) / 16 * 16;
+// Shared memory a block may opt in to on Hopper (227 KB, static and
+// dynamic together): the wide build's x_m area is used where it fits.
+constexpr size_t SMEM_OPTIN = 232448;
+
+// Sources a block stages at G < 32 (0: none): its THREADS / G consecutive
+// cells span at most (THREADS / G - 1) / NX + 2 rows, each naming 2 sources.
+template <int G, int CAP>
+int staged_sources(const Args& g) {
+  const int span = (tail::THREADS / G - 1) / g.NX + 2;
+  const int rows = span < g.NY ? span : g.NY;
+  const int k = 2 * rows < g.W ? 2 * rows : g.W;
+  const size_t bytes = k * source_doubles(g) * sizeof(double) + LIST_BYTES;
+  return k <= MAX_STAGED && tail::stages_rows<G, CAP>(bytes) ? k : 0;
+}
+
+// The x_m area of a block: THREADS/G cells of N doubles.
+template <int G>
+size_t xm_area(const Args& g) {
+  return (size_t)(tail::THREADS / G) * g.N * sizeof(double);
+}
+
+// Bytes of the x_m area a block of the build reserves (0: x_m is formed
+// on read): the wide build's, where the block's static slots and list,
+// its staged rows and the area fit SMEM_OPTIN.
+template <int G, int CAP>
+size_t xm_bytes(const Args& g, int staged) {
+  if (CAP <= tail::SMALL) return 0;
+  const size_t fixed = tail::slot_bytes(G, CAP) + (G < 32 ? LIST_BYTES : 0) + staged * source_doubles(g) * sizeof(double);
+  return fixed + xm_area<G>(g) <= SMEM_OPTIN ? xm_area<G>(g) : 0;
+}
+
+// A grid's sizes, as the rules above read them.
+inline Args grid_args(int W, int NX, int NY, int N, int R, int KG) {
+  Args g{};
+  g.W = W, g.NX = NX, g.NY = NY, g.N = N, g.R = R, g.KG = KG;
+  return g;
+}
+
+// staged_sources for G and the build of `cap` phase slots named at run
+// time: none at G != 1.
+inline int staged_sources(int G, int cap, const Args& g) {
+  if (G != 1) return 0;
+  return cap == tail::WIDE ? staged_sources<1, tail::WIDE>(g) : staged_sources<1, tail::SMALL>(g);
+}
+
+// xm_bytes beside the rows a block stages, for G and `cap` named at run
+// time: none outside the wide build and at a G the kernel does not build.
+inline int xm_bytes(int G, int cap, const Args& g) {
+  if (cap != tail::WIDE) return 0;
+  if (G == 1) return (int)xm_bytes<1, tail::WIDE>(g, staged_sources<1, tail::WIDE>(g));
+  return G == 32 ? (int)xm_bytes<32, tail::WIDE>(g, 0) : 0;
+}
+
+// Static shared bytes of a block: its index slots and, at G < 32, the
+// staged-source list.
+inline int static_bytes(int G, int cap) { return tail::slot_bytes(G, cap) + (G < 32 ? (int)LIST_BYTES : 0); }
 
 // Keeps what the finish needs: the stable phase and the last maximum.
 struct IsoSink {

@@ -42,7 +42,7 @@
 // Capacities: a second template argument, CAP, is the phase slots a cell
 // holds (8 or 64; thermo_tail.cuh), so that K3 answers every max_phases up
 // to 64 as the JAX kernel does -- the remedy binary/isopleth.py gives for
-// fail code 3; cuda_sweep.capacity picks the smallest build that holds the
+// fail code 3; launch.capacity picks the smallest build that holds the
 // run, and CAP 8 is the kernel as it was before the wide build: it forms
 // x_m wherever the tail reads it.
 //
@@ -65,8 +65,8 @@
 // Hopper block may opt in to (G = 1 from N = 95-114, by the rows it
 // stages; G = 32 from N = 3,568),
 // the build forms x_m on read as the first build does: a layout decided
-// on the host (xm_bytes; cuda_iso.xm_bytes reports the same, and the
-// library's iso_grid_xm_bytes says what it decided).  The wide build at
+// on the host (iso_cell.cuh xm_bytes; the library's iso_grid_xm_bytes
+// says what it decided).  The wide build at
 // G = 1 keeps a cell's index slots in its lane's local memory, so the
 // staging rule (tail::stages_rows) gives its rows the whole 48 KB.
 //
@@ -82,20 +82,14 @@
 namespace {
 
 using iso::Args;
+using iso::MAX_STAGED;
 using iso::Rows;
 using iso::source_doubles;
+using iso::staged_sources;
+using iso::xm_area;
+using iso::xm_bytes;
 using tail::THREADS;
 
-// Sources a block at G = 1 may stage.
-constexpr int MAX_STAGED = 32;
-// Static shared bytes of the staged-source list (s_src, s_cnt): 132,
-// rounded up to 16 as ptxas rounds a block's static area for the 16-byte
-// aligned dynamic rows that follow it (the index slots are multiples of
-// 16 already), so that the staging rule counts what the launch reserves.
-constexpr size_t LIST_BYTES = (sizeof(int) * (MAX_STAGED + 1) + 15) / 16 * 16;
-// Shared memory a block may opt in to on Hopper (227 KB, static and
-// dynamic together): the wide build's x_m area is used where it fits.
-constexpr size_t SMEM_OPTIN = 232448;
 // Blocks per SM the G = 1 layout is built for: 2 (at most 128 registers,
 // 64 bytes of spill) ran as fast as 3 (80 registers, 508 bytes of spill),
 // and 1 (148 registers, no spill) 25-30% slower on iso31 (PERF.md).  The
@@ -192,35 +186,6 @@ __global__ void __launch_bounds__(THREADS, min_blocks<G, CAP>()) iso_grid_kernel
   iso::cell<G, CAP, NC, XM>(g, b, iy, ix, jl, jr, rl, rr, grp, mx, mn, pitch, xm, xpitch);
 }
 
-// Sources a block stages at G < 32 (0: none): its THREADS / G consecutive
-// cells span at most (THREADS / G - 1) / NX + 2 rows, each naming 2 sources
-// (cuda_iso.staged_sources reports the same).
-template <int G, int CAP>
-int staged_sources(const Args& g) {
-  const int span = (THREADS / G - 1) / g.NX + 2;
-  const int rows = span < g.NY ? span : g.NY;
-  const int k = 2 * rows < g.W ? 2 * rows : g.W;
-  const size_t bytes = k * source_doubles(g) * sizeof(double) + LIST_BYTES;
-  return k <= MAX_STAGED && tail::stages_rows<G, CAP>(bytes) ? k : 0;
-}
-
-// The x_m area of a block: THREADS/G cells of N doubles.
-template <int G>
-size_t xm_area(const Args& g) {
-  return (size_t)(THREADS / G) * g.N * sizeof(double);
-}
-
-// Bytes of the x_m area a block of the build reserves (0: x_m is formed
-// on read): the wide build's, where the block's static slots and list,
-// its staged rows and the area fit SMEM_OPTIN (cuda_iso.xm_bytes
-// reports the same).
-template <int G, int CAP>
-size_t xm_bytes(const Args& g, int staged) {
-  if (CAP <= tail::SMALL) return 0;
-  const size_t fixed = tail::slot_bytes(G, CAP) + (G < 32 ? LIST_BYTES : 0) + staged * source_doubles(g) * sizeof(double);
-  return fixed + xm_area<G>(g) <= SMEM_OPTIN ? xm_area<G>(g) : 0;
-}
-
 // One launch with `dyn` bytes of dynamic shared memory, opting in above
 // the 48 KB a block gets without it; a refused opt-in is returned (and
 // cleared from the runtime's last error, so a later launch does not
@@ -266,12 +231,6 @@ cudaError_t launch_g(int G, const Args& g, int force_xm, cudaStream_t stream) {
   }
 }
 
-Args grid_args(int W, int NX, int NY, int N, int R, int KG) {
-  Args g{};
-  g.W = W, g.NX = NX, g.NY = NY, g.N = N, g.R = R, g.KG = KG;
-  return g;
-}
-
 }  // namespace
 
 extern "C" {
@@ -282,28 +241,26 @@ const char* iso_grid_error_string(int code) { return cudaGetErrorString((cudaErr
 
 // Sources a block of the build of `cap` phase slots stages in shared
 // memory at G lanes per cell for this grid (0: the rows stay in global
-// memory); the wrapper's report is held against it.
+// memory), as the launch decides.
 int iso_grid_staged_sources(int G, int cap, int W, int NX, int NY, int N, int R, int KG) {
-  const Args g = grid_args(W, NX, NY, N, R, KG);
-  if (G != 1) return 0;
-  return cap == tail::WIDE ? staged_sources<1, tail::WIDE>(g) : staged_sources<1, tail::SMALL>(g);
+  return iso::staged_sources(G, cap, iso::grid_args(W, NX, NY, N, R, KG));
 }
 
 // Bytes of the x_m area a block of the build of `cap` phase slots
 // reserves at G lanes per cell for this grid, beside its staged rows (0:
-// x_m is formed on read); the launch reserves these, and the wrapper's
-// report is held against it.
+// x_m is formed on read), as the launch decides.
 int iso_grid_xm_bytes(int G, int cap, int W, int NX, int NY, int N, int R, int KG) {
-  const Args g = grid_args(W, NX, NY, N, R, KG);
-  if (cap != tail::WIDE) return 0;
-  if (G == 1) return (int)xm_bytes<1, tail::WIDE>(g, staged_sources<1, tail::WIDE>(g));
-  return G == 32 ? (int)xm_bytes<32, tail::WIDE>(g, 0) : 0;
+  return iso::xm_bytes(G, cap, iso::grid_args(W, NX, NY, N, R, KG));
 }
+
+// Static shared bytes a block of the build at G lanes per cell with `cap`
+// phase slots reserves: its index slots and, at G < 32, the staged-source list.
+int iso_grid_static_smem(int G, int cap) { return iso::static_bytes(G, cap); }
 
 // Launches the kernel's build of `cap` phase slots at G lanes per cell on
 // `stream` and returns the launch's error (0 on success;
 // cudaErrorInvalidValue for a build the library does not have: G 1 and 32,
-// cuda_sweep.LANES; cap 8 and 64, cuda_sweep.CAPACITIES; or an x_m area
+// launch.LANES; cap 8 and 64, launch.CAPACITIES; or an x_m area
 // forced on the first build; a refused shared-memory opt-in) on `device`,
 // and leaves the thread's current device as it found it.  force_xm: -1 the
 // library's layout, 0 or 1 the x_m area off or on (tests).  Does not

@@ -35,7 +35,7 @@
 // is ~300 bytes at P=4 with props, which at the main path's 4.2M points is
 // the larger floor (PERF.md).  The layout is K1's: a template on G, the
 // lanes per point, with G picked by the same rule
-// (cuda_sweep.lanes_per_point); G = 32 reads the rows through the
+// (launch.lanes_per_point); G = 32 reads the rows through the
 // read-only cache, G = 1 stages them in shared memory where they fit
 // (about 6 KB at N = 31), which took 6-14% off mb31 (PERF.md).
 //
@@ -44,7 +44,7 @@
 // ends, ~156 reads a point at N = 31, of which 31 are distinct; each read
 // formed from the rows costs 15 f64 operations and 7 row loads at order 2
 // and nspec 2 (the library is built with -fmad=false, so each is an
-// instruction of its own).  So where cuda_mb.xarea_fits holds, at G = 1
+// instruction of its own).  So where the rule of mb_xarea.cuh holds, at G = 1
 // where a block's area fits beside its index slots, its row tile and the
 // most rows it stages with the eight blocks an SM its build is made for (N
 // <= 33 in the build of 8 slots, N <= 36 in that of 64), each lane first
@@ -68,7 +68,7 @@
 //
 // Capacities: a third template argument, CAP, is the phase slots a point
 // holds (8 or 64; thermo_tail.cuh), so that K2 answers every max_phases up
-// to 64 as the JAX kernel does; cuda_sweep.capacity picks the smallest
+// to 64 as the JAX kernel does; launch.capacity picks the smallest
 // build that holds the run, the same for K1, and CAP 8 is the kernel as it
 // was before the wide build.  The build of 64 slots runs the tail's wide
 // body and writes its rows as K1's does (a 1 KB tile a warp at G = 1).
@@ -85,10 +85,15 @@
 #include "device_guard.cuh"
 #include "extrap_rows.cuh"
 #include "mb_rows.cuh"
+#include "mb_xarea.cuh"
 #include "thermo_tail.cuh"
 
 namespace {
 
+using mbxa::block_threads;
+using mbxa::xarea_bytes;
+using mbxa::xarea_fits;
+using mbxa::XA_MIN_BLOCKS;
 using tail::THREADS;
 
 struct Args {
@@ -141,25 +146,6 @@ __device__ __forceinline__ void out_of_range_point(const Args& g, long long b) {
   o.valid[b] = 0;
 }
 
-// The x' area (XA): shared memory of one Hopper SM and what the runtime
-// keeps of it for each resident block; the area's build runs blocks of 64
-// points, 8 of them an SM (16 warps), and stages every row beside the
-// area, at most 25 of them (lnpi, op, 5 x-rows, 18 key rows: nspec 2,
-// order 2, props, the order-2 key rows).  Of the block shapes timed on
-// mb31_o2 (PERF.md), 256 points and 2 blocks an SM, 128 and 4, 96 and 6,
-// 64 and 8, with every row or only the key rows staged, this one was the
-// fastest: small blocks free their share of the SM as soon as their own
-// warps end, and rows read from global memory in the forming pass cost
-// more than the shared memory they would free.
-constexpr size_t SMEM_SM = 233472;
-constexpr size_t SMEM_RESERVED = 1024;
-constexpr int XA_THREADS = 64;
-constexpr int XA_MIN_BLOCKS = 8;
-constexpr int XA_ROWS = 25;
-
-template <bool XA>
-__host__ __device__ constexpr int block_threads() { return XA ? XA_THREADS : THREADS; }
-
 // At least 3 blocks per SM (at most 85 registers) at both G without the
 // area: at G = 32 without the bound ptxas picks fewer registers and
 // spills; at G = 1 it takes 93 registers (2 blocks per SM) and runs 13-15%
@@ -167,33 +153,6 @@ __host__ __device__ constexpr int block_threads() { return XA ? XA_THREADS : THR
 // area's build asks for the XA_MIN_BLOCKS its shared memory allows.
 template <bool XA>
 __host__ __device__ constexpr int min_blocks() { return XA ? XA_MIN_BLOCKS : 3; }
-
-// Static shared bytes of a block of the area's build (G = 1): the index
-// slots and the wide build's row tile.
-template <int CAP>
-__host__ __device__ constexpr size_t xa_static_bytes() {
-  constexpr int T = block_threads<true>();
-  return (tail::slots_shared(1, CAP) ? (size_t)(2 * CAP + 1) * sizeof(int) * T : 0) + (tail::row_tile_bytes(1, CAP) ? T / 32 * tail::ROW_TILE : 0);
-}
-
-// Bytes of a block's x' area: N doubles for each of its points.
-template <int G>
-__host__ __device__ __forceinline__ size_t xarea_bytes(int N) {
-  return (size_t)(block_threads<true>() / G) * N * sizeof(double);
-}
-
-// Whether a block at G lanes a point takes the x' area: at G = 1, where the
-// area, the index slots, the row tile and the most rows a block stages
-// leave the XA_MIN_BLOCKS blocks an SM the build is made for (past that, at
-// N = 40-47, the area ran no faster than forming x' on read: PERF.md);
-// cuda_mb.xarea_fits reports the same.
-template <int CAP>
-__host__ __device__ __forceinline__ bool xarea_fits(int G, int N) {
-  if (G != 1) return false;
-  const size_t rows = (size_t)XA_ROWS * N * sizeof(double);
-  const size_t block = xarea_bytes<1>(N) + rows + xa_static_bytes<CAP>() + SMEM_RESERVED;
-  return XA_MIN_BLOCKS * block <= SMEM_SM;
-}
 
 // Whether a block stages the rows in shared memory: with the area always
 // (its rule counts them); without it, where they fit in 48 KB.
@@ -373,7 +332,7 @@ const char* mb_sweep_thermo_error_string(int code) { return cudaGetErrorString((
 // Launches the kernel's build of `cap` phase slots at G lanes per point on
 // `stream` and returns cudaGetLastError() (0 on success;
 // cudaErrorInvalidValue for a build the library does not have: G 1 and 32,
-// cuda_sweep.LANES; cap 8 and 64, cuda_sweep.CAPACITIES) on `device`, and
+// launch.LANES; cap 8 and 64, launch.CAPACITIES) on `device`, and
 // leaves the thread's current device as it found it.  Does not
 // synchronise.  All pointers are device pointers (krows may be null
 // without props; tix null selects the product mode, else the paired mode
@@ -403,15 +362,13 @@ int mb_sweep_thermo_launch(int device, void* stream, int G, int cap, int xarea, 
 }
 
 // Whether a launch at G lanes a point of the build of `cap` phase slots
-// over N bins forms x' once a bin into the area (the library's rule; the
-// wrapper's cuda_mb.xarea_fits is held against it).
-int mb_sweep_thermo_xarea_fits(int G, int cap, int N) {
-  switch (cap) {
-    case tail::SMALL: return xarea_fits<tail::SMALL>(G, N);
-    case tail::WIDE: return xarea_fits<tail::WIDE>(G, N);
-    default: return 0;
-  }
-}
+// over N bins forms x' once a bin into the area (the library's rule, which
+// the launch applies at xarea -1).
+int mb_sweep_thermo_xarea_fits(int G, int cap, int N) { return mbxa::xarea_fits(G, cap, N); }
+
+// Static shared bytes a block of the build at G lanes a point with `cap`
+// phase slots reserves, with the x' area (xa 1) or without (0).
+int mb_sweep_thermo_static_smem(int G, int cap, int xa) { return mbxa::static_bytes(G, cap, xa != 0); }
 
 // Blocks an SM of `device` holds for a launch with these arguments
 // (xarea as for the launch): 0 where the library has no such build or a

@@ -18,7 +18,7 @@
 // the lanes per point (thermo_tail.cuh): G = 32 is one point per warp; G =
 // 1 runs the segmentation logic once per point instead of on 32 lanes, and
 // the wrapper picks it for sweeps large enough to fill the card at one
-// lane per point (cuda_sweep.lanes_per_point).  G = 32 reads the rows
+// lane per point (launch.lanes_per_point).  G = 32 reads the rows
 // through the read-only cache; at G = 1 the block first stages them in
 // shared memory where they fit, so each read of a bin is a shared-memory
 // broadcast, which took 4% off n31 and 9% off n573 against __ldg reads
@@ -28,7 +28,7 @@
 // Capacities: the kernel is also a template on CAP, the phase slots a
 // point holds (8 or 64), and KACC, its per-phase sums (4 for nspec 1-2, 6
 // for nspec 3-4), so that it answers every max_phases up to 64 and every
-// nspec up to 4, as the JAX kernel does; cuda_sweep.capacity and
+// nspec up to 4, as the JAX kernel does; launch.capacity and
 // cuda_sweep.accumulators pick the smallest build that holds the run.
 // CAP 8 with KACC 4 is the kernel as it was before the wide builds.  The
 // build of 64 slots runs the tail's wide body (thermo_point_wide) and, at
@@ -129,10 +129,14 @@ int sweep_thermo_max_nspec() { return 4; }
 
 const char* sweep_thermo_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
+// Static shared bytes a block of the build at G lanes per point with `cap`
+// phase slots reserves: its index slots and its row tile.
+int sweep_thermo_static_smem(int G, int cap) { return tail::block_static_bytes(G, cap); }
+
 // Launches the kernel's build of `cap` phase slots and `kacc` per-phase
 // sums at G lanes per point on `stream` and returns cudaGetLastError() (0
 // on success; cudaErrorInvalidValue for a build the library does not have:
-// G 1 and 32, cuda_sweep.LANES; cap 8 and 64, cuda_sweep.CAPACITIES; kacc
+// G 1 and 32, launch.LANES; cap 8 and 64, launch.CAPACITIES; kacc
 // 4 and 6) on `device`, and leaves the thread's current device as it found
 // it.  Does not synchronise.  All pointers are device pointers; the caller
 // has checked shapes, dtypes and bounds (P <= cap, S + 2 <= kacc).

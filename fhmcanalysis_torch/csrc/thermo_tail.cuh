@@ -123,17 +123,21 @@ __device__ __forceinline__ Group<G> group_of(int tid) {
 // 132 KB, more than the 48 KB a block gets without opting in.
 __host__ __device__ constexpr bool slots_shared(int G, int CAP) { return G == 32 || CAP <= SMALL; }
 
-// Shared-memory bytes of the index slots of a block of THREADS/G points
-// (cuda_sweep.slot_bytes reports the same).
+// Shared-memory bytes of the index slots of a block of THREADS/G points.
 __host__ __device__ constexpr int slot_bytes(int G, int CAP) {
   return slots_shared(G, CAP) ? (2 * CAP + 1) * (int)sizeof(int) * (THREADS / G) : 0;
 }
 
 // Shared-memory bytes of the row tile of a block of K1 or K2 (OutSink::row):
 // in the wide build at G = 1 each warp stages the rows it writes in 32
-// bytes a lane (cuda_sweep.row_tile_bytes reports the same).
+// bytes a lane.
 constexpr int ROW_TILE = 32 * 32;  // bytes a warp
 __host__ __device__ constexpr int row_tile_bytes(int G, int CAP) { return G == 1 && CAP > SMALL ? WARPS * ROW_TILE : 0; }
+
+// Static shared bytes of a block of K1, or of K2 without its x' area: the
+// index slots and the row tile (the libraries export it for the check of
+// the ptxas lines).
+__host__ __device__ constexpr int block_static_bytes(int G, int CAP) { return slot_bytes(G, CAP) + row_tile_bytes(G, CAP); }
 
 // Whether a block of THREADS/G points stages `rows` bytes of mu-independent
 // rows in shared memory: at G < 32, where they fit beside the index slots

@@ -1,8 +1,9 @@
 // A host stand-in for the CUDA runtime header, enough to compile
-// fhmcanalysis_torch/csrc/thermo_tail.cuh, iso_cell.cuh and mb_rows.cuh
-// with g++ for one lane (G = 1, one live lane): tests/test_torch_capacity.py
-// runs the tail's bodies and K3's cell on the CPU with it, and
-// tests/test_torch_mb_rows.py the row former.  A warp collective of
+// fhmcanalysis_torch/csrc/thermo_tail.cuh, iso_cell.cuh, mb_xarea.cuh and
+// mb_rows.cuh with g++ for one lane (G = 1, one live lane):
+// tests/test_torch_capacity.py runs the tail's bodies, K3's cell and the
+// kernels' layout rules on the CPU with it, and tests/test_torch_mb_rows.py
+// the row former.  A warp collective of
 // one lane returns its own value; the rounded f64 intrinsics are plain
 // operations (the library is built with -ffp-contract=off, as the
 // kernels with -fmad=false).

@@ -1,0 +1,44 @@
+// The kernels' shared-memory layout rules (fhmcanalysis_torch/csrc:
+// thermo_tail.cuh, mb_xarea.cuh, iso_cell.cuh) on the CPU, the same
+// functions the libraries launch by and export.  Built with g++ by
+// tests/test_torch_capacity.py, which holds them to their numbers.
+#include "iso_cell.cuh"
+#include "mb_xarea.cuh"
+
+extern "C" {
+
+// The tail's index slots, K1's and K2's row tile and their sum.
+int tail_slot_bytes(int G, int cap) { return tail::slot_bytes(G, cap); }
+int tail_row_tile_bytes(int G, int cap) { return tail::row_tile_bytes(G, cap); }
+int tail_block_static_bytes(int G, int cap) { return tail::block_static_bytes(G, cap); }
+
+// tail::stages_rows for the builds the kernels have (-1 for any other).
+int tail_stages_rows(int G, int cap, long long rows, long long extra) {
+  const size_t r = (size_t)rows, e = (size_t)extra;
+  if (G == 1 && cap == tail::SMALL) return tail::stages_rows<1, tail::SMALL>(r, e);
+  if (G == 1 && cap == tail::WIDE) return tail::stages_rows<1, tail::WIDE>(r, e);
+  if (G == 32 && cap == tail::SMALL) return tail::stages_rows<32, tail::SMALL>(r, e);
+  if (G == 32 && cap == tail::WIDE) return tail::stages_rows<32, tail::WIDE>(r, e);
+  return -1;
+}
+
+// K2's x' area.
+int mb_xarea_fits(int G, int cap, int N) { return mbxa::xarea_fits(G, cap, N); }
+long long mb_xarea_bytes(int G, int N) {
+  return G == 1 ? (long long)mbxa::xarea_bytes<1>(N) : G == 32 ? (long long)mbxa::xarea_bytes<32>(N) : -1;
+}
+int mb_static_bytes(int G, int cap, int xa) { return mbxa::static_bytes(G, cap, xa != 0); }
+
+// K3's staging and x_m area, for a grid of W sources, NX x NY cells and
+// N bins with R x-rows and KG key-row groups a source.
+int iso_staged_sources(int G, int cap, int W, int NX, int NY, int N, int R, int KG) {
+  return iso::staged_sources(G, cap, iso::grid_args(W, NX, NY, N, R, KG));
+}
+int iso_xm_bytes(int G, int cap, int W, int NX, int NY, int N, int R, int KG) {
+  return iso::xm_bytes(G, cap, iso::grid_args(W, NX, NY, N, R, KG));
+}
+int iso_static_bytes(int G, int cap) { return iso::static_bytes(G, cap); }
+int iso_list_bytes() { return (int)iso::LIST_BYTES; }
+int iso_smem_optin() { return (int)iso::SMEM_OPTIN; }
+
+}  // extern "C"

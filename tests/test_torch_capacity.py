@@ -24,7 +24,9 @@ the wide builds (tests/torch_composites.py ``CAPACITY``, ``ten_peak``):
   (``pallas_sweep.mu_sweep_thermo_ds(mode="xla")``, double-single) at 16
   slots and at nspec 3, at the kernel bar 1e-10;
 * the host-side rules: the capacity and sums choice, the layout rule with
-  max_phases, the slot and staging byte counts;
+  max_phases; and the kernels' shared-memory rules (the slot and staging
+  byte counts, K2's x' area, K3's staging and x_m area), built from the
+  CUDA headers with g++ (``tests/tail_host/layout_host.cpp``);
 * the wide build's tail (``thermo_point_wide``): on the plain version's
   outputs, the fill of the slots past the count and the O(phases)
   overlap rule against the all-pairs one; and the tail itself, built
@@ -32,8 +34,7 @@ the wide builds (tests/torch_composites.py ``CAPACITY``, ``ten_peak``):
   against the body every build ran before it, bit for bit;
 * K3's cell (``csrc/iso_cell.cuh``) built the same way: the wide build
   with x_m formed once into its area against x_m formed on read, bit for
-  bit, and both against the plain version; and the host's count of the
-  area (``cuda_iso.xm_bytes``).
+  bit, and both against the plain version.
 
 Segmentation fields equal, floats within 1e-12 absolute (the JAX CPU
 suite's bar); mu_star within 1e-9 (JAX's own bar between two trace
@@ -54,6 +55,7 @@ import torch
 import fhmcanalysis_torch.core.cuda_iso as CI
 import fhmcanalysis_torch.core.cuda_mb as CM
 import fhmcanalysis_torch.core.cuda_sweep as CS
+import fhmcanalysis_torch.core.launch as L
 import fhmcanalysis_torch.core.pipeline as TP
 import fhmcanalysis_torch.core.segment as TSG
 import fhmcanalysis_torch.core.solve as TSV
@@ -227,11 +229,11 @@ def test_plain_matches_jax_kernel_body(kind, collect):
 def test_capacity_and_sums_choice():
     """The smallest build that holds a run; above the widest, a ValueError
     that names the limit and its reason."""
-    assert CS.CAPACITIES == (8, 64) and CS.MAX_PHASES == CM.MAX_PHASES == CI.MAX_PHASES == 64
-    assert [CS.capacity(p) for p in (1, 4, 8, 9, 16, 32, 63, 64)] == [8, 8, 8, 64, 64, 64, 64, 64]
+    assert L.CAPACITIES == (8, 64) and L.MAX_PHASES == 64
+    assert [L.capacity(p) for p in (1, 4, 8, 9, 16, 32, 63, 64)] == [8, 8, 8, 64, 64, 64, 64, 64]
     for bad in (0, -1, 65, 1000):
         with pytest.raises(ValueError, match="max_phases.*1..64.*64 phase slots"):
-            CS.capacity(bad)
+            L.capacity(bad)
     assert CS.MAX_NSPEC == 4 and [CS.accumulators(s) for s in (1, 2, 3, 4)] == [4, 4, 6, 6]
     for bad in (0, 5):
         with pytest.raises(ValueError, match="nspec.*1..4"):
@@ -252,13 +254,13 @@ def test_lanes_rule_with_phase_slots(n_sm):
         for B in Bs:
             g8 = CS.lanes_per_point(N, B, n_sm)
             assert all(CS.lanes_per_point(N, B, n_sm, p) == g8 for p in (1, 4, 8))
-            switch = n_sm * min(N, CS.G1_PER_SM_CAP_WIDE)
+            switch = n_sm * min(N, L.G1_PER_SM_CAP_WIDE)
             for p in (9, 16, 64):
                 assert CS.lanes_per_point(N, B, n_sm, p) == (1 if B >= switch else 32)
             assert all(CI.lanes_per_cell(N, B, n_sm, p) == CI.lanes_per_cell(N, B, n_sm) for p in (1, 4, 8))
             k3_switch = n_sm * min(N, CI.G1_PER_SM_CAP)
             assert all(CI.lanes_per_cell(N, B, n_sm, p) == (1 if B >= k3_switch else 32) for p in (9, 16, 64))
-    assert CS.G1_PER_SM_CAP_WIDE == 256 and CS.G1_PER_SM_CAP == 384 and CI.G1_PER_SM_CAP == 1024 and CI.G1_PER_BIN_WIDE == 1
+    assert L.G1_PER_SM_CAP_WIDE == 256 and L.G1_PER_SM_CAP == 384 and CI.G1_PER_SM_CAP == 1024 and CI.G1_PER_BIN_WIDE == 1
     if n_sm == 132:  # multi573's 524,288 points and overflow31's 251,034 cells run one lane each; a 1,280-point solver step one warp
         assert CS.lanes_per_point(573, 524_288, n_sm, 64) == 1 and CI.lanes_per_cell(31, 251_034, n_sm, 16) == 1
         assert CS.lanes_per_point(31, 1280, n_sm, 16) == 32
@@ -266,63 +268,109 @@ def test_lanes_rule_with_phase_slots(n_sm):
         assert CS.lanes_per_point(121, 15_972, n_sm, 64) == 1 and CS.lanes_per_point(121, 15_971, n_sm, 64) == 32
         assert CI.lanes_per_cell(31, 4092, n_sm, 64) == 1 and CI.lanes_per_cell(31, 4091, n_sm, 64) == 32
         assert CI.lanes_per_cell(1400, 67_584, n_sm, 16) == 32 and CI.lanes_per_cell(1400, 135_168, n_sm, 16) == 1
-    assert CM.lanes_per_point is CS.lanes_per_point
+    assert CM.lanes_per_point is CS.lanes_per_point is L.lanes_per_point
     for rule in (CS.lanes_per_point, CI.lanes_per_cell):
         with pytest.raises(ValueError, match="max_phases"):
             rule(31, 4096, n_sm, 65)
 
 
-def test_slot_and_staging_bytes():
+STATIC_SMEM = 48 * 1024  # the shared memory a block gets without opting in
+
+
+def _gxx(tmp_path_factory, src: str) -> ctypes.CDLL:
+    """tests/tail_host/<src> built with g++ against the kernels' headers
+    (the kernels' -fmad=false as -ffp-contract=off) and loaded."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the kernels' headers for the host")
+    here = Path(__file__).parent
+    so = tmp_path_factory.mktemp(Path(src).stem) / f"lib{Path(src).stem}.so"
+    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off", "-I", str(here / "tail_host"),
+                    "-I", str(here.parent / "fhmcanalysis_torch" / "csrc"), str(here / "tail_host" / src), "-o", str(so)],
+                   check=True, capture_output=True, timeout=300)
+    return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def layout_host(tmp_path_factory):
+    """tests/tail_host/layout_host.cpp built with g++: the kernels'
+    shared-memory rules, as csrc/ writes them, on the CPU."""
+    lib = _gxx(tmp_path_factory, "layout_host.cpp")
+    i = ctypes.c_int
+    lib.tail_stages_rows.argtypes = [i, i, ctypes.c_longlong, ctypes.c_longlong]
+    lib.mb_xarea_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def _stages(lib, G, cap, rows, extra=0) -> bool:
+    """tail::stages_rows: whether a block of the build stages `rows` bytes."""
+    r = lib.tail_stages_rows(G, cap, rows, extra)
+    assert r in (0, 1), (G, cap)
+    return bool(r)
+
+
+def _k3_rule(fn, G, W, NX, NY, N, order, max_phases=8):
+    """One of K3's rules (staged sources, x_m bytes) for a grid of W
+    sources, NX x NY cells and N bins at this order, as a wrapper names the
+    build (launch.capacity) and the rows (nspec 2)."""
+    return fn(G, L.capacity(max_phases), W, NX, NY, N, CM.n_xrows(2, order), CM.n_groups(2, order, False))
+
+
+def test_slot_and_staging_bytes(layout_host):
     """The index slots a block reserves in shared memory (as the kernels'
     thermo_tail.cuh counts them) and what that leaves for staged rows: the
     wide build at G = 1 keeps its slots in local memory, 132 KB a block
     being past the 48 KB a block gets without opting in."""
-    assert CS.slot_bytes(1, 8) == 17 * 4 * 256 == 17_408
-    assert CS.slot_bytes(32, 8) == 17 * 4 * 8 == 544
-    assert CS.slot_bytes(32, 64) == 129 * 4 * 8 == 4_128
-    assert CS.slot_bytes(1, 64) == 0 and (2 * 64 + 1) * 4 * 256 > CS.STATIC_SMEM
+    slot_bytes = layout_host.tail_slot_bytes
+    assert slot_bytes(1, 8) == 17 * 4 * 256 == 17_408
+    assert slot_bytes(32, 8) == 17 * 4 * 8 == 544
+    assert slot_bytes(32, 64) == 129 * 4 * 8 == 4_128
+    assert slot_bytes(1, 64) == 0 and (2 * 64 + 1) * 4 * 256 > STATIC_SMEM
     # K1 at n573's rows (lnpi, op, 2 key rows: 4 x 573 doubles), G = 1
     n573 = 4 * 573 * 8
-    assert CS.stages_rows(1, 8, n573) and CS.stages_rows(1, 64, n573)
-    assert not CS.stages_rows(32, 8, n573) and not CS.stages_rows(32, 64, 8)
-    edge = CS.STATIC_SMEM - CS.slot_bytes(1, 8)
-    assert CS.stages_rows(1, 8, edge) and not CS.stages_rows(1, 8, edge + 1)
-    assert CS.stages_rows(1, 64, CS.STATIC_SMEM) and not CS.stages_rows(1, 64, CS.STATIC_SMEM + 1)
+    assert _stages(layout_host, 1, 8, n573) and _stages(layout_host, 1, 64, n573)
+    assert not _stages(layout_host, 32, 8, n573) and not _stages(layout_host, 32, 64, 8)
+    edge = STATIC_SMEM - slot_bytes(1, 8)
+    assert _stages(layout_host, 1, 8, edge) and not _stages(layout_host, 1, 8, edge + 1)
+    assert _stages(layout_host, 1, 64, STATIC_SMEM) and not _stages(layout_host, 1, 64, STATIC_SMEM + 1)
 
 
-def test_row_tile_and_shared_bytes():
+def test_row_tile_and_shared_bytes(layout_host):
     """K1's and K2's row tile: 32 bytes a lane, a warp's 1 KB, only in the
     wide build at G = 1, where a lane writes a point's row; each block's
     static shared memory is its index slots and its tile (chip_smoke.py
     holds the ptxas lines to it), and multi573's K1 rows still fit beside
     them."""
-    assert CS.row_tile_bytes(1, 64) == 8 * 32 * 32 == 8_192
-    assert CS.row_tile_bytes(32, 64) == CS.row_tile_bytes(1, 8) == CS.row_tile_bytes(32, 8) == 0
-    assert [CS.shared_bytes(G, c) for G, c in ((1, 8), (32, 8), (1, 64), (32, 64))] == [17_408, 544, 8_192, 4_128]
+    tile, shared = layout_host.tail_row_tile_bytes, layout_host.tail_block_static_bytes
+    assert tile(1, 64) == 8 * 32 * 32 == 8_192
+    assert tile(32, 64) == tile(1, 8) == tile(32, 8) == 0
+    assert [shared(G, c) for G, c in ((1, 8), (32, 8), (1, 64), (32, 64))] == [17_408, 544, 8_192, 4_128]
     n573 = 5 * 573 * 8  # multi573's K1 rows: lnpi, op, 3 key rows
-    assert n573 + CS.shared_bytes(1, 64) <= CS.STATIC_SMEM
+    assert n573 + shared(1, 64) <= STATIC_SMEM and _stages(layout_host, 1, 64, n573, tile(1, 64))
 
 
-# K2's x' area: the largest N it admits at G = 1, by build (cuda_mb.xarea_fits)
+# K2's x' area: the largest N it admits at G = 1, by build (csrc/mb_xarea.cuh)
 XAREA_TOP = {8: 33, 64: 36}
 
 
 @pytest.mark.parametrize("N", [31, "top", "top+1", 573, 1400])
-@pytest.mark.parametrize("cap", CS.CAPACITIES)
-@pytest.mark.parametrize("G", CS.LANES)
-def test_mb_xarea_fits(G, cap, N):
+@pytest.mark.parametrize("cap", L.CAPACITIES)
+@pytest.mark.parametrize("G", L.LANES)
+def test_mb_xarea_fits(layout_host, G, cap, N):
     """K2 forms x' once a bin into shared memory at G = 1 where a block's
     area (64 points of N doubles), its index slots (4,352 bytes in the
     build of 8 slots) or row tile (2,048 in the build of 64), the most rows
     it stages (25 of N doubles) and the runtime's 1 KB leave eight blocks in
     an SM's 228 KB; never at G = 32, nor at N = 573 or 1400."""
+    fits = layout_host.mb_xarea_fits
     top = XAREA_TOP[cap]
     n = {"top": top, "top+1": top + 1}.get(N, N)
     block = 64 * n * 8 + 25 * n * 8 + {8: 4_352, 64: 2_048}[cap] + 1_024
     want = G == 1 and 8 * block <= 228 * 1024
-    assert CM.xarea_fits(G, cap, n) == want == (G == 1 and n <= top)
-    assert CM.xarea_limit(G, cap) == (top if G == 1 else 0)
-    assert CM.xarea_bytes(G, n) == 64 // G * n * 8
+    assert bool(fits(G, cap, n)) == want == (G == 1 and n <= top)
+    limit = next(m for m in range(2000) if not fits(G, cap, m + 1))  # the largest N the rule admits (0 if none)
+    assert limit == (top if G == 1 else 0)
+    assert layout_host.mb_xarea_bytes(G, n) == 64 // G * n * 8
+    assert layout_host.mb_static_bytes(G, cap, 1) == {8: 4_352, 64: 2_048}[cap]
 
 
 def test_mb_xarea_argument_checked_first():
@@ -331,56 +379,61 @@ def test_mb_xarea_argument_checked_first():
         CM.mb_sweep_thermo(*[None] * 8, 2, 1, 4, _xarea="on")
 
 
-def test_iso_staged_sources_count():
+def test_iso_staged_sources_count(layout_host):
     """K3's staging at G = 1: a block's 256 cells span (255 // NX) + 2 rows,
     2 sources each, staged where they fit beside the build's slots and the
     list of staged sources; never at G = 32."""
+    staged = lambda *a: _k3_rule(layout_host.iso_staged_sources, *a)  # noqa: E731
     src = lambda N, order: (2 + (2 if order == 1 else 5) + 3 * (3 if order == 1 else 6)) * N * 8  # noqa: E731  (one source's rows)
-    assert CI.staged_sources(1, 2, 834, 301, 31, 1) == 2 and CI.staged_sources(1, 2, 834, 301, 31, 1, 64) == 2
-    assert CI.staged_sources(32, 2, 834, 301, 31, 1, 64) == 0
-    assert CI.staged_sources(1, 2, 128, 128, 1400, 1) == 0  # one source's rows are 146 KB
-    assert CI.staged_sources(1, 5, 12, 40, 31, 2) == 5
+    assert staged(1, 2, 834, 301, 31, 1) == 2 and staged(1, 2, 834, 301, 31, 1, 64) == 2
+    assert staged(32, 2, 834, 301, 31, 1, 64) == 0
+    assert staged(1, 2, 128, 128, 1400, 1) == 0  # one source's rows are 146 KB
+    assert staged(1, 5, 12, 40, 31, 2) == 5
     # the N at which two order-2 sources stop fitting: the small build
     # leaves 48 KB - 17,408 - 144 bytes, the wide build 48 KB - 144 (the
     # staged-source list, 33 ints rounded up to 16 bytes)
-    assert CI.LIST_BYTES == 144
-    for cap, room in ((8, CS.STATIC_SMEM - 17_408 - 144), (64, CS.STATIC_SMEM - 144)):
+    assert layout_host.iso_list_bytes() == 144
+    for cap, room in ((8, STATIC_SMEM - 17_408 - 144), (64, STATIC_SMEM - 144)):
         n = room // (2 * src(1, 2))
-        assert CI.staged_sources(1, 2, 834, 301, n, 2, cap) == 2 and CI.staged_sources(1, 2, 834, 301, n + 1, 2, cap) == 0
+        assert staged(1, 2, 834, 301, n, 2, cap) == 2 and staged(1, 2, 834, 301, n + 1, 2, cap) == 0
     with pytest.raises(ValueError, match="max_phases"):
-        CI.staged_sources(1, 2, 834, 301, 31, 1, 65)
+        staged(1, 2, 834, 301, 31, 1, 65)
 
 
-def test_iso_xm_bytes_count():
+def test_iso_xm_bytes_count(layout_host):
     """K3's x_m area: the build of 64 slots keeps THREADS/G cells of N
     doubles in shared memory where the block's static slots and list, its
     staged rows and the area fit the 227 KB a Hopper block may opt in to;
     the first build has none."""
-    assert CI.SMEM_OPTIN == 227 * 1024 == 232_448
+    optin, list_bytes = layout_host.iso_smem_optin(), layout_host.iso_list_bytes()
+    assert optin == 227 * 1024 == 232_448
+    staged = lambda *a: _k3_rule(layout_host.iso_staged_sources, *a)  # noqa: E731
+    xm_bytes = lambda *a: _k3_rule(layout_host.iso_xm_bytes, *a)  # noqa: E731
     src = lambda N, order: (2 + (2 if order == 1 else 5) + 3 * (3 if order == 1 else 6)) * N * 8  # noqa: E731  (one source's rows)
     # the main cases: overflow31 at G = 1 (63.5 KB beside 2 staged sources),
     # overflow1400 at G = 32 (89.6 KB), overflow1400 at G = 1 (2.8 MB: on read)
-    assert CI.xm_bytes(1, 2, 834, 301, 31, 1, 16) == CI.xm_bytes(1, 2, 834, 301, 31, 2, 64) == 256 * 31 * 8 == 63_488
-    assert CI.xm_bytes(32, 2, 834, 301, 31, 1, 16) == 8 * 31 * 8
-    assert CI.xm_bytes(32, 2, 128, 128, 1400, 1, 16) == CI.xm_bytes(32, 2, 128, 128, 1400, 2, 64) == 8 * 1400 * 8 == 89_600
-    assert CI.xm_bytes(1, 2, 128, 128, 1400, 1, 16) == 0
-    for G in CS.LANES:
+    assert xm_bytes(1, 2, 834, 301, 31, 1, 16) == xm_bytes(1, 2, 834, 301, 31, 2, 64) == 256 * 31 * 8 == 63_488
+    assert xm_bytes(32, 2, 834, 301, 31, 1, 16) == 8 * 31 * 8
+    assert xm_bytes(32, 2, 128, 128, 1400, 1, 16) == xm_bytes(32, 2, 128, 128, 1400, 2, 64) == 8 * 1400 * 8 == 89_600
+    assert xm_bytes(1, 2, 128, 128, 1400, 1, 16) == 0
+    for G in L.LANES:
         for order in (1, 2):
-            assert all(CI.xm_bytes(G, 2, 834, 301, N, order, p) == 0 for N in (31, 1400) for p in (1, 4, 8))
+            assert all(xm_bytes(G, 2, 834, 301, N, order, p) == 0 for N in (31, 1400) for p in (1, 4, 8))
     # the N at which the area stops fitting: at G = 32 beside the slots
     # (4,128 bytes); at G = 1 beside the list (144) and the 2 staged sources
-    edge32 = (CI.SMEM_OPTIN - CS.slot_bytes(32, 64)) // (8 * 8)
+    edge32 = (optin - layout_host.tail_slot_bytes(32, 64)) // (8 * 8)
     assert edge32 == 3_567
-    assert CI.xm_bytes(32, 2, 128, 128, edge32, 1, 64) == 8 * edge32 * 8 and CI.xm_bytes(32, 2, 128, 128, edge32 + 1, 1, 64) == 0
+    assert xm_bytes(32, 2, 128, 128, edge32, 1, 64) == 8 * edge32 * 8 and xm_bytes(32, 2, 128, 128, edge32 + 1, 1, 64) == 0
     for order, edge1 in ((1, 102), (2, 94)):
-        assert CI.staged_sources(1, 2, 834, 301, edge1 + 1, order, 64) == 2
-        assert edge1 == (CI.SMEM_OPTIN - CI.LIST_BYTES) // (256 * 8 + 2 * src(1, order))
-        assert CI.xm_bytes(1, 2, 834, 301, edge1, order, 64) == 256 * edge1 * 8 and CI.xm_bytes(1, 2, 834, 301, edge1 + 1, order, 64) == 0
+        assert staged(1, 2, 834, 301, edge1 + 1, order, 64) == 2
+        assert edge1 == (optin - list_bytes) // (256 * 8 + 2 * src(1, order))
+        assert xm_bytes(1, 2, 834, 301, edge1, order, 64) == 256 * edge1 * 8 and xm_bytes(1, 2, 834, 301, edge1 + 1, order, 64) == 0
     # nothing staged (a block naming more sources than the list holds): the area alone
-    assert CI.staged_sources(1, 40, 1, 300, 113, 1, 64) == 0 and CI.xm_bytes(1, 40, 1, 300, 113, 1, 64) == 256 * 113 * 8
-    assert CI.xm_bytes(1, 40, 1, 300, 114, 1, 64) == 0
+    assert staged(1, 40, 1, 300, 113, 1, 64) == 0 and xm_bytes(1, 40, 1, 300, 113, 1, 64) == 256 * 113 * 8
+    assert xm_bytes(1, 40, 1, 300, 114, 1, 64) == 0
     with pytest.raises(ValueError, match="max_phases"):
-        CI.xm_bytes(1, 2, 834, 301, 31, 1, 65)
+        xm_bytes(1, 2, 834, 301, 31, 1, 65)
+    assert [layout_host.iso_static_bytes(G, c) for G, c in ((1, 8), (32, 8), (1, 64), (32, 64))] == [17_408 + 144, 544, 144, 4_128]
 
 
 def test_wrappers_raise_above_the_builds():
@@ -486,14 +539,7 @@ def _n_peak_surface(n_peaks):
 def tail_host(tmp_path_factory):
     """tests/tail_host/tail_host.cpp built with g++ (the kernels' tail for
     one lane on the CPU)."""
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++ to build the tail for the host")
-    here = Path(__file__).parent
-    so = tmp_path_factory.mktemp("tail_host") / "libtail_host.so"
-    subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off", "-I", str(here / "tail_host"),
-                    "-I", str(here.parent / "fhmcanalysis_torch" / "csrc"), str(here / "tail_host" / "tail_host.cpp"), "-o", str(so)],
-                   check=True, capture_output=True, timeout=300)
-    lib = ctypes.CDLL(str(so))
+    lib = _gxx(tmp_path_factory, "tail_host.cpp")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tail_run.argtypes = [i, p, p, ctypes.c_double] + [i] * 7 + [p] * 12
     lib.iso_cell_run.argtypes = [i, i] + [p] * 11 + [i] * 10 + [ctypes.c_double] + [p] * 5
@@ -626,9 +672,9 @@ def test_iso_cell_on_host(tail_host, surface, order, collect):
         meta = TS.HistMeta(**dict(mk, max_phases=P))
         pro = IB._iso_prologue(srcs, meta, mu1_v, dmu2_v, lr, wts, beta, order, 10.0)
         want = IB.iso_grid_body(srcs, [meta] * len(srcs), mu1_v, dmu2_v, lr, wts, beta, order, 10.0, collect)
-        cap = CS.capacity(P)
+        cap = L.capacity(P)
         runs = [_host_iso_run(tail_host, cap, 0, pro, meta, order, collect)]
-        if cap == CS.CAPACITIES[-1]:
+        if cap == L.CAPACITIES[-1]:
             runs.append(_host_iso_run(tail_host, cap, 1, pro, meta, order, collect))
             for k in runs[0]:
                 assert runs[0][k].tobytes() == runs[1][k].tobytes(), (P, k)

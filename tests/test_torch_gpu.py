@@ -35,13 +35,15 @@ every G on multi573 (None and janus, 16-64 slots) and on surfaces of 63,
 64 and 65 maxima (one slot of fill, every slot real, overflow).  K3's
 wide build, which forms each cell's x_m once in shared memory where a
 block's area fits, is held on overflow31 and overflow1400 (ripple1400)
-against its plain version and bit for bit against x_m formed on read;
-the host's count of the area equals the library's, and an area forced
-past what the card grants raises.  K2's x' area (each point's x' formed
-once a bin into shared memory at G = 1 and small N) returns the re-forming
-route's outputs bit for bit over orders, nspec, props, first_order_mom,
-janus, both modes and both builds; the host's rule equals the library's,
-and launches.k2_xarea counts the launches that take it.
+against its plain version and bit for bit against x_m formed on read,
+and an area forced past what the card grants raises.  K2's x' area (each
+point's x' formed once a bin into shared memory at G = 1 and small N)
+returns the re-forming route's outputs bit for bit over orders, nspec,
+props, first_order_mom, janus, both modes and both builds; where the
+library's rule takes it, its build keeps the blocks an SM it is made
+for, and launches.k2_xarea counts the launches that take it.  (The
+layout rules themselves are the CUDA headers' alone; the CPU tests
+build them with g++, tests/test_torch_capacity.py.)
 """
 
 import sys
@@ -54,6 +56,7 @@ import torch
 import fhmcanalysis_torch.core.cuda_iso as CI
 import fhmcanalysis_torch.core.cuda_mb as CM
 import fhmcanalysis_torch.core.cuda_sweep as CS
+import fhmcanalysis_torch.core.launch as L
 import fhmcanalysis_torch.core.pipeline as TP
 import fhmcanalysis_torch.core.solve as TSV
 import fhmcanalysis_torch.core.state as TS
@@ -65,7 +68,7 @@ IB = sys.modules["fhmcanalysis_torch.binary.isopleth"]
 
 SEG = ("valid", "mask", "n_phases", "left", "right")
 PROPS = ("n_i", "x_i", "ntot", "u", "density")
-LANES = (None,) + CS.LANES  # the rule's pick, then every G forced
+LANES = (None,) + L.LANES  # the rule's pick, then every G forced
 
 
 @pytest.fixture
@@ -466,7 +469,7 @@ def test_mb_paired_wide_equals_product_and_plain(cuda, max_phases):
     rows = torch.arange(1024, device=cuda) * A + t.long()
     want = TP._mb_paired_body(h, meta, *inputs, t, 1, True, None)
     ok = (want["mask"] & want["valid"][:, None]).cpu()
-    for G in CS.LANES:
+    for G in L.LANES:
         prod, got = _k2(h, meta, inputs, 1, True, None, _lanes=G), _k2(h, meta, inputs, 1, True, None, tix=t, _lanes=G)
         torch.cuda.synchronize()
         for k in prod:
@@ -585,7 +588,7 @@ def test_iso_kernel_matches_plain(cuda, name, kw, order, collect, max_phases):
     metas = [TS.HistMeta(**dict(mk, max_phases=max_phases))] * len(srcs)
     _iso_compare((srcs, metas, mu1_v, dmu2_v, lr, wts, beta, order, 10.0, collect))
     if name == "n1400":
-        assert CI.staged_sources(1, len(srcs), 64, 32, 1400, order) == 0
+        assert _k3_layout("staged_sources", 1, len(srcs), 64, 32, 1400, order) == 0
 
 
 @pytest.mark.gpu
@@ -601,7 +604,7 @@ def test_iso_kernel_shapes(cuda, grid, order, collect):
     mu1_v, dmu2_v = np.linspace(*mu1, g["NX"]), np.linspace(*dmu2, g["NY"])
     iso, srcs, mk, lr, wts = _iso(cuda, g["name"], order, g["beta"], mu1_v, dmu2_v, dmu2s=dmu2s)
     if grid == "narrow":
-        assert len(srcs) == 5 and CI.staged_sources(1, 5, g["NX"], g["NY"], 31, order) == 5
+        assert len(srcs) == 5 and _k3_layout("staged_sources", 1, 5, g["NX"], g["NY"], 31, order) == 5
     else:
         assert g["NX"] * g["NY"] % 256 == 13
     _iso_compare((srcs, [TS.HistMeta(**dict(mk, max_phases=8))] * len(srcs), mu1_v, dmu2_v, lr, wts, g["beta"], order, 10.0, collect))
@@ -679,21 +682,10 @@ def test_iso_kernel_overflow31(cuda, max_phases, order):
     assert bool((code == (3 if max_phases == 8 else 0)).all())
 
 
-@pytest.mark.gpu
-def test_iso_staged_sources_host_count_equals_library(cuda):
-    """cuda_iso.staged_sources (the host's count) equals what the built
-    kernel library decides, for both builds, both G and grids around the
-    48 KB edge."""
-    n = 0
-    for G in CS.LANES:
-        for P in (8, 64):
-            for order in (1, 2):
-                for W, NX, NY in ((2, 834, 301), (5, 12, 40), (3, 95, 19), (40, 1, 300)):
-                    for N in (31, 63, 127, 190, 200, 250, 299, 300, 400, 1400):
-                        built = CI._lib().iso_grid_staged_sources(G, CS.capacity(P), W, NX, NY, N, CM.n_xrows(2, order), CM.n_groups(2, order, False))
-                        assert CI.staged_sources(G, W, NX, NY, N, order, P) == built, (G, P, order, W, NX, NY, N)
-                        n += 1
-    assert n == 320
+def _k3_layout(rule, G, W, NX, NY, N, order, max_phases=8):
+    """K3's "staged_sources" or "xm_bytes" for this grid as the loaded
+    library decides them (csrc/iso_cell.cuh)."""
+    return getattr(CI._lib(), f"iso_grid_{rule}")(G, L.capacity(max_phases), W, NX, NY, N, CM.n_xrows(2, order), CM.n_groups(2, order, False))
 
 
 def _iso_kin(srcs, meta, mu1_v, dmu2_v, lr, wts, beta, order):
@@ -721,8 +713,8 @@ def test_iso_kernel_wide_xm(cuda, surface, max_phases, order, collect):
     _iso_compare((srcs, [meta] * len(srcs), mu1_v, dmu2_v, lr, wts, beta, order, 10.0, collect), min_ok=0.0 if max_phases == 16 else 0.5)
     kin = _iso_kin(srcs, meta, mu1_v, dmu2_v, lr, wts, beta, order)
     N, W, NX, NY = srcs[0].nbins, len(srcs), len(mu1_v), len(dmu2_v)
-    for G in CS.LANES:
-        area = CI.xm_bytes(G, W, NX, NY, N, order, max_phases)
+    for G in L.LANES:
+        area = _k3_layout("xm_bytes", G, W, NX, NY, N, order, max_phases)
         assert (area > 0) == (G == 32 or N == 31)
         off = CI.iso_grid(*kin, mk["smooth"], max_phases, order, 10.0, collect, _lanes=G, _xm=False)
         for xm in (None, True) if area else (None,):
@@ -730,23 +722,6 @@ def test_iso_kernel_wide_xm(cuda, surface, max_phases, order, collect):
             torch.cuda.synchronize()
             for k in range(5):
                 assert torch.equal(got[k], off[k]), (G, xm, k)
-
-
-@pytest.mark.gpu
-def test_iso_xm_bytes_host_count_equals_library(cuda):
-    """cuda_iso.xm_bytes (the host's count of K3's x_m area) equals what
-    the built kernel library decides, for both builds and both G, around
-    the edges where the area stops fitting."""
-    n = 0
-    for G in CS.LANES:
-        for P in (8, 64):
-            for order in (1, 2):
-                for W, NX, NY in ((2, 834, 301), (40, 1, 300), (2, 128, 128)):
-                    for N in (31, 94, 95, 102, 103, 113, 114, 1400, 3567, 3568):
-                        built = CI._lib().iso_grid_xm_bytes(G, CS.capacity(P), W, NX, NY, N, CM.n_xrows(2, order), CM.n_groups(2, order, False))
-                        assert CI.xm_bytes(G, W, NX, NY, N, order, P) == built, (G, P, order, W, NX, NY, N)
-                        n += 1
-    assert n == 240
 
 
 @pytest.mark.gpu
@@ -799,7 +774,7 @@ def test_mb_paired_equals_product(cuda, name, order, props, collect):
     for M, tix in ((A, np.arange(A)), (1024, rng.integers(0, A, size=1024))):
         t = torch.as_tensor(tix, dtype=torch.int32, device=cuda)
         sub = (mu[:M], a[:M], xrows, krows, tg)
-        for G in CS.LANES:
+        for G in L.LANES:
             n0 = counters().get("launches.k2", 0)
             prod = _k2(h, meta, sub, order, props, collect, _lanes=G)
             got = _k2(h, meta, sub, order, props, collect, tix=t, _lanes=G)
@@ -861,7 +836,7 @@ def test_mb_paired_rejects_bad_tix(cuda):
         _k2(h, meta, inputs, 1, False, None, tix=good)
     assert counters().get("launches.k2", 0) == n0 + 1
     good[3] = 0
-    for G in CS.LANES:
+    for G in L.LANES:
         want = _k2(h, meta, inputs, 1, True, None, tix=good, _lanes=G)
         version = good._version
         good.data[3], good.data[5] = 8, -1
@@ -926,7 +901,7 @@ def test_find_phase_eq_state_k1_matches_torch(cuda):
 
 
 # ---------------------------------------------------------------------------
-# K2's x' area: where cuda_mb.xarea_fits holds (G = 1, small N), each point's
+# K2's x' area: where the library's rule holds (G = 1, small N), each point's
 # x' is formed once a bin into shared memory; elsewhere it is re-formed at
 # every read.  The two routes return the same bits; both hold against the
 # plain version at the kernels' bar.
@@ -950,23 +925,26 @@ def _k2_launch(h, meta, inputs, order, props, fom, collect, **kw):
     return CM.mb_sweep_thermo(h.lnpi, h.op, xrows, krows if props else None, h.volume, mu, a, tg, meta.nspec, meta.smooth, meta.max_phases, order, props, fom, collect, **kw)
 
 
+def _xarea_top(cap: int) -> int:
+    """The largest N at which the library's rule gives K2's build of cap
+    slots the x' area at G = 1."""
+    fits = CM._lib().mb_sweep_thermo_xarea_fits
+    return next(N for N in range(1, 4097) if not fits(1, cap, N + 1))
+
+
 @pytest.mark.gpu
-def test_mb_xarea_rule_host_equals_library(cuda):
-    """cuda_mb.xarea_fits (the host's rule) equals the library's for every
-    G, build and N up to 2,048, and where it holds the area's build keeps
-    at least two blocks an SM with the most rows a block stages; the
-    re-form route at G = 1 keeps its three."""
+def test_mb_xarea_blocks_per_sm(cuda):
+    """Where the library's rule gives K2 the x' area (N = 31 and the
+    largest N it admits), the area's build keeps the eight blocks an SM it
+    is made for with the most rows a block stages; the re-form route at
+    G = 1 keeps its three."""
     lib = CM._lib()
-    for G in CS.LANES:
-        for cap in CS.CAPACITIES:
-            for N in list(range(1, 2049)) + [4096]:
-                assert bool(lib.mb_sweep_thermo_xarea_fits(G, cap, N)) == CM.xarea_fits(G, cap, N), (G, cap, N)
-    for cap in CS.CAPACITIES:
-        top = CM.xarea_limit(1, cap)
+    for cap in L.CAPACITIES:
+        top = _xarea_top(cap)
         assert top >= 31
         for paired in (0, 1):
             for N in (31, top):
-                assert lib.mb_sweep_thermo_blocks_per_sm(0, 1, cap, -1, paired, N, 2, 2, 1, 0) >= CM.XAREA_MIN_BLOCKS, (cap, paired, N)
+                assert lib.mb_sweep_thermo_blocks_per_sm(0, 1, cap, -1, paired, N, 2, 2, 1, 0) >= 8, (cap, paired, N)
             assert lib.mb_sweep_thermo_blocks_per_sm(0, 1, cap, 0, paired, 31, 2, 2, 1, 0) >= 3, (cap, paired)
 
 
@@ -983,8 +961,7 @@ def test_mb_xarea_bits_equal_reform(cuda, max_phases, at, nspec, order, fom, pro
     8 slots and of 64, at N = 31 and at the largest N the rule admits
     (where the rule picks the area, and one bin more it does not); both
     agree with the plain version."""
-    cap = CS.capacity(max_phases)
-    N = 31 if at == "31" else CM.xarea_limit(1, cap)
+    N = 31 if at == "31" else _xarea_top(L.capacity(max_phases))
     h, meta, mus, betas, dmus = _xarea_inputs(cuda, N, nspec, max_phases)
     inputs = TP._mb_inputs(h, meta, mus, betas, dmus, order, props, fom, kernel=True)
     M, A = len(mus), len(betas)

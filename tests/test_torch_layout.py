@@ -1,7 +1,7 @@
 """PyTorch port: the kernels' layout rule and the inputs that hold it.
 
 K1 and K2 run G lanes per state point (csrc/thermo_tail.cuh), with G from
-``cuda_sweep.lanes_per_point``, and K3 G lanes per isopleth cell, with G
+``launch.lanes_per_point``, and K3 G lanes per isopleth cell, with G
 from ``cuda_iso.lanes_per_cell``.  On the CPU this file checks the rules'
 contracts, that a forced G the kernels do not build raises before any
 launch, and that the shuffled mu grid the GPU tests use really mixes
@@ -19,6 +19,7 @@ import torch
 import fhmcanalysis_torch.core.cuda_iso as CI
 import fhmcanalysis_torch.core.cuda_mb as CM
 import fhmcanalysis_torch.core.cuda_sweep as CS
+import fhmcanalysis_torch.core.launch as L
 import fhmcanalysis_torch.core.pipeline as TP
 import fhmcanalysis_torch.core.segment as TSeg
 import fhmcanalysis_torch.binary.isopleth  # noqa: F401  (the module; the package exports the class under its name)
@@ -94,7 +95,7 @@ def test_lanes_per_point_contract(n_sm):
     Ns = [1, 2, 31, 63, 127, 255, 383, 384, 385, 573, 1023, 1400, 2047, 4096]
     Bs = [1, 7, 1000, 2046, 4092, 4096, 8184, 25_344, 50_688, 101_376, 262_144, 2**21]
     gs = {(N, B): CS.lanes_per_point(N, B, n_sm) for N in Ns for B in Bs}
-    assert set(gs.values()) <= set(CS.LANES) == {1, 32}
+    assert set(gs.values()) <= set(L.LANES) == {1, 32}
     assert CS.lanes_per_point(1400, 4096, H100_SMS) == 32
     if n_sm == H100_SMS:
         for name in ("n31", "n573"):  # the main-path sweeps and mb31 run one lane per point
@@ -135,7 +136,7 @@ def test_forced_invalid_lanes_raise_before_launch(lanes):
     for call in calls:
         with pytest.raises(ValueError, match="lanes per point must be a power of two dividing 32"):
             call(lanes)
-        for valid in CS.LANES:
+        for valid in L.LANES:
             with pytest.raises(ValueError, match="CUDA tensors"):
                 call(valid)
     assert (counters().get("launches.k1", 0), counters().get("launches.k2", 0)) == (n1, n2) == (0, 0)
@@ -151,7 +152,7 @@ def test_lanes_per_cell_contract(n_sm):
     Ns = [1, 2, 31, 63, 127, 255, 384, 573, 1023, 1400, 2047]
     Bs = [1, 7, 1000, 4092, 6138, 12_276, 16_384, 24_552, 67_584, 135_168, 251_034, 270_336, 2**21]
     gs = {(N, B): CI.lanes_per_cell(N, B, n_sm) for N in Ns for B in Bs}
-    assert set(gs.values()) <= set(CS.LANES)
+    assert set(gs.values()) <= set(L.LANES)
     if n_sm == H100_SMS:
         assert CI.lanes_per_cell(31, ISO31["NX"] * ISO31["NY"], n_sm) == 1
         assert CI.lanes_per_cell(1400, ISO1400["NX"] * ISO1400["NY"], n_sm) == 32
@@ -185,7 +186,7 @@ def test_iso_forced_invalid_lanes_raise_before_launch(lanes):
     for call in calls:
         with pytest.raises(ValueError, match="lanes per point must be a power of two dividing 32"):
             call(lanes)
-        for valid in CS.LANES:
+        for valid in L.LANES:
             with pytest.raises(ValueError, match="CUDA tensors"):
                 call(valid)
     for engine in ("auto", "torch"):

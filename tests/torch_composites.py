@@ -275,7 +275,7 @@ def iso_grid_args(g: dict, NX: int | None = None, NY: int | None = None):
 # Inputs beyond the kernels' first build (max_phases <= 8, nspec <= 2).
 # The JAX package's kernels take any max_phases (its class path caps the
 # padded device representation at 64) and K1 any nspec, so the port's
-# wide builds (cuda_sweep.CAPACITIES) are held to these:
+# wide builds (launch.CAPACITIES) are held to these:
 #   ten31: the fail-code test's ten-peak surface (``ten_peak``, ~10
 #     maxima) on the n31 composite's moments, smooth 1;
 #   ripple121: lnPI = 6 sin(2 pi n / 9) - 0.02 n on the moments of a
