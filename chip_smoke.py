@@ -240,7 +240,8 @@ EXP_OPS = 26
 
 def launch_count(kernel):
     """Launches of kernel "k1", "k2", "k3" or "mb_rows" (the row former), or
-    "k2_xarea" (K2's that formed x' into its area), this process so far (the
+    "k2_xarea" (K2's that formed x' into its area) or "k2_tile" (those that
+    also formed their targets' key' once, in the target tile), this process so far (the
     program's counters)."""
     from fhmcanalysis_torch.utils import profiling
 
@@ -364,7 +365,8 @@ def ptxas_report(text):
     --ptxas-options=-v output: G, the phase-slot capacity and (K1) the
     per-phase sums from the kernel's template arguments, and " paired" after
     the name of K2's paired-mode instantiation, " xa" after K2's with the x'
-    area, " xm" after K3's with the x_m area.  A tree from before the
+    area, " tile" after K2's with the target tile, " xm" after K3's with the
+    x_m area.  A tree from before the
     capacities has G only (capacity None)."""
     rows, fn, stack, spill = [], None, 0, 0
     for line in text.splitlines():
@@ -382,7 +384,7 @@ def ptxas_report(text):
             if name.startswith("iso_grid"):
                 name += " xm" if any(flags) else ""
             else:
-                name += (" paired" if flags and flags[0] else "") + (" xa" if len(flags) > 1 and flags[1] else "")
+                name += (" paired" if flags and flags[0] else "") + (" xa" if len(flags) > 1 and flags[1] else "") + (" tile" if len(flags) > 2 and flags[2] else "")
             smem = re.search(r"(\d+) bytes smem", line)
             rows.append((name, ints[0] if ints else None, ints[1] if len(ints) > 1 else None, ints[2] if len(ints) > 2 else None,
                          int(m.group(1)), stack, spill, int(smem.group(1)) if smem else 0))
@@ -462,14 +464,14 @@ class Ctx:
     def shared_bytes(self, mod, G, cap, kernel=""):
         """The static shared bytes mod's library counts for a block of its
         kernel (<name>_static_smem): K3 its index slots and staged-source
-        list (G < 32), K1 and K2 their index slots and row tile, K2's build
-        with the x' area those of its own smaller block; None for a library
-        without the count (a tree from before it)."""
+        list (G < 32), K1 and K2 their index slots and row tile, K2's builds
+        with the x' area (tiled or not) those of their own smaller block;
+        None for a library without the count (a tree from before it)."""
         lib = mod._lib()
         if not hasattr(lib, f"{mod.NAME}_static_smem"):
             return None
         if mod is self.cuda_mb:
-            return lib.mb_sweep_thermo_static_smem(G, cap, int(kernel.endswith(" xa")))
+            return lib.mb_sweep_thermo_static_smem(G, cap, int(" xa" in kernel))
         return getattr(lib, f"{mod.NAME}_static_smem")(G, cap)
 
     def k3_layout(self, rule, G, W, NX, NY, N, order, max_phases=8):
@@ -1618,7 +1620,7 @@ def capacity_phase(C, ptxas):
         M, N, S = mus.shape[0], h.nbins, meta.nspec
         for order in (1, 2):
             cname = f"multi573 P={P} o{order}"
-            start_k2, start_xa = launch_count("k2"), launch_count("k2_xarea")
+            start_k2, start_xa, start_tile = launch_count("k2"), launch_count("k2_xarea"), launch_count("k2_tile")
             torch.cuda.reset_peak_memory_stats()
             out = pipeline.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order, props=True)
             torch.cuda.synchronize()
@@ -1626,8 +1628,8 @@ def capacity_phase(C, ptxas):
             k_peak = torch.cuda.max_memory_allocated() / 2**30
             if launches != 1 or out["fe"].shape != (M, A, P):
                 raise AssertionError(f"capacity K2 {cname}: {launches} launches, fe {tuple(out['fe'].shape)}")
-            if launch_count("k2_xarea") != start_xa:
-                raise AssertionError(f"capacity K2 {cname}: N = {h.nbins} took the x' area, which does not fit there")
+            if launch_count("k2_xarea") != start_xa or launch_count("k2_tile") != start_tile:
+                raise AssertionError(f"capacity K2 {cname}: N = {h.nbins} took the x' area or the target tile, which do not fit there")
             torch.cuda.reset_peak_memory_stats()
             want, p_ms = once_ms(lambda: pipeline.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order, props=True, engine="torch"))
             p_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2341,14 +2343,14 @@ def run():
             f"plain {p_ms:.3f} ms = {B / p_ms * 1e3:.4g} points/s (peak {peak:.2f} GiB) | bound {b_ms:.4f} ms by {b_by} ({ops:.4g} f64 ops) | {smi}"
         )
 
-    mb_runs, rows_main, xarea_main = {}, {}, {}  # the row former's launches, and K2's that took the x' area, on each main path
+    mb_runs, rows_main, xarea_main, tile_main = {}, {}, {}, {}  # the row former's launches, and K2's that took the x' area and the target tile, on each main path
     d, mk, mus_np, betas, dmus = TC.mb_grid()
     h, meta = hist(d), state.HistMeta(**mk)
     mus = torch.as_tensor(mus_np, device=dev)
     M, A = mus.shape[0], betas.shape[0]
     for order in MB_ORDERS:
         cname = f"mb31_o{order}"
-        start_k2, start_rows, start_xa = launch_count("k2"), launch_count("mb_rows"), launch_count("k2_xarea")
+        start_k2, start_rows, start_xa, start_tile = launch_count("k2"), launch_count("mb_rows"), launch_count("k2_xarea"), launch_count("k2_tile")
         out = pipeline.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order, props=True)
         torch.cuda.synchronize()
         launches, rows_main[cname] = launch_count("k2") - start_k2, launch_count("mb_rows") - start_rows
@@ -2359,6 +2361,9 @@ def run():
         xarea_main[cname] = launch_count("k2_xarea") - start_xa
         if xarea_main[cname] != launches:
             raise AssertionError(f"{cname}: {xarea_main[cname]} of the main path's {launches} K2 launches formed x' into the area (all of them should)")
+        tile_main[cname] = launch_count("k2_tile") - start_tile
+        if tile_main[cname] != launches:
+            raise AssertionError(f"{cname}: {tile_main[cname]} of the main path's {launches} K2 launches took the target tile (all of them should)")
         if out["fe"].shape != (M, A, meta.max_phases) or out["x_i"].shape != (M, A, meta.max_phases, meta.nspec):
             raise AssertionError(f"{cname}: unexpected output shapes")
         valid = out["valid"]
@@ -2390,7 +2395,14 @@ def run():
         key_ops = (S + 1) * (2 + 2 + 2 + (7 if order == 2 else 0))  # key' per row (dB, dd, order-2 terms), then its multiply-add
         ops = tail_ops(mb_flat(out), B, h.nbins, meta.smooth, x_ops, key_ops)
         b_ms, b_by = bound([h.lnpi, h.op, xrows, krows, h.volume, mu_t, a, tg], out.values(), ops)
-        mb_runs[cname] = dict(M=M, A=A, B=B, N=h.nbins, order=order, lanes=cuda_mb.lanes_per_point(h.nbins, M * A, n_sm), launches=launches, xarea_launches=xarea_main[cname], kernel_ms=k_ms, plain_ms=p_ms, auto_ms=e_ms,
+        # blocks an SM of the build the main path ran (the tiled one) and of the untiled area's and the re-forming build's
+        lib = cuda_mb._lib()
+        occ = [lib.mb_sweep_thermo_blocks_per_sm(0, 1, 8, x, p, h.nbins, S, order, 1, 0, M, A) for x, p in ((-1, 0), (-1, 1), (0, 0))]
+        log(f"{cname}: blocks an SM at N = {h.nbins}: target tile {occ[0]}, untiled x' area {occ[1]}, re-form {occ[2]} (K2 at G = 1, 8 slots)")
+        if occ[0] < 8:
+            raise AssertionError(f"{cname}: the tiled build holds {occ[0]} blocks an SM, fewer than the 8 its rule counts")
+        mb_runs[cname] = dict(M=M, A=A, B=B, N=h.nbins, order=order, lanes=cuda_mb.lanes_per_point(h.nbins, M * A, n_sm), launches=launches, xarea_launches=xarea_main[cname],
+                              tile_launches=tile_main[cname], blocks_per_sm=dict(tile=occ[0], xarea=occ[1], reform=occ[2]), kernel_ms=k_ms, plain_ms=p_ms, auto_ms=e_ms,
                               phases=nph[1:3], valid_share=share, bound_ms=b_ms, bound_by=b_by, ops=ops, covered_bins=covered_bins(mb_flat(out)))
         log(
             f"main path {cname}: N={h.nbins} M={M} A={A} B={B} G={mb_runs[cname]['lanes']} launches={launches} valid share {share:.6f} phases(1,2)={nph[1:3]} | "
@@ -2571,6 +2583,9 @@ def run():
     xarea_main["coex573"] = launch_count("k2_xarea") - start.get("launches.k2_xarea", 0)
     if xarea_main["coex573"] != 0:
         raise AssertionError(f"coex573: {xarea_main['coex573']} paired steps (G = 32) took K2's x' area")
+    tile_main["coex573"] = launch_count("k2_tile") - start.get("launches.k2_tile", 0)
+    if tile_main["coex573"] != 0:
+        raise AssertionError(f"coex573: {tile_main['coex573']} paired steps (G = 32) took K2's target tile")
     steps, syncs = (prof_mod.counters().get(k, 0) - start.get(k, 0) for k in ("solver.steps", "host_syncs"))
     if launches < 3:
         raise AssertionError(f"coex573: the main path launched K2 {launches} times (the start, the steps and the properties need 3 or more)")

@@ -13,7 +13,10 @@ source is ``csrc/mb_sweep_thermo.cu``, G lanes per point with K1's rule
 Where the library's rule holds (``csrc/mb_xarea.cuh``: G = 1 and N up to
 33-36) each point's x' is formed once a bin into an area of shared memory,
 and elsewhere at every read of it; counter ``launches.k2_xarea`` counts the
-launches that take the area.
+launches that take the area.  Of those, a product launch of the build of 8
+slots where the tile's rule holds (N up to 31, and few lanes padded) runs
+blocks of 8 targets x 8 mu values, each forming its targets' key' once
+into shared memory; counter ``launches.k2_tile`` counts them.
 
 The plain version of this kernel is ``pipeline.mu_beta_sweep_body``;
 nothing on the CUDA path calls it.  ``pipeline.mu_beta_sweep_thermo``
@@ -69,9 +72,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.mb_sweep_thermo_launch.restype = i
     lib.mb_sweep_thermo_xarea_fits.argtypes = [i] * 3
     lib.mb_sweep_thermo_xarea_fits.restype = i
+    lib.mb_sweep_thermo_tile_fits.argtypes = [i] * 6
+    lib.mb_sweep_thermo_tile_fits.restype = i
     lib.mb_sweep_thermo_static_smem.argtypes = [i] * 3
     lib.mb_sweep_thermo_static_smem.restype = i
-    lib.mb_sweep_thermo_blocks_per_sm.argtypes = [i] * 10
+    lib.mb_sweep_thermo_blocks_per_sm.argtypes = [i] * 12
     lib.mb_sweep_thermo_blocks_per_sm.restype = i
     lib.mb_rows_launch.argtypes = [i, p, ctypes.POINTER(ctypes.c_int)] + [p] * 6 + [i]
     lib.mb_rows_launch.restype = i
@@ -134,8 +139,9 @@ def mb_sweep_thermo(
     False) forces x' formed once into the area or on every read (tests;
     the area only at G = 1); by default the library's rule
     (``csrc/mb_xarea.cuh``) picks.  An area past what the card grants a
-    block fails the launch, which raises.  Either way the outputs are the
-    same bits.
+    block fails the launch, which raises.  A launch with the area takes the
+    target tile where the library's rule holds for it.  Either way the
+    outputs are the same bits.
     """
     if _lanes is not None:
         check_lanes(_lanes)
@@ -185,6 +191,8 @@ def mb_sweep_thermo(
     )
     if _xarea or (_xarea is None and lib.mb_sweep_thermo_xarea_fits(G, cap, N)):
         profiling.add("launches.k2_xarea")
+        if lib.mb_sweep_thermo_tile_fits(G, cap, int(tix is not None), N, M, A):
+            profiling.add("launches.k2_tile")
     return out
 
 

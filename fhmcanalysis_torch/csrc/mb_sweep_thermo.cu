@@ -62,9 +62,21 @@
 // move (PERF.md).  Elsewhere (G =
 // 32, and N past the limit: multi573, the solver's paired steps, the
 // example workflows) x' is formed again at every read, which keeps the
-// kernel free of shared-memory limits in N.  key' is read once per covered
-// bin and is formed on read in every build.  The outputs are the same bits
+// kernel free of shared-memory limits in N.  The outputs are the same bits
 // on either route.
+//
+// The target tile.  key' is read once per covered bin, three rows at
+// nspec 2 (6 row loads and 11 operations each at order 2), ~35 x 3 reads a
+// point, yet it depends only on the target and the bin.  Where the tile's
+// rule of mb_xarea.cuh holds (the area's build in the product mode, 8
+// slots, N <= 31, padding at most an eighth of the lanes), a block of the
+// area's build holds 8 targets x 8 mu values instead of 64 consecutive
+// points (a fifth template argument, TILED), and forms its targets' key'
+// once into shared memory with the same expression (extrap_key on the
+// staged rows), which the tail then reads with one load.  Elsewhere (the
+// paired mode, G = 32, the build of 64 slots, N past the rule) key' is
+// formed on read.  Each point's sums run in the same order on its own lane
+// at G = 1, so the outputs are the same bits on either mapping.
 //
 // Capacities: a third template argument, CAP, is the phase slots a point
 // holds (8 or 64; thermo_tail.cuh), so that K2 answers every max_phases up
@@ -91,6 +103,8 @@
 namespace {
 
 using mbxa::block_threads;
+using mbxa::TILE_M;
+using mbxa::TILE_T;
 using mbxa::xarea_bytes;
 using mbxa::xarea_fits;
 using mbxa::XA_MIN_BLOCKS;
@@ -167,9 +181,10 @@ __device__ __forceinline__ void stage(double* dst, const double* src, int n) {
   for (int k = threadIdx.x; k < n; k += T) dst[k] = src[k];
 }
 
-template <int G, bool PAIRED, int CAP, bool XA>
+template <int G, bool PAIRED, int CAP, bool XA, bool TILED>
 __global__ void __launch_bounds__(block_threads<XA>(), min_blocks<XA>()) mb_sweep_thermo_kernel(Args g) {
   static_assert(!XA || G == 1, "the x' area is the layout of one lane a point");
+  static_assert(!TILED || (XA && !PAIRED && CAP == tail::SMALL), "the target tile is the area's product build of 8 slots");
   constexpr int PTS = block_threads<XA>() / G;  // points per block
   constexpr bool NC = G == 32;      // rows read through the read-only cache
   constexpr bool SH = tail::slots_shared(G, CAP);
@@ -179,9 +194,14 @@ __global__ void __launch_bounds__(block_threads<XA>(), min_blocks<XA>()) mb_swee
   __shared__ __align__(16) unsigned char s_tile[TILE ? TILE : 1];  // the wide build's row tile (G = 1)
   extern __shared__ double s_dyn[];  // the staged rows (G < 32), then the x' area (XA)
   const int pt = threadIdx.x / G;
-  const long long b = (long long)blockIdx.x * PTS + pt;
+  // TILED: lane pt holds target tt and mu tm (mb_xarea.cuh), target groups fastest
+  const unsigned groups = TILED ? (unsigned)mbxa::tile_groups(g.A) : 1u;
+  const long long tt = TILED ? (long long)(blockIdx.x % groups) * TILE_T + pt % TILE_T : 0;
+  const long long tm = TILED ? (long long)(blockIdx.x / groups) * TILE_M + pt / TILE_T : 0;
+  const long long b = TILED ? tm * g.A + tt : (long long)blockIdx.x * PTS + pt;
   const double *lnpi = g.lnpi, *op = g.op, *xrows = g.xrows, *krows = g.krows;
   double* xa = s_dyn + pt;  // XA: bin i of the block's point pt at i * PTS + pt
+  const double* ktab = nullptr;  // TILED: the lane's target's key' rows, [S+1][N]
   if constexpr (G < 32) {
     // the rows, staged in shared memory by the whole block
     if (stages<G, CAP, XA>(g)) {
@@ -189,16 +209,34 @@ __global__ void __launch_bounds__(block_threads<XA>(), min_blocks<XA>()) mb_swee
       stage<PTS * G>(s_dyn, lnpi, N);
       stage<PTS * G>(s_dyn + N, op, N);
       stage<PTS * G>(s_dyn + 2 * N, xrows, XN);
-      stage<PTS * G>(s_dyn + 2 * N + XN, krows, k_rows(g) * N);
-      __syncthreads();
+      if constexpr (TILED) {
+        // the key rows go into the bytes of the x' area, written only after
+        // the table; each target's key' is formed by that target's lanes
+        const int KN = (g.S + 1) * N;
+        double* tab = s_dyn + 2 * N + XN;
+        double* kst = tab + (g.props ? TILE_T * KN : 0);
+        if (g.props) stage<PTS * G>(kst, krows, k_rows(g) * N);
+        __syncthreads();
+        if (g.props && tt < g.A) {
+          const tail::Targets tgt = tail::targets(g.tg + tt * tail::n_targets(g.S, g.order), g.S, g.order);
+          double* row = tab + pt % TILE_T * KN;
+          for (int r = pt / TILE_T; r < KN; r += TILE_M) row[r] = tail::extrap_key<false>(kst, N, KN, g.S == 2, g.khess, tgt, r / N, r % N);
+        }
+        __syncthreads();
+        ktab = tab + pt % TILE_T * KN;
+        xa = kst + pt;
+      } else {
+        stage<PTS * G>(s_dyn + 2 * N + XN, krows, k_rows(g) * N);
+        __syncthreads();
+        krows = s_dyn + 2 * N + XN;
+        xa += 2 * N + XN + k_rows(g) * N;
+      }
       lnpi = s_dyn;
       op = s_dyn + N;
       xrows = s_dyn + 2 * N;
-      krows = s_dyn + 2 * N + XN;
-      xa += 2 * N + XN + k_rows(g) * N;
     }
   }
-  const bool in = b < n_points<PAIRED>(g);
+  const bool in = TILED ? tt < g.A && tm < g.M : b < n_points<PAIRED>(g);
   // the wrapper checks tix's range once per tensor version; this guard
   // holds whatever wrote tix since (every lane of the group returns)
   const bool tix_ok = !PAIRED || !in || (unsigned)g.tix[b] < (unsigned)g.A;
@@ -211,7 +249,7 @@ __global__ void __launch_bounds__(block_threads<XA>(), min_blocks<XA>()) mb_swee
   }
 
   const int S = g.S;
-  const long long m = PAIRED ? b : b / g.A, t = PAIRED ? (long long)g.tix[b] : b % g.A;
+  const long long m = PAIRED ? b : TILED ? tm : b / g.A, t = PAIRED ? (long long)g.tix[b] : TILED ? tt : b % g.A;
   const double mu = g.mu[m], a = g.a[m];
   const tail::Targets tg = tail::targets(g.tg + t * tail::n_targets(S, g.order), S, g.order);
   const bool two = S == 2, o2 = g.order >= 2;
@@ -226,7 +264,10 @@ __global__ void __launch_bounds__(block_threads<XA>(), min_blocks<XA>()) mb_swee
     if constexpr (XA) return xa[i * PTS];
     else return tail::extrap_x<NC>(lnpi, op, xrows, N, two, o2, a, mu, tg, i);
   };
-  const auto kf = [&](int k, int i) { return tail::extrap_key<NC>(krows, N, KN, two, g.khess, tg, k, i); };
+  const auto kf = [&](int k, int i) {
+    if constexpr (TILED) return ktab[k * g.N + i];
+    else return tail::extrap_key<NC>(krows, N, KN, two, g.khess, tg, k, i);
+  };
   tail::OutSink<2> sink{g.out, b, g.P, S, g.props, g.volume, live, s_tile + threadIdx.x / 32 * tail::ROW_TILE};
   // G = 32: a point's slots are contiguous; else points interleave in the
   // slots, so a group's reads of slot j are one row; or (the wide build at
@@ -239,16 +280,19 @@ __global__ void __launch_bounds__(block_threads<XA>(), min_blocks<XA>()) mb_swee
 }
 
 // One build of the kernel, as a type.
-template <int G_, bool PAIRED_, int CAP_, bool XA_>
+template <int G_, bool PAIRED_, int CAP_, bool XA_, bool TILED_ = false>
 struct Build {
   static constexpr int G = G_, CAP = CAP_;
-  static constexpr bool PAIRED = PAIRED_, XA = XA_;
+  static constexpr bool PAIRED = PAIRED_, XA = XA_, TILED = TILED_;
 };
 
-// Dynamic shared bytes of a block: the staged rows, then the x' area.
-template <int G, int CAP, bool XA>
+// Dynamic shared bytes of a block: the staged rows, then the x' area; a
+// tiled block stages no key row beside its key' table (they pass through
+// the area's bytes), and without props, which reads no key row, has no table.
+template <int G, int CAP, bool XA, bool TILED>
 size_t dyn_bytes(const Args& g) {
   if constexpr (G == 32) return 0;
+  else if constexpr (TILED) return (size_t)(2 + x_rows(g)) * g.N * sizeof(double) + (g.props ? mbxa::tile_table_bytes(g.S, g.N) : 0) + xarea_bytes<G>(g.N);
   else return (stages<G, CAP, XA>(g) ? row_bytes(g) : 0) + (XA ? xarea_bytes<G>(g.N) : 0);
 }
 
@@ -260,9 +304,9 @@ size_t dyn_bytes(const Args& g) {
 // memory, so that XA_MIN_BLOCKS of its blocks are resident; the other
 // builds opt in only above 48 KB of dynamic memory, which their staging
 // rule (counting their static bytes) keeps them under.
-template <int G, bool PAIRED, int CAP, bool XA>
+template <int G, bool PAIRED, int CAP, bool XA, bool TILED>
 cudaError_t allow(size_t dyn) {
-  const auto kernel = mb_sweep_thermo_kernel<G, PAIRED, CAP, XA>;
+  const auto kernel = mb_sweep_thermo_kernel<G, PAIRED, CAP, XA, TILED>;
   cudaError_t e = cudaSuccess;
   if (XA) e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
   if (e == cudaSuccess && (XA || dyn > 48 * 1024)) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
@@ -270,25 +314,25 @@ cudaError_t allow(size_t dyn) {
   return e;
 }
 
-template <int G, bool PAIRED, int CAP, bool XA>
+template <int G, bool PAIRED, int CAP, bool XA, bool TILED>
 cudaError_t launch(const Args& g, cudaStream_t stream) {
   constexpr int PTS = block_threads<XA>() / G;
-  const unsigned blocks = (unsigned)((n_points<PAIRED>(g) + PTS - 1) / PTS);
-  const size_t dyn = dyn_bytes<G, CAP, XA>(g);
-  const cudaError_t e = allow<G, PAIRED, CAP, XA>(dyn);
+  const unsigned blocks = (unsigned)(TILED ? mbxa::tile_blocks(g.M, g.A) : (n_points<PAIRED>(g) + PTS - 1) / PTS);
+  const size_t dyn = dyn_bytes<G, CAP, XA, TILED>(g);
+  const cudaError_t e = allow<G, PAIRED, CAP, XA, TILED>(dyn);
   if (e != cudaSuccess) return e;
-  mb_sweep_thermo_kernel<G, PAIRED, CAP, XA><<<blocks, block_threads<XA>(), dyn, stream>>>(g);
+  mb_sweep_thermo_kernel<G, PAIRED, CAP, XA, TILED><<<blocks, block_threads<XA>(), dyn, stream>>>(g);
   return cudaGetLastError();
 }
 
 // Blocks of the build an SM holds for this launch (0 for a build the
 // library does not have or an area past what a block may opt in to).
-template <int G, bool PAIRED, int CAP, bool XA>
+template <int G, bool PAIRED, int CAP, bool XA, bool TILED>
 int blocks_per_sm(const Args& g) {
-  const size_t dyn = dyn_bytes<G, CAP, XA>(g);
+  const size_t dyn = dyn_bytes<G, CAP, XA, TILED>(g);
   int n = 0;
-  if (allow<G, PAIRED, CAP, XA>(dyn) != cudaSuccess) return 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, mb_sweep_thermo_kernel<G, PAIRED, CAP, XA>, block_threads<XA>(), dyn) != cudaSuccess) {
+  if (allow<G, PAIRED, CAP, XA, TILED>(dyn) != cudaSuccess) return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, mb_sweep_thermo_kernel<G, PAIRED, CAP, XA, TILED>, block_threads<XA>(), dyn) != cudaSuccess) {
     cudaGetLastError();
     return 0;
   }
@@ -296,13 +340,16 @@ int blocks_per_sm(const Args& g) {
 }
 
 // The build for G, the mode and the area (xarea: -1 the library's rule,
-// 0 off, 1 on), handed to f; cudaErrorInvalidValue for one the library
-// does not have (the area at G = 32).
+// 0 off, 1 on), tiled where the area is taken and the tile's rule holds
+// for M x A, handed to f; cudaErrorInvalidValue for one the library does
+// not have (the area at G = 32).
 template <int CAP, typename F>
-cudaError_t with_build(int G, bool paired, int xarea, int N, const F& f) {
+cudaError_t with_build(int G, bool paired, int xarea, int N, int M, int A, const F& f) {
   const bool xa = xarea < 0 ? xarea_fits<CAP>(G, N) : xarea > 0;
   switch (G) {
     case 1:
+      if constexpr (CAP == tail::SMALL)
+        if (xa && mbxa::tile_fits<CAP>(G, paired, N, M, A)) return f(Build<1, false, CAP, true, true>{});
       if (xa) return paired ? f(Build<1, true, CAP, true>{}) : f(Build<1, false, CAP, true>{});
       return paired ? f(Build<1, true, CAP, false>{}) : f(Build<1, false, CAP, false>{});
     case 32:
@@ -313,10 +360,10 @@ cudaError_t with_build(int G, bool paired, int xarea, int N, const F& f) {
 }
 
 template <typename F>
-cudaError_t with_build(int G, int cap, bool paired, int xarea, int N, const F& f) {
+cudaError_t with_build(int G, int cap, bool paired, int xarea, int N, int M, int A, const F& f) {
   switch (cap) {
-    case tail::SMALL: return with_build<tail::SMALL>(G, paired, xarea, N, f);
-    case tail::WIDE: return with_build<tail::WIDE>(G, paired, xarea, N, f);
+    case tail::SMALL: return with_build<tail::SMALL>(G, paired, xarea, N, M, A, f);
+    case tail::WIDE: return with_build<tail::WIDE>(G, paired, xarea, N, M, A, f);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -341,7 +388,8 @@ const char* mb_sweep_thermo_error_string(int code) { return cudaGetErrorString((
 // n_phases 0, mask 0, NaN floats).  khess: the order-2 key-row terms are
 // applied.  xarea: -1 the library's rule (mb_sweep_thermo_xarea_fits), 0 x'
 // formed on read, 1 the x' area (tests; at G = 32 cudaErrorInvalidValue,
-// past what a block may opt in to the opt-in's error).
+// past what a block may opt in to the opt-in's error); with the area, the
+// target tile where mb_sweep_thermo_tile_fits holds.
 int mb_sweep_thermo_launch(int device, void* stream, int G, int cap, int xarea, const double* lnpi, const double* op, const double* xrows,
                            const double* krows, const double* volume, const double* mu, const double* a,
                            const double* tg, const int* tix, int M, int A, int N, int S, int P, int smooth, int order, int props,
@@ -355,9 +403,9 @@ int mb_sweep_thermo_launch(int device, void* stream, int G, int cap, int xarea, 
   const Args g{lnpi, op, xrows, krows, volume, mu, a, tg, tix, M, A, N, S, P, smooth, order, props, khess, janus,
                {fe, left, right, mask, n_phases, valid, n_i, x_i, ntot, u, density}};
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)with_build(G, cap, tix != nullptr, xarea, N, [&](auto b) {
+  return (int)with_build(G, cap, tix != nullptr, xarea, N, M, A, [&](auto b) {
     using B = decltype(b);
-    return launch<B::G, B::PAIRED, B::CAP, B::XA>(g, st);
+    return launch<B::G, B::PAIRED, B::CAP, B::XA, B::TILED>(g, st);
   });
 }
 
@@ -366,23 +414,30 @@ int mb_sweep_thermo_launch(int device, void* stream, int G, int cap, int xarea, 
 // the launch applies at xarea -1).
 int mb_sweep_thermo_xarea_fits(int G, int cap, int N) { return mbxa::xarea_fits(G, cap, N); }
 
+// Whether a launch that takes the x' area, at G lanes a point of the
+// build of `cap` phase slots over N bins and M mu x A targets (paired:
+// the paired mode), holds its targets' key' once in the target tile (the
+// library's rule, which every such launch applies).
+int mb_sweep_thermo_tile_fits(int G, int cap, int paired, int N, int M, int A) { return mbxa::tile_fits(G, cap, paired != 0, N, M, A); }
+
 // Static shared bytes a block of the build at G lanes a point with `cap`
 // phase slots reserves, with the x' area (xa 1) or without (0).
 int mb_sweep_thermo_static_smem(int G, int cap, int xa) { return mbxa::static_bytes(G, cap, xa != 0); }
 
 // Blocks an SM of `device` holds for a launch with these arguments
-// (xarea as for the launch): 0 where the library has no such build or a
-// block's shared memory passes what it may opt in to.
+// (xarea as for the launch; M x A points, which decide the target tile):
+// 0 where the library has no such build or a block's shared memory passes
+// what it may opt in to.
 int mb_sweep_thermo_blocks_per_sm(int device, int G, int cap, int xarea, int paired, int N, int S, int order, int props,
-                                  int first_order_mom) {
+                                  int first_order_mom, int M, int A) {
   const fhmc::DeviceGuard on(device);
   if (on.status() != cudaSuccess) return 0;
   Args g{};
-  g.N = N, g.S = S, g.order = order, g.props = props, g.khess = order >= 2 && !first_order_mom;
+  g.N = N, g.S = S, g.order = order, g.props = props, g.khess = order >= 2 && !first_order_mom, g.M = M, g.A = A;
   int n = 0;
-  const cudaError_t e = with_build(G, cap, paired != 0, xarea, N, [&](auto b) {
+  const cudaError_t e = with_build(G, cap, paired != 0, xarea, N, M, A, [&](auto b) {
     using B = decltype(b);
-    n = blocks_per_sm<B::G, B::PAIRED, B::CAP, B::XA>(g);
+    n = blocks_per_sm<B::G, B::PAIRED, B::CAP, B::XA, B::TILED>(g);
     return cudaSuccess;
   });
   return e == cudaSuccess ? n : 0;

@@ -1,9 +1,11 @@
 // K2's x' area rule: where a block of kernel K2 (mb_sweep_thermo.cu)
 // forms each point's x' once a bin into shared memory, and the shared
-// bytes that build reserves.
+// bytes that build reserves; and the target tile's rule: where a block of
+// that build holds TILE_T targets x TILE_M mu values and forms its
+// targets' key' once into shared memory.
 //
 // Shared by csrc/mb_sweep_thermo.cu (the kernel, its launch and its
-// exports mb_sweep_thermo_xarea_fits / _static_smem) and tests/tail_host/
+// exports mb_sweep_thermo_xarea_fits / _tile_fits / _static_smem) and tests/tail_host/
 // (the same rule built with g++, which the CPU tests hold to their
 // numbers), so the rule is written once.
 
@@ -68,10 +70,64 @@ inline int xarea_fits(int G, int cap, int N) {
   }
 }
 
+// The target tile.  key'_k(i) depends on the target and the bin, never on
+// mu, yet the tail reads it at every covered bin of every point.  A block
+// of the area's build in the product mode holds XA_THREADS consecutive
+// points, one mu and up to 64 targets, whose key' rows would not fit; a
+// tiled block holds TILE_T targets x TILE_M mu values instead (lane pt:
+// target t0 + pt % TILE_T, mu m0 + pt / TILE_T; blocks take target groups
+// fastest, then mu chunks; a point's output row stays b = m A + t), and
+// forms its targets' key' once into a table of shared memory,
+// [TILE_T][S+1][N], which the tail reads.  At TILE_T = 8 a warp's 32 points
+// are 8 consecutive rows of 4 mu values, so a store of a float field
+// touches as many 128-byte lines as 32 consecutive rows do.  The block
+// stages lnpi, op and the x-rows beside the table (TILE_ROWS at most) and
+// the key rows only until the table is formed, in the bytes of the x'
+// area, which is written after it.
+constexpr int TILE_T = 8;
+constexpr int TILE_M = XA_THREADS / TILE_T;
+constexpr int TILE_ROWS = 7;  // lnpi, op, 5 x-rows (nspec 2, order 2)
+constexpr int TILE_KEYS = 3;  // key rows a target: S + 1 at nspec 2
+static_assert(XA_THREADS % TILE_T == 0, "a tiled block holds whole target groups");
+static_assert(XA_ROWS - TILE_ROWS <= XA_THREADS, "the key rows are staged in the bytes of the x' area");
+
+// Bytes of a tiled block's key' table at S species (with props).
+__host__ __device__ __forceinline__ size_t tile_table_bytes(int S, int N) { return (size_t)TILE_T * (S + 1) * N * sizeof(double); }
+
+// Target groups of a tiled launch over A targets (its blocks: groups x mu chunks).
+__host__ __device__ __forceinline__ long long tile_groups(long long A) { return (A + TILE_T - 1) / TILE_T; }
+__host__ __device__ __forceinline__ long long tile_blocks(long long M, long long A) { return tile_groups(A) * ((M + TILE_M - 1) / TILE_M); }
+
+// The shared bytes the rule counts for a tiled block: its x' area, the
+// most rows it stages and the largest table, its static slots and the
+// runtime's reserve.
+template <int CAP>
+__host__ __device__ __forceinline__ size_t tile_block_bytes(int N) {
+  return xarea_bytes<1>(N) + (size_t)(TILE_ROWS + TILE_T * TILE_KEYS) * N * sizeof(double) + xa_static_bytes<CAP>() + SMEM_RESERVED;
+}
+
+// Whether a launch of M mu values x A targets takes the tile: the product
+// mode (the paired mode's points are the solver's, one target each) at
+// G = 1 in the build of 8 slots, where the area's rule holds, the tiled
+// block keeps the XA_MIN_BLOCKS blocks an SM, and the lanes the tile pads
+// (a partial target group or mu chunk) are at most an eighth of the launch's.
+template <int CAP>
+__host__ __device__ __forceinline__ bool tile_fits(int G, bool paired, int N, long long M, long long A) {
+  if (CAP != tail::SMALL || paired || M <= 0 || A <= 0 || !xarea_fits<CAP>(G, N)) return false;
+  if (XA_MIN_BLOCKS * tile_block_bytes<CAP>(N) > SMEM_SM) return false;
+  const long long lanes = tile_blocks(M, A) * XA_THREADS;
+  return 8 * (lanes - M * A) <= lanes;
+}
+
+// The tile's rule for the build of `cap` phase slots named at run time.
+inline int tile_fits(int G, int cap, bool paired, int N, long long M, long long A) {
+  return cap == tail::SMALL && tile_fits<tail::SMALL>(G, paired, N, M, A);
+}
+
 // Static shared bytes of a block of K2's build at G lanes a point with
 // `cap` phase slots, with the x' area (xa) or without: the area's build
-// its own block of XA_THREADS points, the others the index slots and row
-// tile of a block of tail::THREADS threads, as K1's.
+// (tiled or not) its own block of XA_THREADS points, the others the index
+// slots and row tile of a block of tail::THREADS threads, as K1's.
 inline int static_bytes(int G, int cap, bool xa) {
   if (!xa) return tail::block_static_bytes(G, cap);
   switch (cap) {

@@ -89,6 +89,8 @@ def counters() -> dict:
 
     ``launches.k1`` / ``k2`` / ``k3``: kernel launches; ``launches.k2_xarea``:
     K2's launches that formed x' once into its shared-memory area;
+    ``launches.k2_tile``: those of them that also formed their targets'
+    key' once, in blocks of 8 targets x 8 mu values;
     ``launches.mb_rows``: the row former's launches; ``host_syncs``:
     reads of a tensor's value back to the host by the program's own code;
     ``solver.steps``: Nelder-Mead steps; ``kernel.loads`` /

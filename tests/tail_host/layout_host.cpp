@@ -29,6 +29,14 @@ long long mb_xarea_bytes(int G, int N) {
 }
 int mb_static_bytes(int G, int cap, int xa) { return mbxa::static_bytes(G, cap, xa != 0); }
 
+// K2's target tile.
+int mb_tile_fits(int G, int cap, int paired, int N, long long M, long long A) { return mbxa::tile_fits(G, cap, paired != 0, N, M, A); }
+long long mb_tile_block_bytes(int N) { return (long long)mbxa::tile_block_bytes<tail::SMALL>(N); }
+long long mb_tile_table_bytes(int S, int N) { return (long long)mbxa::tile_table_bytes(S, N); }
+long long mb_tile_blocks(long long M, long long A) { return mbxa::tile_blocks(M, A); }
+int mb_tile_targets() { return mbxa::TILE_T; }
+long long mb_smem_sm() { return (long long)mbxa::SMEM_SM; }
+
 // K3's staging and x_m area, for a grid of W sources, NX x NY cells and
 // N bins with R x-rows and KG key-row groups a source.
 int iso_staged_sources(int G, int cap, int W, int NX, int NY, int N, int R, int KG) {

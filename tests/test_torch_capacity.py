@@ -298,6 +298,12 @@ def layout_host(tmp_path_factory):
     i = ctypes.c_int
     lib.tail_stages_rows.argtypes = [i, i, ctypes.c_longlong, ctypes.c_longlong]
     lib.mb_xarea_bytes.restype = ctypes.c_longlong
+    ll = ctypes.c_longlong
+    lib.mb_tile_fits.argtypes = [i, i, i, i, ll, ll]
+    lib.mb_tile_blocks.argtypes = [ll, ll]
+    lib.mb_tile_table_bytes.argtypes = [i, i]
+    for f in (lib.mb_tile_block_bytes, lib.mb_tile_table_bytes, lib.mb_tile_blocks, lib.mb_smem_sm):
+        f.restype = ll
     return lib
 
 
@@ -371,6 +377,70 @@ def test_mb_xarea_fits(layout_host, G, cap, N):
     assert limit == (top if G == 1 else 0)
     assert layout_host.mb_xarea_bytes(G, n) == 64 // G * n * 8
     assert layout_host.mb_static_bytes(G, cap, 1) == {8: 4_352, 64: 2_048}[cap]
+
+
+# K2's target tile (csrc/mb_xarea.cuh): (G, cap, paired, N, M, A) -> taken.
+# bin31.mbsweep's launch (65,536 x 64) takes it; the paired mode, G = 32,
+# the build of 64 slots and N past 31 do not; nor a launch whose partial
+# target group or mu chunk pads more than an eighth of its lanes (8 x 8
+# lanes a block: A = 1 pads 7 of 8; A = 7 pads 1 of 8, and with M = 63 a
+# partial chunk besides).
+TILE_CASES = [
+    ((1, 8, 0, 31, 65_536, 64), True),
+    ((1, 8, 1, 31, 65_536, 64), False),
+    ((32, 8, 0, 31, 65_536, 64), False),
+    ((1, 64, 0, 31, 65_536, 64), False),
+    ((1, 8, 0, 32, 65_536, 64), False),
+    ((1, 8, 0, 33, 65_536, 64), False),
+    ((1, 8, 0, 573, 4_096, 64), False),
+    ((1, 8, 0, 31, 4_096, 1), False),
+    ((1, 8, 0, 31, 63, 1), False),
+    ((1, 8, 0, 31, 64, 7), True),
+    ((1, 8, 0, 31, 63, 7), False),
+    ((1, 8, 0, 31, 4_096, 7), True),
+    ((1, 8, 0, 31, 63, 64), True),
+    ((1, 8, 0, 31, 64, 64), True),
+    ((1, 8, 0, 31, 256, 8), True),
+    ((1, 8, 0, 1, 8, 8), True),
+    ((1, 8, 0, 1, 1, 8), False),
+    ((1, 8, 0, 31, 0, 64), False),
+]
+
+
+@pytest.mark.parametrize("args,want", TILE_CASES, ids=[",".join(map(str, a)) for a, _ in TILE_CASES])
+def test_mb_tile_fits(layout_host, args, want):
+    """Which launches hold their targets' key' once in K2's target tile:
+    the product mode at G = 1 in the build of 8 slots where the x' area is
+    taken, the tiled block keeps eight blocks an SM, and the lanes that
+    the last target group or mu chunk pads are at most an eighth of the
+    launch's."""
+    G, cap, paired, N, M, A = args
+    assert layout_host.mb_tile_targets() == 8
+    assert bool(layout_host.mb_tile_fits(*args)) == want
+    if want:
+        assert layout_host.mb_xarea_fits(G, cap, N)
+        lanes = layout_host.mb_tile_blocks(M, A) * 64
+        assert lanes == -(-A // 8) * 8 * -(-M // 8) * 8 and 8 * (lanes - M * A) <= lanes
+
+
+def test_mb_tile_block_bytes(layout_host):
+    """The tiled block at N = 31 keeps eight blocks an SM: its x' area
+    (64 x 31 doubles), lnpi, op and 5 x-rows, the table of 8 targets x 3 key
+    rows (5,952 bytes, in place of the 18 staged key rows' 4,464), its
+    4,352 bytes of slots and the runtime's 1 KB: 28,936 bytes, 231,488 for
+    eight of 233,472.  At N = 32-33 eight tiled blocks would not fit, and
+    the untiled area build is kept there."""
+    sm = layout_host.mb_smem_sm()
+    assert sm == 228 * 1024
+    assert layout_host.mb_tile_table_bytes(2, 31) == 8 * 3 * 31 * 8 == 5_952
+    assert layout_host.mb_tile_table_bytes(1, 31) == 8 * 2 * 31 * 8
+    assert layout_host.mb_tile_block_bytes(31) == (64 + 7 + 24) * 31 * 8 + 4_352 + 1_024 == 28_936
+    assert 8 * layout_host.mb_tile_block_bytes(31) == 231_488 <= sm
+    for N in (32, 33):
+        assert 8 * layout_host.mb_tile_block_bytes(N) > sm
+        assert layout_host.mb_xarea_fits(1, 8, N) and not layout_host.mb_tile_fits(1, 8, 0, N, 65_536, 64)
+    top = next(N for N in range(1, 200) if not layout_host.mb_tile_fits(1, 8, 0, N + 1, 65_536, 64))
+    assert top == 31
 
 
 def test_mb_xarea_argument_checked_first():

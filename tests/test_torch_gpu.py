@@ -41,7 +41,11 @@ point's x' formed once a bin into shared memory at G = 1 and small N)
 returns the re-forming route's outputs bit for bit over orders, nspec,
 props, first_order_mom, janus, both modes and both builds; where the
 library's rule takes it, its build keeps the blocks an SM it is made
-for, and launches.k2_xarea counts the launches that take it.  (The
+for, and launches.k2_xarea counts the launches that take it.  Its
+target tile (a product launch's blocks of 8 targets x 8 mu values, each
+target's key' formed once) returns the paired launch's outputs over the
+same points bit for bit, with partial target groups and mu chunks, and
+launches.k2_tile counts the launches that take it.  (The
 layout rules themselves are the CUDA headers' alone; the CPU tests
 build them with g++, tests/test_torch_capacity.py.)
 """
@@ -936,16 +940,19 @@ def _xarea_top(cap: int) -> int:
 def test_mb_xarea_blocks_per_sm(cuda):
     """Where the library's rule gives K2 the x' area (N = 31 and the
     largest N it admits), the area's build keeps the eight blocks an SM it
-    is made for with the most rows a block stages; the re-form route at
-    G = 1 keeps its three."""
+    is made for with the most rows a block stages, tiled (bin31.mbsweep's
+    65,536 x 64 at N = 31) or not (one target, or the paired mode); the
+    re-form route at G = 1 keeps its three."""
     lib = CM._lib()
     for cap in L.CAPACITIES:
         top = _xarea_top(cap)
         assert top >= 31
         for paired in (0, 1):
             for N in (31, top):
-                assert lib.mb_sweep_thermo_blocks_per_sm(0, 1, cap, -1, paired, N, 2, 2, 1, 0) >= 8, (cap, paired, N)
-            assert lib.mb_sweep_thermo_blocks_per_sm(0, 1, cap, 0, paired, 31, 2, 2, 1, 0) >= 3, (cap, paired)
+                for M, A in ((65_536, 64), (4_096, 1)):
+                    assert lib.mb_sweep_thermo_blocks_per_sm(0, 1, cap, -1, paired, N, 2, 2, 1, 0, M, A) >= 8, (cap, paired, N, A)
+            assert lib.mb_sweep_thermo_blocks_per_sm(0, 1, cap, 0, paired, 31, 2, 2, 1, 0, 65_536, 64) >= 3, (cap, paired)
+    assert lib.mb_sweep_thermo_tile_fits(1, 8, 0, 31, 65_536, 64) and not lib.mb_sweep_thermo_tile_fits(1, 8, 0, 31, 4_096, 1)
 
 
 @pytest.mark.gpu
@@ -968,13 +975,16 @@ def test_mb_xarea_bits_equal_reform(cuda, max_phases, at, nspec, order, fom, pro
     tix = torch.as_tensor(np.random.default_rng(N + nspec).integers(0, A, size=M), dtype=torch.int32, device=cuda)
     want = TP.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=order, props=props, first_order_mom=fom, collect=collect, engine="torch")
     want_p = TP._mb_paired_body(h, meta, *inputs, tix, order, props, collect)
+    # the product mode at N = 31 in the build of 8 slots takes the target tile (8 | A)
+    tiled = 2 * (at == "31" and L.capacity(max_phases) == 8)
     for mode, t, ref in (("product", None, {k: v.reshape(M * A, *v.shape[2:]) for k, v in want.items()}), ("paired", tix, want_p)):
-        n0, x0 = counters().get("launches.k2", 0), counters().get("launches.k2_xarea", 0)
+        n0, x0, t0 = (counters().get(f"launches.{k}", 0) for k in ("k2", "k2_xarea", "k2_tile"))
         area = _k2_launch(h, meta, inputs, order, props, fom, collect, tix=t, _lanes=1)
         reform = _k2_launch(h, meta, inputs, order, props, fom, collect, tix=t, _lanes=1, _xarea=False)
         forced = _k2_launch(h, meta, inputs, order, props, fom, collect, tix=t, _lanes=1, _xarea=True)
         torch.cuda.synchronize()
         assert counters().get("launches.k2", 0) == n0 + 3 and counters().get("launches.k2_xarea", 0) == x0 + 2, mode
+        assert counters().get("launches.k2_tile", 0) == t0 + (tiled if mode == "product" else 0), mode
         assert set(area) == set(ref)
         for k in area:
             assert _bits_equal(area[k], reform[k]) and _bits_equal(forced[k], area[k]), (mode, k)
@@ -987,13 +997,58 @@ def test_mb_xarea_bits_equal_reform(cuda, max_phases, at, nspec, order, fom, pro
         # one bin more: the rule re-forms on read
         h, meta, mus, betas, dmus = _xarea_inputs(cuda, N + 1, nspec, max_phases)
         inputs = TP._mb_inputs(h, meta, mus, betas, dmus, order, props, fom, kernel=True)
-        x0 = counters().get("launches.k2_xarea", 0)
+        x0, t0 = counters().get("launches.k2_xarea", 0), counters().get("launches.k2_tile", 0)
         reform = _k2_launch(h, meta, inputs, order, props, fom, collect, _lanes=1)
         area = _k2_launch(h, meta, inputs, order, props, fom, collect, _lanes=1, _xarea=True)
         torch.cuda.synchronize()
-        assert counters().get("launches.k2_xarea", 0) == x0 + 1
+        assert counters().get("launches.k2_xarea", 0) == x0 + 1 and counters().get("launches.k2_tile", 0) == t0
         for k in area:
             assert _bits_equal(area[k], reform[k]), k
+
+
+TILE_T = 8  # targets a tiled block holds (csrc/mb_xarea.cuh TILE_T)
+
+
+def _tile_expected(M: int, A: int) -> bool:
+    """Whether K2's product launch of M x A points at N = 31, G = 1, 8 slots
+    takes the target tile: the lanes its blocks of TILE_T targets x 64 /
+    TILE_T mu values pad are at most an eighth of them."""
+    lanes = -(-A // TILE_T) * TILE_T * -(-M // (64 // TILE_T)) * (64 // TILE_T)
+    return 8 * (lanes - M * A) <= lanes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collect", [None, "janus"])
+@pytest.mark.parametrize("props", [True, False])
+@pytest.mark.parametrize("order,fom", [(1, False), (2, False), (2, True)])
+@pytest.mark.parametrize("nspec", [1, 2])
+@pytest.mark.parametrize("M", [63, 64, 4096])
+@pytest.mark.parametrize("A", [1, 7, 64])
+def test_mb_xarea_tile_bits_equal_paired(cuda, A, M, nspec, order, fom, props, collect):
+    """K2's product launch at N = 31 and G = 1 (the target tile where its
+    rule holds: partial target groups and mu chunks run, and a launch that
+    would pad more than an eighth of its lanes keeps the untiled area)
+    returns every output field bit for bit as the paired launch (64
+    consecutive points a block, key' formed on read) over the same (m, t);
+    launches.k2_tile counts the tiled launches, and none at G = 32 or in
+    the paired mode."""
+    h, meta, mus, betas, dmus = _xarea_inputs(cuda, 31, nspec, 4, M=M, A=A)
+    inputs = TP._mb_inputs(h, meta, mus, betas, dmus, order, props, fom, kernel=True)
+    mu, a, xrows, krows, tg = inputs
+    tix = torch.arange(A, dtype=torch.int32, device=cuda).repeat(M)
+    paired_inputs = (mu.repeat_interleave(A), a.repeat_interleave(A), xrows, krows, tg)
+    n0, t0 = counters().get("launches.k2", 0), counters().get("launches.k2_tile", 0)
+    prod = _k2_launch(h, meta, inputs, order, props, fom, collect, _lanes=1)
+    pair = _k2_launch(h, meta, paired_inputs, order, props, fom, collect, tix=tix, _lanes=1)
+    wide = _k2_launch(h, meta, inputs, order, props, fom, collect, _lanes=32)
+    torch.cuda.synchronize()
+    assert counters().get("launches.k2", 0) == n0 + 3
+    assert counters().get("launches.k2_tile", 0) - t0 == int(_tile_expected(M, A)) == CM._lib().mb_sweep_thermo_tile_fits(1, 8, 0, 31, M, A)
+    assert set(prod) == set(pair)
+    for k in prod:
+        assert _bits_equal(prod[k], pair[k]), k
+    for k in SEG:
+        assert torch.equal(prod[k], wide[k]), k
 
 
 @pytest.mark.gpu
@@ -1015,18 +1070,18 @@ def test_mb_xarea_refused_where_it_cannot_run(cuda):
 
 @pytest.mark.gpu
 def test_mb_xarea_counter_by_route(cuda):
-    """launches.k2_xarea advances once for each sweep at N = 31 (G = 1 by the
-    rule), and not for a sweep at N = 573 at G = 1 nor for the solver's
-    paired steps (G = 32)."""
+    """launches.k2_xarea and launches.k2_tile advance once for each sweep
+    at N = 31 (G = 1 by the rule, 16 targets), and not for a sweep at N =
+    573 at G = 1 nor for the solver's paired steps (G = 32)."""
     d, mk, mus, betas, dmus = mb_grid(M=512, A=16)
     h, meta = TS.from_host(d, device=cuda), TS.HistMeta(**mk)
     for _ in range(2):
-        n0, x0 = counters().get("launches.k2", 0), counters().get("launches.k2_xarea", 0)
+        n0, x0, t0 = (counters().get(f"launches.{k}", 0) for k in ("k2", "k2_xarea", "k2_tile"))
         TP.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=2)
-        assert counters().get("launches.k2", 0) - n0 == counters().get("launches.k2_xarea", 0) - x0 == 1
+        assert counters().get("launches.k2", 0) - n0 == counters().get("launches.k2_xarea", 0) - x0 == counters().get("launches.k2_tile", 0) - t0 == 1
     h, meta, mus, betas, dmus = _mb_inputs(cuda, "n573", M=1024, A=64)
     assert CS.lanes_per_point(h.nbins, 1024 * 64, CS.sm_count(0)) == 1
-    n0, x0 = counters().get("launches.k2", 0), counters().get("launches.k2_xarea", 0)
+    n0, x0, t0 = (counters().get(f"launches.{k}", 0) for k in ("k2", "k2_xarea", "k2_tile"))
     TP.mu_beta_sweep_thermo(h, meta, mus, betas, dmus, order=2)
     assert counters().get("launches.k2", 0) - n0 == 1 and counters().get("launches.k2_xarea", 0) == x0
     d, mk, betas, guess, kw = coex_grid(16)
@@ -1035,6 +1090,7 @@ def test_mb_xarea_counter_by_route(cuda):
     TSV.trace_coexistence(h, meta, betas, guess, **kw)
     torch.cuda.synchronize()
     assert counters().get("launches.k2", 0) - n0 >= 3 and counters().get("launches.k2_xarea", 0) == x0
+    assert counters().get("launches.k2_tile", 0) == t0
 
 
 # ---------------------------------------------------------------------------
