@@ -28,11 +28,13 @@ import numpy as np
 import torch
 
 from ..core import segment2d as _s2d
+from ..utils import profiling
 from .pore_pipeline import _devices, _footprint, _sharded_sweep
 
 __all__ = ["joint_state_sweep"]
 
 
+@profiling.spanned("fhmc.entry.joint_sweep")
 def joint_state_sweep(
     joint_hist, beta, mu_ref, mu_targets, nnebr=1, max_peaks=10, mesh=None,
     segment_engine="auto", return_surfaces=True, tie_fallback=False, device=None,
@@ -63,32 +65,33 @@ def joint_state_sweep(
     local_maxima.
     """
     devs = _devices(mesh, device)
-    # a made histogram (or from_json load) is used read-only; only an
-    # unmade one needs the deepcopy that shields the caller from make()'s
-    # in-place assembly
-    jh = joint_hist
-    if "ln(PI)" not in jh.data:
-        jh = copy.deepcopy(joint_hist)
-        jh.make()
-    hd = jh.data
+    with profiling.span("fhmc.prologue.sweep2d"):
+        # a made histogram (or from_json load) is used read-only; only an
+        # unmade one needs the deepcopy that shields the caller from make()'s
+        # in-place assembly
+        jh = joint_hist
+        if "ln(PI)" not in jh.data:
+            jh = copy.deepcopy(joint_hist)
+            jh.make()
+        hd = jh.data
 
-    lnpi_raw = np.asarray(hd["ln(PI)"], dtype=np.float64)
-    H, N = lnpi_raw.shape
-    assert H > 1 and N > 1, (
-        "joint surface must span at least 2 N_1 values and 2 N_tot bins (got %d x %d)" % (H, N)
-    )
-    op1 = np.asarray(hd["op_1"], dtype=np.float64)
-    op2 = np.asarray(hd["op_2"], dtype=np.float64)
-    valid = np.isfinite(lnpi_raw)
-    edge_idx = np.array(hd["bounds_idx"][:, 1], dtype=int)
+        lnpi_raw = np.asarray(hd["ln(PI)"], dtype=np.float64)
+        H, N = lnpi_raw.shape
+        assert H > 1 and N > 1, (
+            "joint surface must span at least 2 N_1 values and 2 N_tot bins (got %d x %d)" % (H, N)
+        )
+        op1 = np.asarray(hd["op_1"], dtype=np.float64)
+        op2 = np.asarray(hd["op_2"], dtype=np.float64)
+        valid = np.isfinite(lnpi_raw)
+        edge_idx = np.array(hd["bounds_idx"][:, 1], dtype=int)
 
-    mu_targets = np.asarray(mu_targets, dtype=np.float64)
-    assert mu_targets.ndim == 2 and mu_targets.shape[1] == 2, "mu_targets must be [S, 2] (mu_1, mu_2)"
-    dmu1 = mu_targets[:, 0] - float(mu_ref[0])
-    dmu2 = mu_targets[:, 1] - float(mu_ref[1])
+        mu_targets = np.asarray(mu_targets, dtype=np.float64)
+        assert mu_targets.ndim == 2 and mu_targets.shape[1] == 2, "mu_targets must be [S, 2] (mu_1, mu_2)"
+        dmu1 = mu_targets[:, 0] - float(mu_ref[0])
+        dmu2 = mu_targets[:, 1] - float(mu_ref[1])
 
-    P = max_peaks + 1
-    fp = _footprint(H, N, nnebr)
+        P = max_peaks + 1
+        fp = _footprint(H, N, nnebr)
 
     def stage1(dev, inputs, engine, dmu1_b, dmu2_b):
         args = [torch.as_tensor(a, device=dev) for a in (lnpi_raw, op1, op2)] + [float(beta)] + [torch.as_tensor(a, device=dev) for a in (dmu1_b, dmu2_b)] + [inputs[1]]

@@ -19,6 +19,21 @@ state axis S leading every tensor.  Two watershed engines:
 Failure handling follows the framework invariant: ridgeline effects and
 empty states become per-state mask/validity flags, not exceptions (the
 class path pore_hist.phase_average keeps the reference's raise semantics).
+
+Tracing (utils.profiling; the joint sweep shares everything past its
+surface build): a call is the span fhmc.entry.pore_sweep (or
+fhmc.entry.joint_sweep), inside it fhmc.prologue.sweep2d (the
+histogram's checks, h, F(h), the mask, the footprint, and _props_inputs'
+copies of the mask, the edges and the property surfaces to the card),
+fhmc.launch.sweep2d (queueing the device stages: the copies of lnPI, its
+axes and the states, then the sweep), fhmc.post.fetch2d (each fetch of
+results, its copies and its one wait), fhmc.post.flood2d (the host flood
+or the tie fallback) and fhmc.post.assemble2d (fail codes, local maxima,
+the dict).  Counters:
+sweep2d.states (states swept), sweep2d.elev_tie (states the device
+watershed flags with an exact elevation tie, read from the fetched
+flags), sweep2d.flood_states (states flooded on the host), host_syncs
+(one a fetch).
 """
 
 from __future__ import annotations
@@ -32,6 +47,7 @@ import torch
 from ..core import segment2d as _s2d
 from ..core.state import _device
 from ..parallel.mesh import _blocks, _on
+from ..utils import profiling
 from .imaging import peak_local_max, watershed
 
 __all__ = ["pore_state_sweep"]
@@ -81,12 +97,14 @@ def _footprint(len_H: int, len_N: int, nnebr: int):
     return np.ones((fp_x, fp_y))
 
 
+@profiling.spanned("fhmc.post.fetch2d")
 def _fetch(tensors: dict) -> dict:
     """Host numpy copies of a dict of tensors with one wait: every copy off
     the card is queued first, then the host synchronises once."""
     host = {k: v.to("cpu", non_blocking=True) for k, v in tensors.items()}
     for dev in {v.device for v in tensors.values() if v.is_cuda}:
         torch.cuda.synchronize(dev)
+    profiling.add("host_syncs")
     return {k: v.numpy() for k, v in host.items()}
 
 
@@ -182,6 +200,7 @@ def _run_sweep(engine, lnpi_dev, seg, core, inputs, fp, nnebr, P, prop_names, re
     or the tie fallback where asked, and assemble the sweep's dict."""
     valid, valid_t, edge_t, props_t = inputs
     S = lnpi_dev.shape[0]
+    profiling.add("sweep2d.states", S)
     if engine == "device":
         fetch = {k: seg[k] for k in ("n_labels", "peak_sat", "peak_rc", "elev_tie")} | core
         if return_surfaces:
@@ -190,13 +209,17 @@ def _run_sweep(engine, lnpi_dev, seg, core, inputs, fp, nnebr, P, prop_names, re
         core = {k: got[k] for k in core}
         n_labels = got["n_labels"].astype(np.int64)
         peak_sat, peak_rc, elev_tie = got["peak_sat"], got["peak_rc"], got["elev_tie"]
-        local_maxima = [peak_rc[s, : n_labels[s]].astype(np.int64) for s in range(S)]
         lnpi_b, labels_b = (got["lnpi"], got["labels"]) if return_surfaces else (lnpi_dev, seg["labels"])
         flagged = np.flatnonzero(elev_tie)
+        profiling.add("sweep2d.elev_tie", int(flagged.size))
+        with profiling.span("fhmc.post.assemble2d"):
+            local_maxima = [peak_rc[s, : n_labels[s]].astype(np.int64) for s in range(S)]
         if tie_fallback and flagged.size:
             # flagged states are now reference-exact, so fail_code 4 is not
             # raised for them (elev_tie stays True for observability)
-            n_labels, peak_sat, labels_b = _tie_fallback(flagged, lnpi_dev, inputs, fp, nnebr, P, core, n_labels, peak_sat, local_maxima, labels_b)
+            profiling.add("sweep2d.flood_states", int(flagged.size))
+            with profiling.span("fhmc.post.flood2d"):
+                n_labels, peak_sat, labels_b = _tie_fallback(flagged, lnpi_dev, inputs, fp, nnebr, P, core, n_labels, peak_sat, local_maxima, labels_b)
             tie_unresolved = np.zeros(S, dtype=bool)
         else:
             tie_unresolved = elev_tie
@@ -204,27 +227,32 @@ def _run_sweep(engine, lnpi_dev, seg, core, inputs, fp, nnebr, P, prop_names, re
         # one download feeds the host flood; the labels go back up once for
         # stage 2 over every state
         lnpi_b = _fetch({"lnpi": lnpi_dev})["lnpi"]
-        labels_b, n_labels, peak_lnpi, peak_sat, local_maxima = _segment_batch_host(_elevation_host(lnpi_b, valid), lnpi_b, valid, fp, nnebr, P)
-        labels_dev = torch.as_tensor(labels_b, device=lnpi_dev.device)
-        core = _fetch(_s2d.pore_phase_batch(lnpi_dev, labels_dev, valid_t, edge_t, props_t, peak_lnpi, n_labels, P, _s2d.BOUNDARY_SEGMENT_ENGINE))
+        profiling.add("sweep2d.flood_states", S)
+        with profiling.span("fhmc.post.flood2d"):
+            labels_b, n_labels, peak_lnpi, peak_sat, local_maxima = _segment_batch_host(_elevation_host(lnpi_b, valid), lnpi_b, valid, fp, nnebr, P)
+        with profiling.span("fhmc.launch.sweep2d"):
+            labels_dev = torch.as_tensor(labels_b, device=lnpi_dev.device)
+            core = _s2d.pore_phase_batch(lnpi_dev, labels_dev, valid_t, edge_t, props_t, peak_lnpi, n_labels, P, _s2d.BOUNDARY_SEGMENT_ENGINE)
+        core = _fetch(core)
         # the host flood IS the reference semantics, tie or not
         elev_tie = np.zeros(S, dtype=bool)
         tie_unresolved = elev_tie
 
-    out = dict(core)
-    ridge = np.where(out["phase_ok"], out["ridge_diff"], np.inf)
-    out["ridge_ok"] = np.all(ridge >= _PORE_CUTOFF, axis=1)
-    out["fail_code"] = np.select(
-        [peak_sat, n_labels == 0, tie_unresolved, ~out["ridge_ok"]],
-        [np.int32(3), np.int32(2), np.int32(4), np.int32(1)],
-        default=np.int32(0),
-    ).astype(np.int32)
-    out["elev_tie"] = np.asarray(elev_tie, dtype=bool)
-    out["prop_names"] = prop_names
-    out["n_phases"] = n_labels
-    out["lnpi"] = lnpi_b
-    out["labels"] = labels_b
-    out["local_maxima"] = local_maxima
+    with profiling.span("fhmc.post.assemble2d"):
+        out = dict(core)
+        ridge = np.where(out["phase_ok"], out["ridge_diff"], np.inf)
+        out["ridge_ok"] = np.all(ridge >= _PORE_CUTOFF, axis=1)
+        out["fail_code"] = np.select(
+            [peak_sat, n_labels == 0, tie_unresolved, ~out["ridge_ok"]],
+            [np.int32(3), np.int32(2), np.int32(4), np.int32(1)],
+            default=np.int32(0),
+        ).astype(np.int32)
+        out["elev_tie"] = np.asarray(elev_tie, dtype=bool)
+        out["prop_names"] = prop_names
+        out["n_phases"] = n_labels
+        out["lnpi"] = lnpi_b
+        out["labels"] = labels_b
+        out["local_maxima"] = local_maxima
     return out
 
 
@@ -259,9 +287,10 @@ def _sharded_sweep(devs, states, hd, valid, edge_idx, segment_engine, stage1, fp
     inputs, staged = {}, []
     for i, d in enumerate(devs[: len(blocks[0])]):
         if d not in inputs:  # the surface and its properties go to each device once
-            inputs[d] = _props_inputs(hd, valid, edge_idx, d)
+            with profiling.span("fhmc.prologue.sweep2d"):
+                inputs[d] = _props_inputs(hd, valid, edge_idx, d)
         engine = _resolve_segment_engine(segment_engine, d)
-        with _on(d):
+        with _on(d), profiling.span("fhmc.launch.sweep2d"):
             staged.append((d, engine, stage1(d, inputs[d][1], engine, *(b[i] for b in blocks))))
     outs = []
     for d, engine, (lnpi_dev, seg, core) in staged:
@@ -279,6 +308,7 @@ def _props_inputs(hd, valid, edge_idx, dev):
     return prop_names, (valid, torch.as_tensor(valid, device=dev), torch.as_tensor(edge_idx, device=dev), torch.as_tensor(props, device=dev))
 
 
+@profiling.spanned("fhmc.entry.pore_sweep")
 def pore_state_sweep(
     joint_hist, fh, p_vals, beta_vals, A, nnebr=1, max_peaks=10, mesh=None,
     segment_engine="auto", return_surfaces=True, tie_fallback=False, device=None,
@@ -355,30 +385,31 @@ def pore_state_sweep(
       local_maxima list[S] of i64[n_phases_s, 2] peak coordinates
     """
     devs = _devices(mesh, device)
-    # a made histogram (or from_json load) is used read-only; only an
-    # unmade one needs the deepcopy that shields the caller from make()'s
-    # in-place assembly
-    jh = joint_hist
-    if "ln(PI)" not in jh.data:
-        jh = copy.deepcopy(joint_hist)
-        jh.make()
-    hd = jh.data
-    assert np.all(hd["op_2"] == np.arange(len(hd["op_2"]))), "Must be 0 <= N <= N_max in a continuous fashion"
-    assert np.all(hd["bounds_idx"][:, 0] == 0), "Lower bound for N must start from 0"
-    edge_idx = np.array(hd["bounds_idx"][:, 1], dtype=int)
+    with profiling.span("fhmc.prologue.sweep2d"):
+        # a made histogram (or from_json load) is used read-only; only an
+        # unmade one needs the deepcopy that shields the caller from make()'s
+        # in-place assembly
+        jh = joint_hist
+        if "ln(PI)" not in jh.data:
+            jh = copy.deepcopy(joint_hist)
+            jh.make()
+        hd = jh.data
+        assert np.all(hd["op_2"] == np.arange(len(hd["op_2"]))), "Must be 0 <= N <= N_max in a continuous fashion"
+        assert np.all(hd["bounds_idx"][:, 0] == 0), "Lower bound for N must start from 0"
+        edge_idx = np.array(hd["bounds_idx"][:, 1], dtype=int)
 
-    p_vals = np.asarray(p_vals, dtype=np.float64)
-    beta_vals = np.asarray(beta_vals, dtype=np.float64)
-    assert p_vals.shape == beta_vals.shape and p_vals.ndim == 1, "p_vals/beta_vals must be matching 1-D state lists"
+        p_vals = np.asarray(p_vals, dtype=np.float64)
+        beta_vals = np.asarray(beta_vals, dtype=np.float64)
+        assert p_vals.shape == beta_vals.shape and p_vals.ndim == 1, "p_vals/beta_vals must be matching 1-D state lists"
 
-    lnpi_raw = np.asarray(hd["ln(PI)"], dtype=np.float64)
-    H, N = lnpi_raw.shape
-    h_vals = np.asarray(hd["op_1"], dtype=np.float64)
-    fh_vals = np.array([fh(h) for h in h_vals], dtype=np.float64)
-    valid = np.arange(N)[None, :] <= edge_idx[:, None]  # segment2d.valid_mask_2d
+        lnpi_raw = np.asarray(hd["ln(PI)"], dtype=np.float64)
+        H, N = lnpi_raw.shape
+        h_vals = np.asarray(hd["op_1"], dtype=np.float64)
+        fh_vals = np.array([fh(h) for h in h_vals], dtype=np.float64)
+        valid = np.arange(N)[None, :] <= edge_idx[:, None]  # segment2d.valid_mask_2d
 
-    P = max_peaks + 1  # background slot convention of pore_hist.phase_average
-    fp = _footprint(H, N, nnebr)
+        P = max_peaks + 1  # background slot convention of pore_hist.phase_average
+        fp = _footprint(H, N, nnebr)
 
     def stage1(dev, inputs, engine, p_b, beta_b):
         args = [torch.as_tensor(a, device=dev) for a in (lnpi_raw, h_vals, fh_vals, p_b)] + [float(A), torch.as_tensor(beta_b, device=dev), inputs[1]]
