@@ -75,14 +75,18 @@ Phases (each raises on failure, so any failure exits non-zero):
      alternative (K2 at M = A = 5 x 256), a layout line at that step, and a
      utils.profiling window over one trace (K2's share of device time, the
      idle share; the timeline goes to _profiles/coex573/trace.json);
-  5c. the 2-D surface path (core.segment2d under two_dim; plain PyTorch,
-     no kernel of its own): pore_state_sweep on pore13 (13 x 21) and
+  5c. the 2-D surface path (core.segment2d under two_dim; plain PyTorch
+     but for the boundary integrals' kernel, csrc/boundary2d.cu):
+     pore_state_sweep on pore13 (13 x 21) and
      pore96 (96 x 385), joint_state_sweep on joint96 (96 x 385), at S = 64
      and, on the 96 x 385 cells, S = 1,024: the device engine equal to the
      host flood on every tie-free unsaturated state (and on 64 of the
      1,024), both within 1e-10 of pore_hist(engine="numpy") on 4 states a
      cell, the class on the card on one; states/s of both engines and of
-     joint96 with its surfaces, peak memory, joint96's stage times and a
+     joint96 with its surfaces, peak memory, pore96's stage times at S =
+     1, 64 and 1,024 and joint96's at 64 and 1,024 (the boundary integrals
+     alone: the kernel by CUDA events and by its device time, its bound
+     and the plain one-hot on the card), and a
      utils.profiling window over one S = 1,024 call (timeline to
      _profiles/joint96/trace.json); an exact tie with and without
      tie_fallback, and saturated slots; a {"two_dim": ...} line;
@@ -166,8 +170,9 @@ Phases (each raises on failure, so any failure exits non-zero):
      {"workflows": ...} line;
   6. a {"kernels": [...]} line with each kernel's launches, worst error,
      times and bound (the row former last, replacing no TPU kernel, its
-     launches those of the main paths of phases 4 and 5b; the
-     2-D path and window patching add none; the
+     launches those of the main paths of phases 4 and 5b; the 2-D
+     boundary integrals after it, their times those of pore96 at S = 1,
+     64 and 1,024, their launches phase 5c's; window patching adds none; the
      sharded routes add cells "<cell> mesh cards" / "<cell> mesh x4"
      with their launches, phase 5f its capacity cells, phase 5g its
      workflow cells), then the last
@@ -239,10 +244,11 @@ EXP_OPS = 26
 
 
 def launch_count(kernel):
-    """Launches of kernel "k1", "k2", "k3" or "mb_rows" (the row former), or
-    "k2_xarea" (K2's that formed x' into its area) or "k2_tile" (those that
-    also formed their targets' key' once, in the target tile), this process so far (the
-    program's counters)."""
+    """Launches of kernel "k1", "k2", "k3", "mb_rows" (the row former) or
+    "b2d" (the 2-D boundary integrals), or "k2_xarea" (K2's that formed x'
+    into its area) or "k2_tile" (those that also formed their targets'
+    key' once, in the target tile), this process so far (the program's
+    counters)."""
     from fhmcanalysis_torch.utils import profiling
 
     return profiling.counters().get(f"launches.{kernel}", 0)
@@ -413,6 +419,11 @@ class Ctx:
             from fhmcanalysis_torch.core import launch
         except ImportError:  # a tree from before the launch module (--dump run from an older tree) kept its facts in cuda_sweep
             launch = cuda_sweep
+        try:
+            from fhmcanalysis_torch.core import cuda_b2d
+        except ImportError:  # a tree from before the boundary integrals' kernel: its 2-D path is plain
+            cuda_b2d = None
+        self.cuda_b2d = cuda_b2d
         self.torch, self.np, self.TC, self._build, self.launch = torch, np, TC, _build, launch
         self.iso_cls, self.IB = iso_cls, sys.modules["fhmcanalysis_torch.binary.isopleth"]
         self.cuda_iso, self.cuda_mb, self.cuda_sweep = cuda_iso, cuda_mb, cuda_sweep
@@ -433,7 +444,7 @@ class Ctx:
         except ImportError:  # a tree from before the 2-D path (--dump run from an older tree)
             native = None
 
-        libs = (self.cuda_sweep, self.cuda_mb, self.cuda_iso)
+        libs = (self.cuda_sweep, self.cuda_mb, self.cuda_iso) + ((self.cuda_b2d,) if self.cuda_b2d is not None else ())
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(libs) + 2) as pool:
             flood = pool.submit(lambda: native is not None and native.IMAGING_AVAILABLE)  # the 2-D host flood, g++
@@ -836,11 +847,112 @@ def compare_class(out, s, ph, props, where, tol=TOL):
     return worst
 
 
+def boundary_bytes(labels, P):
+    """Least bytes of the boundary integrals of [S, H, N] labels with P
+    label slots: the labels read once (int32); lnPI only where a
+    contribution reads it (each contributing boundary cell and its
+    neighbour across the boundary), by the 32-byte sectors that hold those
+    cells; both f64 [S, P+1, P+1] tables written once."""
+    torch = sys.modules["torch"]
+    S2 = sys.modules["fhmcanalysis_torch.core.segment2d"]
+    lab = labels
+    inner = S2._boundary_mask(lab) & (lab > 0) & (lab <= P)
+    read = torch.zeros_like(inner)
+    for di, dj in S2._NEBR8:
+        q = S2._shifted(lab, di, dj, 0)
+        c = inner & (q > 0) & (q != lab) & (q <= P)
+        read |= c | S2._shifted(c, -di, -dj, False)
+    flat = read.reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros((-flat.numel()) % 4)])
+    sectors = int(flat.view(-1, 4).any(1).sum())
+    return lab.numel() * 4 + sectors * 32 + 2 * lab.shape[0] * (P + 1) ** 2 * 8
+
+
+def compare_boundary(got, want, where):
+    """The kernel's (min_df, max_val) against the plain one-hot's on the
+    same inputs on the card: -DBL_MAX in the same places, max_val bit for
+    bit, min_df within 1e-12 relative (absolute below 1); returns min_df's
+    worst absolute gap."""
+    torch = sys.modules["torch"]
+    big = -sys.float_info.max
+    for a, b, k in zip(got, want, ("min_df", "max_val")):
+        if a.shape != b.shape or not torch.equal(a == big, b == big):
+            raise AssertionError(f"{where}: {k}'s shape or its pairs with no shared boundary differ from the plain one-hot's")
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError(f"{where}: max_val differs from the plain one-hot's bits")
+    fin = want[0] != big
+    d = (got[0] - want[0])[fin].abs()
+    if not d.numel():
+        return 0.0
+    rel = float((d / want[0][fin].abs().clamp(min=1.0)).max())
+    if not rel <= 1e-12:
+        raise AssertionError(f"{where}: min_df differs from the plain one-hot's by {rel:.3e} relative > 1e-12")
+    return float(d.max())
+
+
+def boundary_stage(C, ln, labels, P):
+    """The boundary integrals alone on one stage's surfaces and labels (the
+    pipelines' engine: the kernel on the card), by CUDA events around the
+    call and as the kernel's device time (torch.profiler), held against
+    the plain one-hot on the card on the same inputs (compare_boundary),
+    which is timed too; and their bound (boundary_bytes at the card's
+    memory rate).  A tree from before the kernel times its plain route
+    only."""
+    S2 = sys.modules["fhmcanalysis_torch.core.segment2d"]
+
+    def run():
+        return S2.boundary_pair_integrals(ln, labels, P)
+
+    res = {"of which boundary integrals": cuda_ms(run)}
+    if C.cuda_b2d is not None:
+        where = f"boundary integrals S={ln.shape[0]}"
+        res["boundary max_abs_err"] = compare_boundary(run(), S2._boundary_plain(ln, labels, P, "onehot"), where)
+        res["boundary kernel device"] = device_ms(run, "boundary_pairs_kernel")
+        res["boundary plain one-hot"] = cuda_ms(lambda: S2._boundary_plain(ln, labels, P, "onehot"))
+    res["boundary bound"] = boundary_bytes(labels, P) / HBM_BYTES_PER_S * 1e3
+    return res
+
+
+def stage_text(stg):
+    """One stage record as a log fragment: times in ms, errors as they are."""
+    return ", ".join(f"{k} {v:.3e}" if k.endswith("err") else f"{k} {v:.4f} ms" for k, v in stg.items() if v is not None)
+
+
+def pore_stages(C, jh, fh, states):
+    """The device engine's stages on a pore sweep of the (p, beta) states,
+    each timed alone on the previous stage's outputs: the surfaces, the
+    watershed, the per-phase analysis (boundary integrals included), and
+    the boundary integrals alone (boundary_stage)."""
+    torch, np = C.torch, C.np
+    from fhmcanalysis_torch.core import segment2d as S2
+    from fhmcanalysis_torch.two_dim.pore_pipeline import _footprint
+
+    hd = jh.data
+    raw = torch.as_tensor(np.asarray(hd["ln(PI)"], dtype=np.float64), device=C.dev)
+    H, N = raw.shape
+    edge_np = np.asarray(hd["bounds_idx"][:, 1], dtype=np.int64)
+    valid = torch.as_tensor(np.arange(N)[None, :] <= edge_np[:, None], device=C.dev)
+    edge = torch.as_tensor(edge_np, device=C.dev)
+    props = torch.as_tensor(np.stack([hd["props"][k] for k in hd["props"]]), device=C.dev)
+    h_np = np.asarray(hd["op_1"], dtype=np.float64)
+    h, fh_v = torch.as_tensor(h_np, device=C.dev), torch.as_tensor(np.array([fh(x) for x in h_np], dtype=np.float64), device=C.dev)
+    p, b = (torch.as_tensor(np.asarray(v, dtype=np.float64), device=C.dev) for v in states)
+    fp, P = _footprint(H, N, 1).shape, 5
+    ln, _ = S2.pore_surface_batch(raw, h, fh_v, p, 1.0, b, valid)
+    seg = S2.hillclimb_segment_batch(ln, valid, fp, P)
+    return {
+        "surfaces": cuda_ms(lambda: S2.pore_surface_batch(raw, h, fh_v, p, 1.0, b, valid)),
+        "watershed": cuda_ms(lambda: S2.hillclimb_segment_batch(ln, valid, fp, P)),
+        "phase analysis": cuda_ms(lambda: S2.pore_phase_batch(ln, seg["labels"], valid, edge, props, seg["peak_lnpi"], seg["n_labels"], P)),
+        **boundary_stage(C, ln, seg["labels"], P),
+    }
+
+
 def joint_stages(C, jh, targets):
     """The device engine's stages on a joint sweep, each timed alone on
     the previous stage's outputs: the surfaces, the watershed, the
     per-phase analysis (boundary integrals included) and the boundary
-    integrals alone."""
+    integrals alone (boundary_stage)."""
     torch, np = C.torch, C.np
     from fhmcanalysis_torch.core import segment2d as S2
     from fhmcanalysis_torch.two_dim.pore_pipeline import _footprint
@@ -859,14 +971,14 @@ def joint_stages(C, jh, targets):
         "surfaces": cuda_ms(lambda: S2.joint_surface_batch(raw, op1, op2, C.TC.JOINT_BETA, d1, d2, valid)),
         "watershed": cuda_ms(lambda: S2.hillclimb_segment_batch(ln, valid, fp, P)),
         "phase analysis": cuda_ms(lambda: S2.pore_phase_batch(ln, seg["labels"], valid, edge, props, seg["peak_lnpi"], seg["n_labels"], P)),
-        "of which boundary integrals": cuda_ms(lambda: S2.boundary_pair_integrals(ln, seg["labels"], P)),
+        **boundary_stage(C, ln, seg["labels"], P),
     }
 
 
 def two_dim_phase(C):
     """Phase 5c: the 2-D surface path (core.segment2d under
-    two_dim.pore_state_sweep / joint_state_sweep; plain PyTorch on the card,
-    no kernel of its own) on the pore13, pore96, joint96 and
+    two_dim.pore_state_sweep / joint_state_sweep; plain PyTorch on the card
+    but for the boundary integrals' kernel) on the pore13, pore96, joint96 and
     joint96_surfaces cells: the device watershed against the host flood,
     both against the class engine (pore_hist(engine="numpy")), the tie and
     saturation cases, states/s, peak memory and a profiler window."""
@@ -913,10 +1025,20 @@ def two_dim_phase(C):
     def n_states(states):
         return len(states[0]) if isinstance(states, tuple) else len(states)
 
+    b2d_main = {}  # the boundary kernel's launches in each main-path device sweep: one a call
+
+    def main_sweep(sweep, states, key):
+        n0 = launch_count("b2d")
+        out = sweep(states, segment_engine="device")
+        b2d_main[key] = launch_count("b2d") - n0
+        if C.cuda_b2d is not None and b2d_main[key] != 1:
+            raise AssertionError(f"2-D {key}: the device sweep launched the boundary kernel {b2d_main[key]} times (one a call)")
+        return out
+
     for cname in ("pore13", "pore96", "joint96"):
         c, jh, sweep, take, oracle, on_card = cell_setup(cname)
         st64 = c["states"](c["S"])
-        dev = sweep(st64, segment_engine="device")
+        dev = main_sweep(sweep, st64, f"{cname} S={c['S']}")
         host = sweep(st64, segment_engine="host")
         S = c["S"]
         if dev["fe"].shape != (S, 5) or not isinstance(dev["lnpi"], np.ndarray):
@@ -954,7 +1076,7 @@ def two_dim_phase(C):
         if "grid" in c:  # S = 1,024: a 32 x 32 grid, where the rate levels off
             big = c["grid"](32)
             nb = n_states(big)
-            out = sweep(big, segment_engine="device")
+            out = main_sweep(sweep, big, f"{cname} S={nb}")
             if out["fe"].shape != (nb, 5) or not np.isfinite(out["fe"][out["phase_ok"]]).all() or not (out["n_phases"] >= 1).all():
                 raise AssertionError(f"2-D {cname} S={nb}: shapes, phases or free energies wrong")
             # 64 states spread over the grid against the host flood
@@ -970,10 +1092,14 @@ def two_dim_phase(C):
             peak = torch.cuda.max_memory_allocated() / 2**30
             row["big"] = dict(S=nb, device_ms=ms, peak_gib=peak, fail_codes=np.bincount(out["fail_code"], minlength=5).tolist(), sample_states=int(ok.size), worst_device_vs_host=w_big)
             log(f"2-D {cname} S={nb}: device {ms:.3f} ms = {nb / ms * 1e3:.5g} states/s (peak {peak:.3f} GiB) fail codes {row['big']['fail_codes']} | device vs host on {ok.size} sampled states within {w_big:.3e} | {smi}")
+            if cname == "pore96":  # where the device engine's time goes, and the boundary integrals at S = 1 (the class path's count)
+                row["stages"] = {S_: pore_stages(C, jh, fh, st) for S_, st in ((1, take(big, [0])), (S, st64), (nb, big))}
+                for S_, stg in row["stages"].items():
+                    log(f"2-D pore96 S={S_} stages (CUDA events, warm, median of 3): " + stage_text(stg) + f" | {smi}")
             if cname == "joint96":  # where the device engine's time goes, and a utils.profiling window over one call
                 row["stages"] = {S_: joint_stages(C, jh, st) for S_, st in ((S, st64), (nb, big))}
                 for S_, stg in row["stages"].items():
-                    log(f"2-D joint96 S={S_} stages (CUDA events, warm, median of 3): " + ", ".join(f"{k} {v:.3f} ms" for k, v in stg.items()) + f" | {smi}")
+                    log(f"2-D joint96 S={S_} stages (CUDA events, warm, median of 3): " + stage_text(stg) + f" | {smi}")
                 with prof_mod.trace(os.path.join(ROOT, "_profiles", "joint96")) as prof:
                     sweep(big, segment_engine="device", return_surfaces=False)
                     torch.cuda.synchronize()
@@ -1001,6 +1127,7 @@ def two_dim_phase(C):
     if not ((sat_h["fail_code"] == 3).all() and np.array_equal(sat_h["fail_code"], sat_d["fail_code"]) and np.array_equal(sat_h["n_phases"], sat_d["n_phases"])):
         raise AssertionError(f"2-D saturation: fail codes host {sat_h['fail_code'].tolist()} device {sat_d['fail_code'].tolist()}")
     res["tie"] = dict(states=len(ps), worst_fallback_vs_host=w_tie)
+    res["b2d_main_path_launches"] = b2d_main
     log(f"2-D tie case: {len(ps)} pore13 states with a plateau pair: device flags all (fail_code 4 on the clean ones), tie_fallback equals the host flood within {w_tie:.3e} "
         f"(return_surfaces True and False) | saturation (max_peaks=0): fail_code 3 on all {len(ps)} states on both engines | {smi}")
     return res
@@ -2738,8 +2865,9 @@ def run():
     runs["coex31"]["coexistence"] = coex31
     layout_k2.append(dict(order=kw["order"], paired=True, **coex_layout))
 
-    # ---- 5c. the 2-D surface path (no kernel of its own) ----
-    print(json.dumps({"two_dim": two_dim_phase(C)}))
+    # ---- 5c. the 2-D surface path (its boundary integrals: one kernel) ----
+    two_dim = two_dim_phase(C)
+    print(json.dumps({"two_dim": two_dim}))
 
     # ---- 5d. window patching into a composite K1 sweeps (no kernel of its own) ----
     wp, runs["win800"] = win_patch_phase(C, worst)
@@ -2791,6 +2919,26 @@ def run():
         entry(cuda_iso.NAME, "fhmcanalysis_torch/csrc/iso_grid.cu", iso_runs, max(*worst_iso.values(), cap_worst[cuda_iso.NAME]), layouts=layout_k3 + cap_layouts[cuda_iso.NAME]),
         dict(row_former, launches=sum(rows_main.values()), main_path_launches=rows_main),
     ]
+    b2d_cells = {f"{cname} S={S_}": {k: v for k, v in stg.items() if k.startswith(("of which", "boundary"))} for cname in ("pore96", "joint96") for S_, stg in two_dim[cname]["stages"].items()}
+    head = b2d_cells["pore96 S=1024"]
+    b2d_main = two_dim["b2d_main_path_launches"]
+    kernels.append({
+        "name": C.cuda_b2d.NAME,
+        "route": "cuda",
+        "source": "fhmcanalysis_torch/csrc/boundary2d.cu",
+        "replaces": None,  # no TPU kernel: the JAX package's core/segment2d.py forms these integrals with jnp operations on XLA
+        "launches": sum(b2d_main.values()),
+        "main_path_launches": b2d_main,
+        "max_abs_err": max(r["boundary max_abs_err"] for r in b2d_cells.values()),
+        "ms": head["boundary kernel device"],
+        "call_ms": head["of which boundary integrals"],
+        "plain_ms": head["boundary plain one-hot"],
+        "bound_ms": head["boundary bound"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "cells": b2d_cells,
+        "ptxas": ptxas[C.cuda_b2d.NAME],
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": C.name, "count": torch.cuda.device_count()}}))
 

@@ -1,14 +1,15 @@
 """The seam between the port's Python and its CUDA libraries.
 
-``cuda_sweep`` (K1), ``cuda_mb`` (K2 and its row former) and ``cuda_iso``
-(K3) each declare their library's launch signature, check the shapes of
-their arguments and make their launch call; what they share is here: the
-builds' common facts (their phase-slot capacities and layouts, K1's and
-K2's layout rule), loading a library, the check of the tensors a kernel
-reads, the scalar checks, the allocation of the sweep's outputs and the
-launch itself with its error path and counter.  The shared-memory layout
-rules live in the CUDA sources alone (``csrc/thermo_tail.cuh``,
-``mb_xarea.cuh``, ``iso_cell.cuh``); a wrapper that needs one asks its
+``cuda_sweep`` (K1), ``cuda_mb`` (K2 and its row former), ``cuda_iso``
+(K3) and ``cuda_b2d`` (the 2-D boundary integrals) each declare their
+library's launch signature, check the shapes of their arguments and make
+their launch call; what they share is here: the builds' common facts
+(their phase-slot capacities and layouts, K1's and K2's layout rule),
+loading a library, the check of the tensors a kernel reads, the scalar
+checks, the allocation of the sweep's outputs and the launch itself with
+its error path and counter.  The shared-memory layout rules live in the
+CUDA sources alone (``csrc/thermo_tail.cuh``, ``mb_xarea.cuh``,
+``iso_cell.cuh``, ``boundary2d.cu``); a wrapper that needs one asks its
 loaded library.
 """
 
@@ -81,18 +82,20 @@ def lanes_per_point(N: int, B: int, n_sm: int, max_phases: int = 8) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str, declare) -> ctypes.CDLL:
+def load(name: str, declare, slots: bool = True) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu``, built and loaded once (``_build.load``),
     with ``<name>_error_string`` declared, its widest build checked against
-    MAX_PHASES, and then ``declare(lib)`` run on it (its own signatures)."""
+    MAX_PHASES (where it has builds by phase slots: `slots`), and then
+    ``declare(lib)`` run on it (its own signatures)."""
 
     def declare_all(lib: ctypes.CDLL) -> None:
         lib.error_string = getattr(lib, f"{name}_error_string")
         lib.error_string.argtypes, lib.error_string.restype = [ctypes.c_int], ctypes.c_char_p
-        top = getattr(lib, f"{name}_max_phases")
-        top.argtypes, top.restype = [], ctypes.c_int
-        if top() != MAX_PHASES:
-            raise RuntimeError(f"{name}: the library's widest build holds {top()} phase slots, launch.MAX_PHASES says {MAX_PHASES}")
+        if slots:
+            top = getattr(lib, f"{name}_max_phases")
+            top.argtypes, top.restype = [], ctypes.c_int
+            if top() != MAX_PHASES:
+                raise RuntimeError(f"{name}: the library's widest build holds {top()} phase slots, launch.MAX_PHASES says {MAX_PHASES}")
         declare(lib)
 
     return _build.load(name, declare_all)

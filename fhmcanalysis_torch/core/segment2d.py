@@ -12,11 +12,13 @@ axis of their tensors; the single-state functions keep the JAX arguments
 and run the batch form on one state.  Everything runs on the device of
 the tensors it is given (the 2-D pipelines put them on the card).
 
-The only host steps of the 2-D path are the reference-exact priority
-flood (two_dim/imaging.py with native/imaging.cpp, the cross-check arm)
-and the tiny line profiles.  Labels enter as a dense int tensor; per-phase
-quantities are [P]-slot masked contractions.  Every exponential is
-max-shifted so intermediates stay <= 1.
+The boundary integrals on CUDA tensors are one hand-written kernel
+(core/cuda_b2d.py, csrc/boundary2d.cu); everything else here is plain
+PyTorch.  The only host steps of the 2-D path are the reference-exact
+priority flood (two_dim/imaging.py with native/imaging.cpp, the
+cross-check arm) and the tiny line profiles.  Labels enter as a dense int
+tensor; per-phase quantities are [P]-slot masked contractions.  Every
+exponential is max-shifted so intermediates stay <= 1.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from . import cuda_b2d
 
 __all__ = [
     "valid_mask_2d",
@@ -42,9 +46,10 @@ __all__ = [
 _BIGNEG = -1.7976931348623157e308  # -sys.float_info.max (pore_hist.pyx:40)
 
 # boundary_pair_integrals reduction engine: "onehot" (a masked reduction per
-# label pair, the JAX package's default) or "segment" (scatter_reduce by
-# pair key, the cross-check arm).  They form other shifted terms, so they
-# agree up to rounding; tests hold them to 1e-12.
+# label pair, the JAX package's default; on CUDA tensors the hand-written
+# kernel of core/cuda_b2d.py, which computes its formulas) or "segment"
+# (scatter_reduce by pair key, the cross-check arm).  They form other
+# shifted terms, so they agree up to rounding; tests hold them to 1e-12.
 BOUNDARY_SEGMENT_ENGINE = "onehot"
 
 _HW = (-2, -1)  # the surface axes of a [..., H, N] tensor
@@ -153,7 +158,18 @@ def _shifted(x, di: int, dj: int, fill):
 
 
 def _boundary_batch(lnpi, lab, max_labels: int, engine: str):
-    """boundary_pair_integrals over [S, H, N] surfaces and labels."""
+    """boundary_pair_integrals over [S, H, N] surfaces and labels: engine
+    "onehot" on CUDA tensors launches the hand-written kernel
+    (cuda_b2d.boundary_pairs, the one-hot engine's formulas), which raises
+    rather than fall back; everything else runs _boundary_plain."""
+    if engine == "onehot" and lnpi.is_cuda:
+        return cuda_b2d.boundary_pairs(lnpi.contiguous(), lab.contiguous(), max_labels)
+    return _boundary_plain(lnpi, lab, max_labels, engine)
+
+
+def _boundary_plain(lnpi, lab, max_labels: int, engine: str):
+    """The plain PyTorch engines of boundary_pair_integrals over [S, H, N]
+    surfaces and labels, on any device: "onehot" or "segment"."""
     S = lnpi.shape[0]
     L1 = max_labels + 1
     bnd = _boundary_mask(lab)
@@ -236,7 +252,8 @@ def boundary_pair_integrals(lnpi, labels, max_labels: int, engine: str | None = 
     lnpi, labels: [H, N], or [S, H, N] for S surfaces.  Returns (min_df,
     max_val): f64[(L+1), (L+1)] (a leading S where the inputs have one)
     with _BIGNEG at pairs with no shared boundary (the reference's
-    -sys.float_info.max fill).  ``engine``: None = BOUNDARY_SEGMENT_ENGINE.
+    -sys.float_info.max fill).  ``engine``: None = BOUNDARY_SEGMENT_ENGINE;
+    "onehot" on CUDA tensors is the kernel of core/cuda_b2d.py.
     """
     lnpi = _t(lnpi, dtype=torch.float64)
     lab = _t(labels, lnpi, torch.int32)

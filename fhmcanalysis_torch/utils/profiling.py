@@ -91,7 +91,9 @@ def counters() -> dict:
     K2's launches that formed x' once into its shared-memory area;
     ``launches.k2_tile``: those of them that also formed their targets'
     key' once, in blocks of 8 targets x 8 mu values;
-    ``launches.mb_rows``: the row former's launches; ``host_syncs``:
+    ``launches.mb_rows``: the row former's launches; ``launches.b2d``: the
+    2-D boundary integrals kernel's launches (one a 2-D sweep on the card,
+    and one more where the tie fallback runs); ``host_syncs``:
     reads of a tensor's value back to the host by the program's own code;
     ``solver.steps``: Nelder-Mead steps; ``kernel.loads`` /
     ``kernel.load_s``: kernel libraries loaded and checked, and the seconds

@@ -1,7 +1,10 @@
 // The kernels' shared-memory layout rules (fhmcanalysis_torch/csrc:
-// thermo_tail.cuh, mb_xarea.cuh, iso_cell.cuh) on the CPU, the same
-// functions the libraries launch by and export.  Built with g++ by
-// tests/test_torch_capacity.py, which holds them to their numbers.
+// thermo_tail.cuh, mb_xarea.cuh, iso_cell.cuh, and the rules at the head of
+// boundary2d.cu, whose kernel g++ does not see: it lies under __CUDACC__)
+// on the CPU, the same functions the libraries launch by and export.
+// Built with g++ by tests/test_torch_capacity.py, which holds them to
+// their numbers.
+#include "boundary2d.cu"
 #include "iso_cell.cuh"
 #include "mb_xarea.cuh"
 
@@ -48,5 +51,14 @@ int iso_xm_bytes(int G, int cap, int W, int NX, int NY, int N, int R, int KG) {
 int iso_static_bytes(int G, int cap) { return iso::static_bytes(G, cap); }
 int iso_list_bytes() { return (int)iso::LIST_BYTES; }
 int iso_smem_optin() { return (int)iso::SMEM_OPTIN; }
+
+// The 2-D boundary integrals' list, pair table and scratch.
+int b2d_list_cap() { return b2d::CAP; }
+long long b2d_list_bytes() { return (long long)b2d::LIST_BYTES; }
+int b2d_list_blocks() { return b2d::LIST_BLOCKS; }
+int b2d_table_fits(int L) { return b2d::table_fits(L); }
+long long b2d_table_bytes(int L) { return (long long)b2d::table_bytes(L); }
+long long b2d_smem_bytes(int L) { return (long long)b2d::smem_bytes(L); }
+long long b2d_scratch_bytes(long long S, int L) { return (long long)b2d::scratch_bytes(S, L); }
 
 }  // extern "C"

@@ -304,6 +304,9 @@ def layout_host(tmp_path_factory):
     lib.mb_tile_table_bytes.argtypes = [i, i]
     for f in (lib.mb_tile_block_bytes, lib.mb_tile_table_bytes, lib.mb_tile_blocks, lib.mb_smem_sm):
         f.restype = ll
+    for f in (lib.b2d_list_bytes, lib.b2d_table_bytes, lib.b2d_smem_bytes, lib.b2d_scratch_bytes):
+        f.restype = ll
+    lib.b2d_scratch_bytes.argtypes = [ll, i]
     return lib
 
 
@@ -441,6 +444,81 @@ def test_mb_tile_block_bytes(layout_host):
         assert layout_host.mb_xarea_fits(1, 8, N) and not layout_host.mb_tile_fits(1, 8, 0, N, 65_536, 64)
     top = next(N for N in range(1, 200) if not layout_host.mb_tile_fits(1, 8, 0, N + 1, 65_536, 64))
     assert top == 31
+
+
+def test_b2d_list_and_table(layout_host):
+    """The 2-D boundary integrals' shared memory (csrc/boundary2d.cu): the
+    list holds 2,048 entries (8 a thread of a block of 256, so one tile of
+    the re-read pass fills it at most) of 20 bytes, 40,960 bytes, five
+    blocks an SM; the pair table (24 bytes a pair) joins it in shared
+    memory where five blocks still fit, up to 20 labels (190 pairs), and
+    goes to device memory from 21 labels."""
+    sm = layout_host.mb_smem_sm()
+    assert layout_host.b2d_list_cap() == 8 * 256 == 2_048
+    assert layout_host.b2d_list_bytes() == 2_048 * 20 == 40_960
+    assert layout_host.b2d_list_blocks() == 5 and 6 * (40_960 + 1_024) > sm
+    for L in (0, 1, 2, 5, 10, 20, 21, 64):
+        assert layout_host.b2d_table_bytes(L) == L * (L - 1) // 2 * 24
+        assert bool(layout_host.b2d_table_fits(L)) == (L <= 20), L
+        assert bool(layout_host.b2d_table_fits(L)) == (5 * (40_960 + L * (L - 1) // 2 * 24 + 1_024) <= sm)
+        want = 40_960 + (layout_host.b2d_table_bytes(L) if L <= 20 else 0)
+        assert layout_host.b2d_smem_bytes(L) == want <= 48 * 1024, L
+
+
+@pytest.mark.parametrize(
+    "S, L, want",
+    [
+        (1_024, 5, 0),  # pore96's main path: the table in shared memory
+        (1, 5, 0),  # the pore_hist class (S = 1)
+        (1, 20, 0),  # the widest table shared memory holds
+        (1, 21, 210 * 24),
+        (1_024, 21, 1_024 * 210 * 24),
+        (64, 64, 64 * 2_016 * 24),  # the class's n_maxima at its widest in the GPU tests
+        (3, 0, 0),
+    ],
+)
+def test_b2d_scratch(layout_host, S, L, want):
+    """The device memory a launch asks for: the states' pair tables, S x
+    3 x L(L-1)/2 doubles, where they do not fit in shared memory (from 21
+    labels), else none; no other scratch (one block a state, which zeroes
+    its own table)."""
+    assert layout_host.b2d_scratch_bytes(S, L) == want
+
+
+def _b2d_contributions(lab):
+    """Each state's boundary contributions, by segment2d's definition: an
+    inner boundary cell of label a > 0 and a neighbour of label b > 0, b != a."""
+    import fhmcanalysis_torch.core.segment2d as S2
+
+    bnd = S2._boundary_mask(lab) & (lab > 0)
+    n = torch.zeros(lab.shape[0], dtype=torch.int64)
+    for di, dj in S2._NEBR8:
+        q = S2._shifted(lab, di, dj, 0)
+        n += (bnd & (q > 0) & (q != lab)).sum((1, 2))
+    return n
+
+
+def test_b2d_list_holds_pore96_states(layout_host):
+    """pore96's states (the benchmark cell's shape, one block a state at S =
+    1,024) keep their contributions in the list, so the main path never
+    reads a state twice: ~1,000 a state (a boundary line across 96 rows)
+    against 2,048.  Four states at the grid's corners."""
+    import fhmcanalysis_torch.core.segment2d as S2
+    from fhmcanalysis_torch.two_dim.pore_pipeline import _footprint
+    from torch_composites import joint, pore_grid_prod, pore_prod_entries
+
+    jh = joint(pore_prod_entries())
+    jh.make()
+    raw = torch.as_tensor(np.asarray(jh.data["ln(PI)"], dtype=np.float64))
+    H, N = raw.shape
+    valid = torch.isfinite(raw)
+    p, beta = pore_grid_prod(32)
+    corners = [0, 31, 992, 1_023]
+    h = torch.arange(1, H + 1, dtype=torch.float64)
+    ln, _ = S2.pore_surface_batch(raw, h, 0.1 * h, torch.as_tensor(p[corners]), 1.0, torch.as_tensor(beta[corners]), valid)
+    lab = S2.hillclimb_segment_batch(ln, valid, _footprint(H, N, 1).shape, 5)["labels"]
+    n = _b2d_contributions(lab)
+    assert (n > 500).all() and (n < layout_host.b2d_list_cap() * 3 // 4).all(), n.tolist()
 
 
 def test_mb_xarea_argument_checked_first():

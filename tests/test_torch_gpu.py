@@ -7,9 +7,11 @@ Imports no JAX, so it runs on the GPU machine:
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 
 (--noconftest: tests/conftest.py imports JAX, which that machine lacks.)
-The 2-D surface path (plain PyTorch on the card, no kernel of its own) is
-held here against the host flood, the class numpy engine and its own CPU
-run.
+The 2-D surface path (plain PyTorch on the card, but for its boundary
+integrals, one hand-written kernel) is held here against the host flood,
+the class numpy engine and its own CPU run, and the boundary integrals'
+kernel against the plain one-hot on the card (max_val bit for bit) and on
+the CPU.
 
 Segmentation fields (for K3: ok and fail_code) must be equal; fe and the
 properties agree to 1e-10 absolute on valid masked slots (the JAX
@@ -1229,6 +1231,146 @@ def test_2d_boundary_engines_on_card(cuda, engine):
         assert b.is_cuda
         _same_2d(a, b, f"{engine} {k}")
     assert (cpu[0] > S2._BIGNEG).any()
+
+
+# The 2-D boundary integrals kernel (core/cuda_b2d.py, csrc/boundary2d.cu):
+# what the pipelines' "onehot" engine launches on CUDA tensors.  Against the
+# plain one-hot on the card (the same exp and log): max_val bit for bit,
+# min_df within 1e-12 relative (the order of its sums); against the plain
+# one-hot on the CPU (another exp), both within 1e-12; two launches on
+# the same inputs give the same bits.  Random label fields (~5
+# contributions a cell: the list overflows in its first tile and the
+# kernel reads the state's cells again), bands of columns (~800-1,500
+# contributions a tile: the list keeps the first tiles and the kernel
+# reads the rest again), and watershed labels of ragged surfaces, at S =
+# 1, 3 and 64, one block a state, and max_labels 1, 5, 10 and 64 (the
+# pair table in device memory).
+
+
+B2D_KINDS = ("random13x21", "random24x97", "random96x385", "bands24x97", "bands96x385", "watershed24x97", "watershed96x385")
+B2D_TILE = 1024  # cells of the kernel's first-pass tile (csrc/boundary2d.cu TILE)
+
+
+def _b2d_inputs(kind, S, max_labels, dev):
+    """(lnpi f64, labels int32) [S, H, N] on dev for a B2D_KINDS case."""
+    import fhmcanalysis_torch.core.segment2d as S2
+    from fhmcanalysis_torch.two_dim.pore_pipeline import _footprint
+    from torch_composites import rand_surface
+
+    what = kind.rstrip("0123456789x")
+    H, N = (int(v) for v in kind[len(what):].split("x"))
+    seed = [H, N, S, max_labels]
+    if what in ("random", "bands"):
+        rng = np.random.default_rng(seed)
+        if what == "random":
+            lab = rng.integers(0, max_labels + 1, size=(S, H, N))
+        else:  # bands of 4 (24 x 97) or 8 (96 x 385) columns, labels 1..max_labels in turn, the last 3 columns background
+            col = np.arange(N)
+            lab = np.broadcast_to((1 + col // max(4, N // 48) % max(max_labels, 1)) * (col < N - 3), (S, H, N))
+        return torch.as_tensor(rng.normal(0, 10, size=(S, H, N)), device=dev), torch.as_tensor(np.ascontiguousarray(lab, dtype=np.int32), device=dev)
+    rng = np.random.RandomState(seed)
+    valid = np.arange(N)[None, :] <= rng.randint(N // 2, N, size=H)[:, None]
+    lnpi = np.stack([np.where(valid, rand_surface(rng, H, N, max_labels + 4), -np.inf) for _ in range(S)])
+    lnpi, valid = torch.as_tensor(lnpi, device=dev), torch.as_tensor(valid, device=dev)
+    return lnpi, S2.hillclimb_segment_batch(lnpi, valid, _footprint(H, N, 1).shape, max_labels)["labels"]
+
+
+S2_BIGNEG = -1.7976931348623157e308  # segment2d._BIGNEG
+
+
+def _rel_within(a, b, tol, where):
+    """The -DBL_MAX entries in the same places; the rest within tol of b, relative (absolute below 1)."""
+    a, b = a.cpu(), b.cpu()
+    assert torch.equal(a == S2_BIGNEG, b == S2_BIGNEG), where
+    d = ((a - b).abs() / b.abs().clamp(min=1.0)).max().item() if a.numel() else 0.0
+    assert d <= tol, (where, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_labels", [1, 5, 10, 64])
+@pytest.mark.parametrize("S", [1, 3, 64])
+@pytest.mark.parametrize("kind", B2D_KINDS)
+def test_b2d_kernel_matches_plain_onehot(cuda, kind, S, max_labels):
+    import fhmcanalysis_torch.core.cuda_b2d as CB
+    import fhmcanalysis_torch.core.segment2d as S2
+
+    lnpi, lab = _b2d_inputs(kind, S, max_labels, cuda)
+    L1 = max_labels + 1
+    n0 = counters().get("launches.b2d", 0)
+    got = S2.boundary_pair_integrals(lnpi, lab, max_labels)  # the default engine: the kernel
+    again = CB.boundary_pairs(lnpi, lab, max_labels)
+    torch.cuda.synchronize()
+    assert counters()["launches.b2d"] == n0 + 2
+    plain = S2._boundary_plain(lnpi, lab, max_labels, "onehot")
+    for a, b, k in zip(got, again, ("min_df", "max_val")):
+        assert a.is_cuda and a.shape == (S, L1, L1), k
+        assert torch.equal(a, b), f"{k}: two launches differ"
+        assert torch.equal(a, a.transpose(1, 2)) and (a.diagonal(dim1=1, dim2=2) == S2_BIGNEG).all(), k
+    assert torch.equal(got[1], plain[1]), "max_val differs from the plain one-hot on the card"
+    _rel_within(got[0], plain[0], 1e-12, "min_df vs the plain one-hot on the card")
+    H, N = lnpi.shape[1:]
+    if S * H * N * max(1, max_labels * (max_labels - 1) // 2) <= 4e7:  # the CPU's one-hot in seconds
+        cpu = S2._boundary_plain(lnpi.cpu(), lab.cpu(), max_labels, "onehot")
+        for a, b, k in zip(got, cpu, ("min_df", "max_val")):
+            _rel_within(a, b, 1e-12, f"{k} vs the plain one-hot on the CPU")
+    if max_labels > 1 and kind != "watershed24x97":
+        assert (got[0] > S2_BIGNEG).any(), "no shared boundary"
+
+
+@pytest.mark.gpu
+def test_b2d_cases_cover_every_route(cuda):
+    """The cases above reach each route of the kernel, by the loaded
+    library's own rules: the pair table in shared and in device memory; a
+    list that holds its state's contributions, one that overflows in its
+    first tile (the state's cells read again) and one that overflows later
+    (its first tiles kept, the rest read again)."""
+    import fhmcanalysis_torch.core.cuda_b2d as CB
+    import fhmcanalysis_torch.core.segment2d as S2
+
+    lib = CB._lib()
+    cap = lib.boundary2d_list_cap()
+    seen = set()
+    for kind in B2D_KINDS:
+        for S in (1, 3, 64):
+            for ml in (1, 5, 10, 64):
+                lnpi, lab = _b2d_inputs(kind, S, ml, cuda)
+                HN = lab.shape[1] * lab.shape[2]
+                bnd = S2._boundary_mask(lab) & (lab > 0)
+                cell = sum((bnd & (q > 0) & (q != lab)).int() for q in (S2._shifted(lab, di, dj, 0) for di, dj in S2._NEBR8)).reshape(S, HN)
+                tiles = torch.stack([cell[:, c : c + B2D_TILE].sum(1) for c in range(0, HN, B2D_TILE)], 1)
+                over = (tiles.cumsum(1) > cap).int().argmax(1)
+                full = tiles.sum(1) <= cap
+                for s in range(S):
+                    seen.add("kept" if full[s] else "first tile" if over[s] == 0 else "later tile")
+                seen.add(("shared table", bool(lib.boundary2d_table_fits(ml))))
+    for route in ("kept", "first tile", "later tile"):
+        assert route in seen, (route, seen)
+    assert ("shared table", True) in seen and ("shared table", False) in seen
+
+
+@pytest.mark.gpu
+def test_b2d_launches_per_sweep(cuda):
+    """launches.b2d: one launch a device-route pore_state_sweep call, one a
+    joint_state_sweep call, one a host-flood call (its per-phase stage on
+    the card), and one more where the tie fallback re-runs flagged states."""
+    from fhmcanalysis_torch import two_dim
+    from torch_composites import FH_COEFFS, JOINT_BETA, JOINT_MU_REF, joint, joint_prod_entries, joint_states, pore13_entries, pore_states, tie_joint
+
+    jh, fh = joint(pore13_entries()), two_dim.free_energy_profile.polynomial(FH_COEFFS)
+    ps, bs = pore_states(8)
+    jj = joint(joint_prod_entries(24, 97))
+    jt = tie_joint(joint(pore13_entries()))
+    calls = [
+        (1, lambda: two_dim.pore_state_sweep(jh, fh, ps, bs, 1.0, nnebr=1, max_peaks=4, device=cuda)),
+        (1, lambda: two_dim.pore_state_sweep(jh, fh, ps, bs, 1.0, nnebr=1, max_peaks=4, device=cuda, return_surfaces=False)),
+        (1, lambda: two_dim.joint_state_sweep(jj, JOINT_BETA, JOINT_MU_REF, joint_states(8), nnebr=1, max_peaks=4, device=cuda)),
+        (1, lambda: two_dim.pore_state_sweep(jh, fh, ps, bs, 1.0, nnebr=1, max_peaks=4, device=cuda, segment_engine="host")),
+        (2, lambda: two_dim.pore_state_sweep(jt, fh, ps, bs, 1.0, nnebr=1, max_peaks=4, device=cuda, tie_fallback=True)),
+    ]
+    for want, call in calls:
+        n0 = counters().get("launches.b2d", 0)
+        call()
+        assert counters().get("launches.b2d", 0) == n0 + want
 
 
 # ---------------------------------------------------------------------------

@@ -174,6 +174,48 @@ def test_boundary_engines_agree():
         T.boundary_pair_integrals(lnpi, torch.as_tensor(labels), 5, engine="scatter")
 
 
+@pytest.mark.parametrize("engine", ["onehot", "segment"])
+def test_boundary_cpu_route_is_plain(rng, engine):
+    """CPU tensors take the plain engines, which the tests above hold
+    against JAX: _boundary_batch (what pore_phase_batch and the sweeps
+    call) returns _boundary_plain's tensors bit for bit, and the kernel of
+    core/cuda_b2d.py is never launched (launches.b2d stays 0); its
+    wrapper refuses CPU tensors before any launch, and an unknown engine
+    still raises."""
+    from fhmcanalysis_torch.core import cuda_b2d
+    from fhmcanalysis_torch.utils.profiling import counters
+
+    lnpi = torch.as_tensor(rng.normal(0, 10, size=(3, 13, 21)))
+    lab = torch.as_tensor(rng.integers(0, 6, size=(3, 13, 21)).astype(np.int32))
+    got, want = T._boundary_batch(lnpi, lab, 5, engine), T._boundary_plain(lnpi, lab, 5, engine)
+    for a, b in zip(got, want):
+        assert a.device.type == "cpu" and torch.equal(a, b)
+    t = T.pore_phase_batch(lnpi, lab, torch.ones(13, 21, dtype=torch.bool), np.full(13, 20), torch.ones(1, 13, 21, dtype=torch.float64),
+                           torch.zeros(3, 5, dtype=torch.float64), torch.full((3,), 5), 5, boundary_engine=engine)
+    assert torch.isfinite(t["ts"][t["ts"] > T._BIGNEG]).all()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_b2d.boundary_pairs(lnpi, lab, 5)
+    with pytest.raises(ValueError, match="unknown boundary engine"):
+        T._boundary_batch(lnpi, lab, 5, "scatter")
+    assert counters().get("launches.b2d", 0) == 0
+
+
+def test_sweeps_on_cpu_launch_no_kernel():
+    """The 2-D sweeps on the CPU (either watershed engine, and the class
+    path) run the plain boundary engine: launches.b2d stays 0."""
+    from fhmcanalysis_torch import two_dim
+    from fhmcanalysis_torch.utils.profiling import counters
+    from torch_composites import FH_COEFFS, pore_states
+
+    jh, fh = joint(pore13_entries()), two_dim.free_energy_profile.polynomial(FH_COEFFS)
+    ps, bs = pore_states(4)
+    for engine in ("device", "host"):
+        out = two_dim.pore_state_sweep(jh, fh, ps, bs, 1.0, nnebr=1, max_peaks=4, segment_engine=engine, device="cpu")
+        assert (out["fail_code"] == 0).all()
+    two_dim.pore_hist(joint(pore13_entries()), fh, 0.0, 1.0, 1.0, device="cpu").phase_average(nnebr=1, max_peaks=4)
+    assert counters().get("launches.b2d", 0) == 0
+
+
 # ------------------------------------------------------------- watershed
 
 
