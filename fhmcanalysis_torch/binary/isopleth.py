@@ -397,6 +397,7 @@ class isopleth(object):
                 raise Exception("Isopleth source histograms must share the same order-parameter range")
 
         lr, wts = self._bracket(dmu2_v, m)
+        profiling.add("iso.cells", len(mu1_v) * len(dmu2_v))
         srcs, metas = [h._hist() for h in hs], [h._meta() for h in hs]
         if mesh is None:
             shards = [(None, srcs, mu1_v)]

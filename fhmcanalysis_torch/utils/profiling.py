@@ -95,7 +95,8 @@ def counters() -> dict:
     2-D boundary integrals kernel's launches (one a 2-D sweep on the card,
     and one more where the tie fallback runs); ``host_syncs``:
     reads of a tensor's value back to the host by the program's own code;
-    ``solver.steps``: Nelder-Mead steps; ``kernel.loads`` /
+    ``solver.steps``: Nelder-Mead steps; ``iso.cells``: the cells of the
+    grids ``isopleth.make_grid`` evaluates; ``kernel.loads`` /
     ``kernel.load_s``: kernel libraries loaded and checked, and the seconds
     that took; ``kernel.builds`` / ``kernel.build_s``: the same for their
     nvcc builds; ``setup.import_s``: seconds to import the package (torch

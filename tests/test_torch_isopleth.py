@@ -20,6 +20,7 @@ density and 1.2e-13 on fe (fe is of order 1e2 here).
 """
 
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -346,6 +347,24 @@ class TestFindLeftRight:
         assert _find_left_right(arr, -1.0, True) == (2, 2)
         assert _find_left_right(arr, -4.0, False) == (1, 1)
         assert _find_left_right(arr, -3.0, False) == (1, 2)
+
+    def test_bracket_matches_the_jax_loop(self):
+        """The port's bracket against the JAX package's, bit for bit (lr and
+        weights): rows below,
+        above, on, 1e-12 off, between and exactly half way between the
+        sources; a row in np.isclose's band around a source (1e-6 off)
+        raises in both, as upstream's helper does."""
+        src = np.array([-2.94, -1.10, 0.0, 1.10, 2.94])
+        rows = np.concatenate([[-3.5, -2.94, 2.94, 4.0, -1.10 + 1e-12, 1.10 - 1e-12, 0.0, -2.02, 0.55],
+                               np.random.default_rng(3).uniform(-3.2, 3.2, 200), np.linspace(-2.6, 2.6, 65)])
+        lr, wts = isopleth._bracket(SimpleNamespace(data={"dmu2": src}), rows, 2.5)
+        want_lr, want_wts = jax_isopleth._bracket(SimpleNamespace(data={"dmu2": src}), rows, 2.5)
+        np.testing.assert_array_equal(lr, want_lr)
+        np.testing.assert_array_equal(wts, want_wts)
+        assert lr.dtype == want_lr.dtype
+        for side in (isopleth, jax_isopleth):
+            with pytest.raises(Exception, match="repeat"):
+                side._bracket(SimpleNamespace(data={"dmu2": src}), np.array([1.10 + 1e-6]), 2.5)
 
 
 class TestGetIso:

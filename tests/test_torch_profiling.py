@@ -106,17 +106,23 @@ def test_entry_spans_on_the_kernel_route(tmp_path, run, entry, inside):
 
 def test_make_grid_spans_and_copies(tmp_path):
     """make_grid: the bracket, the prologue and the copies inside the entry
-    span; host_syncs moves by the five copies of each shard."""
+    span; host_syncs moves by the five copies of each shard, iso.cells by
+    the grid's cells."""
     ds, mk = iso_sources("n31", (-5.0, -4.0))
     iso = isopleth([port_histogram(d, mk, device="cpu") for d in ds], 1.02, order=1)
     grid = iso_grid_args(ISO31, NX=8, NY=4)
-    before = TPr.counters().get("host_syncs", 0)
+    names = ("host_syncs", "iso.cells")
+    before = [TPr.counters().get(k, 0) for k in names]
+
+    def moved():
+        return [TPr.counters().get(k, 0) - b for k, b in zip(names, before)]
+
     with TPr.trace(str(tmp_path)) as prof:
         iso.make_grid(*grid)
-    assert TPr.counters()["host_syncs"] - before == 5
+    assert moved() == [5, 8 * 4]
     assert _inside(_spans(prof), "fhmc.entry.make_grid") == ["fhmc.post.iso_copy", "fhmc.prologue.iso", "fhmc.prologue.iso_bracket"]
     iso.make_grid(*grid, mesh=grid_mesh(3, devices=["cpu"] * 3))
-    assert TPr.counters()["host_syncs"] - before == 5 + 15
+    assert moved() == [5 + 15, 2 * 8 * 4]
 
 
 def test_spans_record_nothing_without_a_profiler(monkeypatch):
