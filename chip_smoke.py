@@ -76,7 +76,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      utils.profiling window over one trace (K2's share of device time, the
      idle share; the timeline goes to _profiles/coex573/trace.json);
   5c. the 2-D surface path (core.segment2d under two_dim; plain PyTorch
-     but for the boundary integrals' kernel, csrc/boundary2d.cu):
+     but for the boundary integrals' kernel, csrc/boundary2d.cu, and the
+     watershed's, csrc/watershed2d.cu):
      pore_state_sweep on pore13 (13 x 21) and
      pore96 (96 x 385), joint_state_sweep on joint96 (96 x 385), at S = 64
      and, on the 96 x 385 cells, S = 1,024: the device engine equal to the
@@ -86,7 +87,8 @@ Phases (each raises on failure, so any failure exits non-zero):
      joint96 with its surfaces, peak memory, pore96's stage times at S =
      1, 64 and 1,024 and joint96's at 64 and 1,024 (the boundary integrals
      alone: the kernel by CUDA events and by its device time, its bound
-     and the plain one-hot on the card), and a
+     and the plain one-hot on the card; the watershed's kernel the same
+     way, its six outputs equal to the plain function's on the card), and a
      utils.profiling window over one S = 1,024 call (timeline to
      _profiles/joint96/trace.json); an exact tie with and without
      tie_fallback, and saturated slots; a {"two_dim": ...} line;
@@ -423,7 +425,11 @@ class Ctx:
             from fhmcanalysis_torch.core import cuda_b2d
         except ImportError:  # a tree from before the boundary integrals' kernel: its 2-D path is plain
             cuda_b2d = None
-        self.cuda_b2d = cuda_b2d
+        try:
+            from fhmcanalysis_torch.core import cuda_ws2d
+        except ImportError:  # a tree from before the watershed's kernel: its watershed is plain
+            cuda_ws2d = None
+        self.cuda_b2d, self.cuda_ws2d = cuda_b2d, cuda_ws2d
         self.torch, self.np, self.TC, self._build, self.launch = torch, np, TC, _build, launch
         self.iso_cls, self.IB = iso_cls, sys.modules["fhmcanalysis_torch.binary.isopleth"]
         self.cuda_iso, self.cuda_mb, self.cuda_sweep = cuda_iso, cuda_mb, cuda_sweep
@@ -444,7 +450,7 @@ class Ctx:
         except ImportError:  # a tree from before the 2-D path (--dump run from an older tree)
             native = None
 
-        libs = (self.cuda_sweep, self.cuda_mb, self.cuda_iso) + ((self.cuda_b2d,) if self.cuda_b2d is not None else ())
+        libs = (self.cuda_sweep, self.cuda_mb, self.cuda_iso) + tuple(m for m in (self.cuda_b2d, self.cuda_ws2d) if m is not None)
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(libs) + 2) as pool:
             flood = pool.submit(lambda: native is not None and native.IMAGING_AVAILABLE)  # the 2-D host flood, g++
@@ -913,6 +919,30 @@ def boundary_stage(C, ln, labels, P):
     return res
 
 
+WS2D_OUTPUTS = ("labels", "n_labels", "peak_lnpi", "peak_sat", "peak_rc", "elev_tie")
+
+
+def watershed_stage(C, ln, valid, fp, P):
+    """The watershed's kernel alone on one stage's surfaces: its six
+    outputs held to the plain function's on the card bit for bit, its
+    device time (torch.profiler) and the plain function's (CUDA events),
+    and its bound: lnPI read once (f64) and the labels written once
+    (int32) at the card's memory rate.  A tree from before the kernel
+    reports nothing here."""
+    if C.cuda_ws2d is None:
+        return {}
+    S2 = sys.modules["fhmcanalysis_torch.core.segment2d"]
+    got, plain = S2.hillclimb_segment_batch(ln, valid, fp, P), S2._hillclimb_plain(ln, valid, fp, P)
+    for k in WS2D_OUTPUTS:
+        if not C.torch.equal(got[k], plain[k]):
+            raise AssertionError(f"watershed S={ln.shape[0]}: {k} differs from the plain function's")
+    return {
+        "watershed kernel device": device_ms(lambda: S2.hillclimb_segment_batch(ln, valid, fp, P), "watershed_kernel"),
+        "watershed plain": cuda_ms(lambda: S2._hillclimb_plain(ln, valid, fp, P)),
+        "watershed bound": ln.numel() * (8 + 4) / HBM_BYTES_PER_S * 1e3,
+    }
+
+
 def stage_text(stg):
     """One stage record as a log fragment: times in ms, errors as they are."""
     return ", ".join(f"{k} {v:.3e}" if k.endswith("err") else f"{k} {v:.4f} ms" for k, v in stg.items() if v is not None)
@@ -943,6 +973,7 @@ def pore_stages(C, jh, fh, states):
     return {
         "surfaces": cuda_ms(lambda: S2.pore_surface_batch(raw, h, fh_v, p, 1.0, b, valid)),
         "watershed": cuda_ms(lambda: S2.hillclimb_segment_batch(ln, valid, fp, P)),
+        **watershed_stage(C, ln, valid, fp, P),
         "phase analysis": cuda_ms(lambda: S2.pore_phase_batch(ln, seg["labels"], valid, edge, props, seg["peak_lnpi"], seg["n_labels"], P)),
         **boundary_stage(C, ln, seg["labels"], P),
     }
@@ -970,6 +1001,7 @@ def joint_stages(C, jh, targets):
     return {
         "surfaces": cuda_ms(lambda: S2.joint_surface_batch(raw, op1, op2, C.TC.JOINT_BETA, d1, d2, valid)),
         "watershed": cuda_ms(lambda: S2.hillclimb_segment_batch(ln, valid, fp, P)),
+        **watershed_stage(C, ln, valid, fp, P),
         "phase analysis": cuda_ms(lambda: S2.pore_phase_batch(ln, seg["labels"], valid, edge, props, seg["peak_lnpi"], seg["n_labels"], P)),
         **boundary_stage(C, ln, seg["labels"], P),
     }
@@ -1025,14 +1057,16 @@ def two_dim_phase(C):
     def n_states(states):
         return len(states[0]) if isinstance(states, tuple) else len(states)
 
-    b2d_main = {}  # the boundary kernel's launches in each main-path device sweep: one a call
+    b2d_main, ws2d_main = {}, {}  # the boundary and watershed kernels' launches in each main-path device sweep: one a call
 
     def main_sweep(sweep, states, key):
-        n0 = launch_count("b2d")
+        n0, w0 = launch_count("b2d"), launch_count("ws2d")
         out = sweep(states, segment_engine="device")
-        b2d_main[key] = launch_count("b2d") - n0
+        b2d_main[key], ws2d_main[key] = launch_count("b2d") - n0, launch_count("ws2d") - w0
         if C.cuda_b2d is not None and b2d_main[key] != 1:
             raise AssertionError(f"2-D {key}: the device sweep launched the boundary kernel {b2d_main[key]} times (one a call)")
+        if C.cuda_ws2d is not None and ws2d_main[key] != 1:
+            raise AssertionError(f"2-D {key}: the device sweep launched the watershed kernel {ws2d_main[key]} times (one a call)")
         return out
 
     for cname in ("pore13", "pore96", "joint96"):
@@ -1128,6 +1162,7 @@ def two_dim_phase(C):
         raise AssertionError(f"2-D saturation: fail codes host {sat_h['fail_code'].tolist()} device {sat_d['fail_code'].tolist()}")
     res["tie"] = dict(states=len(ps), worst_fallback_vs_host=w_tie)
     res["b2d_main_path_launches"] = b2d_main
+    res["ws2d_main_path_launches"] = ws2d_main
     log(f"2-D tie case: {len(ps)} pore13 states with a plateau pair: device flags all (fail_code 4 on the clean ones), tie_fallback equals the host flood within {w_tie:.3e} "
         f"(return_surfaces True and False) | saturation (max_peaks=0): fail_code 3 on all {len(ps)} states on both engines | {smi}")
     return res
@@ -2939,6 +2974,27 @@ def run():
         "cells": b2d_cells,
         "ptxas": ptxas[C.cuda_b2d.NAME],
     })
+    if C.cuda_ws2d is not None:
+        ws_cells = {f"{cname} S={S_}": {k: v for k, v in stg.items() if k.startswith("watershed")} for cname in ("pore96", "joint96") for S_, stg in two_dim[cname]["stages"].items()}
+        head = ws_cells["pore96 S=1024"]
+        ws_main = two_dim["ws2d_main_path_launches"]
+        kernels.append({
+            "name": C.cuda_ws2d.NAME,
+            "route": "cuda",
+            "source": "fhmcanalysis_torch/csrc/watershed2d.cu",
+            "replaces": None,  # no TPU kernel: the JAX package's core/segment2d.py runs its watershed as jnp operations on XLA
+            "launches": sum(ws_main.values()),
+            "main_path_launches": ws_main,
+            "max_abs_err": 0.0,  # the six outputs equal the plain function's bit for bit (watershed_stage raises otherwise)
+            "ms": head["watershed kernel device"],
+            "call_ms": head["watershed"],
+            "plain_ms": head["watershed plain"],
+            "bound_ms": head["watershed bound"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "cells": ws_cells,
+            "ptxas": ptxas[C.cuda_ws2d.NAME],
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": C.name, "count": torch.cuda.device_count()}}))
 

@@ -1,4 +1,4 @@
-from . import cuda_b2d, cuda_iso, cuda_mb, cuda_sweep, derivs, extrap, launch, moments, numerics, ops, pipeline, segment, segment2d, solve, state
+from . import cuda_b2d, cuda_iso, cuda_mb, cuda_sweep, cuda_ws2d, derivs, extrap, launch, moments, numerics, ops, pipeline, segment, segment2d, solve, state
 from .state import Hist, HistMeta, from_host, make_hist, to_host
 
 __all__ = [
@@ -11,6 +11,7 @@ __all__ = [
     "cuda_iso",
     "cuda_mb",
     "cuda_sweep",
+    "cuda_ws2d",
     "derivs",
     "extrap",
     "launch",

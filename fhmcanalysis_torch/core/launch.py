@@ -1,16 +1,16 @@
 """The seam between the port's Python and its CUDA libraries.
 
 ``cuda_sweep`` (K1), ``cuda_mb`` (K2 and its row former), ``cuda_iso``
-(K3) and ``cuda_b2d`` (the 2-D boundary integrals) each declare their
-library's launch signature, check the shapes of their arguments and make
-their launch call; what they share is here: the builds' common facts
-(their phase-slot capacities and layouts, K1's and K2's layout rule),
-loading a library, the check of the tensors a kernel reads, the scalar
-checks, the allocation of the sweep's outputs and the launch itself with
-its error path and counter.  The shared-memory layout rules live in the
-CUDA sources alone (``csrc/thermo_tail.cuh``, ``mb_xarea.cuh``,
-``iso_cell.cuh``, ``boundary2d.cu``); a wrapper that needs one asks its
-loaded library.
+(K3), ``cuda_b2d`` (the 2-D boundary integrals) and ``cuda_ws2d`` (the
+2-D watershed) each declare their library's launch signature, check the
+shapes of their arguments and make their launch call; what they share is
+here: the builds' common facts (their phase-slot capacities and layouts,
+K1's and K2's layout rule), loading a library, the check of the tensors a
+kernel reads, the scalar checks, the allocation of the sweep's outputs
+and the launch itself with its error path and counter.  The shared-memory
+layout rules live in the CUDA sources alone (``csrc/thermo_tail.cuh``,
+``mb_xarea.cuh``, ``iso_cell.cuh``, ``boundary2d.cu``,
+``watershed2d.cu``); a wrapper that needs one asks its loaded library.
 """
 
 from __future__ import annotations

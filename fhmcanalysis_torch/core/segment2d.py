@@ -12,8 +12,9 @@ axis of their tensors; the single-state functions keep the JAX arguments
 and run the batch form on one state.  Everything runs on the device of
 the tensors it is given (the 2-D pipelines put them on the card).
 
-The boundary integrals on CUDA tensors are one hand-written kernel
-(core/cuda_b2d.py, csrc/boundary2d.cu); everything else here is plain
+The boundary integrals and the watershed on CUDA tensors are each one
+hand-written kernel (core/cuda_b2d.py, csrc/boundary2d.cu;
+core/cuda_ws2d.py, csrc/watershed2d.cu); everything else here is plain
 PyTorch.  The only host steps of the 2-D path are the reference-exact
 priority flood (two_dim/imaging.py with native/imaging.cpp, the
 cross-check arm) and the tiny line profiles.  Labels enter as a dense int
@@ -27,7 +28,7 @@ import math
 
 import torch
 
-from . import cuda_b2d
+from . import cuda_b2d, cuda_ws2d
 
 __all__ = [
     "valid_mask_2d",
@@ -402,14 +403,28 @@ def pore_phase_core(lnpi, labels, valid, edge_idx, props, peak_lnpi, n_labels, m
 # Along a chain the (value, -flat index) key rises strictly until a fixed
 # point (a peak, or a cell with no finite neighbor), so the chains are
 # acyclic and both forms give every cell the marker of its chain's end.
+# On CUDA tensors whose shape its rule takes, the hand-written kernel of
+# core/cuda_ws2d.py computes the same outputs bit for bit in one launch.
 
 
 def hillclimb_segment_batch(lnpi_b, valid, fp_shape, max_peaks_slots: int):
     """Watershed labels of S surfaces [S, H, N] as a fixed-shape device
-    program: hillclimb_segment with the state axis leading every output."""
+    program: hillclimb_segment with the state axis leading every output.
+    CUDA tensors with one [H, N] mask for every state launch the kernel of
+    core/cuda_ws2d.py where its rule takes the shape (cuda_ws2d.takes);
+    everything else runs _hillclimb_plain."""
     lnpi = _t(lnpi_b, dtype=torch.float64)
-    dev = lnpi.device
     valid = _t(valid, lnpi, torch.bool)
+    S, H, N = lnpi.shape
+    if lnpi.is_cuda and S and valid.shape == (H, N) and cuda_ws2d.takes(H, N, fp_shape, max_peaks_slots):
+        return cuda_ws2d.watershed(lnpi.contiguous(), valid.contiguous(), fp_shape, max_peaks_slots)
+    return _hillclimb_plain(lnpi, valid, fp_shape, max_peaks_slots)
+
+
+def _hillclimb_plain(lnpi, valid, fp_shape, max_peaks_slots: int):
+    """hillclimb_segment_batch in plain PyTorch on any device: f64[S, H, N]
+    surfaces, a bool mask that broadcasts to them."""
+    dev = lnpi.device
     S, H, N = lnpi.shape
     HN = H * N
     P = max_peaks_slots

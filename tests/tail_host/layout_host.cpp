@@ -1,12 +1,14 @@
 // The kernels' shared-memory layout rules (fhmcanalysis_torch/csrc:
-// thermo_tail.cuh, mb_xarea.cuh, iso_cell.cuh, and the rules at the head of
-// boundary2d.cu, whose kernel g++ does not see: it lies under __CUDACC__)
+// thermo_tail.cuh, mb_xarea.cuh, iso_cell.cuh, and the rules at the heads of
+// boundary2d.cu and watershed2d.cu, whose kernels g++ does not see: they lie
+// under __CUDACC__)
 // on the CPU, the same functions the libraries launch by and export.
 // Built with g++ by tests/test_torch_capacity.py, which holds them to
 // their numbers.
 #include "boundary2d.cu"
 #include "iso_cell.cuh"
 #include "mb_xarea.cuh"
+#include "watershed2d.cu"
 
 extern "C" {
 
@@ -60,5 +62,14 @@ int b2d_table_fits(int L) { return b2d::table_fits(L); }
 long long b2d_table_bytes(int L) { return (long long)b2d::table_bytes(L); }
 long long b2d_smem_bytes(int L) { return (long long)b2d::smem_bytes(L); }
 long long b2d_scratch_bytes(long long S, int L) { return (long long)b2d::scratch_bytes(S, L); }
+
+// The 2-D watershed's rule: which shapes it takes, a block's shared bytes,
+// its band of rows and the blocks an SM, for footprint radii (ry, rx).
+int ws2d_fits(int H, int N, int ry, int rx, int P) { return ws2d::fits(H, N, ry, rx, P); }
+long long ws2d_smem_bytes(int H, int N, int ry, int rx, int P) { return (long long)ws2d::smem_bytes(H, N, ry, rx, P); }
+int ws2d_band_rows(int H, int N, int ry, int rx, int P) { return ws2d::band_rows(H, N, ry, rx, P); }
+int ws2d_blocks_per_sm(int H, int N, int ry, int rx, int P) { return ws2d::blocks_per_sm(H, N, ry, rx, P); }
+long long ws2d_max_cells() { return ws2d::MAX_CELLS; }
+long long ws2d_smem_optin() { return (long long)ws2d::SMEM_OPTIN; }
 
 }  // extern "C"

@@ -307,6 +307,8 @@ def layout_host(tmp_path_factory):
     for f in (lib.b2d_list_bytes, lib.b2d_table_bytes, lib.b2d_smem_bytes, lib.b2d_scratch_bytes):
         f.restype = ll
     lib.b2d_scratch_bytes.argtypes = [ll, i]
+    for f in (lib.ws2d_smem_bytes, lib.ws2d_max_cells, lib.ws2d_smem_optin):
+        f.restype = ll
     return lib
 
 
@@ -519,6 +521,61 @@ def test_b2d_list_holds_pore96_states(layout_host):
     lab = S2.hillclimb_segment_batch(ln, valid, _footprint(H, N, 1).shape, 5)["labels"]
     n = _b2d_contributions(lab)
     assert (n > 500).all() and (n < layout_host.b2d_list_cap() * 3 // 4).all(), n.tolist()
+
+
+def _a16(b):
+    return (b + 15) // 16 * 16
+
+
+@pytest.mark.parametrize(
+    "H, N, ry, rx, P, band, blocks",
+    [
+        (96, 385, 1, 4, 5, 6, 2),  # pore96's main path (footprint 3 x 9): two blocks an SM, bands of 6 rows
+        (13, 21, 1, 2, 5, 13, 2),  # a small state: one band holds it
+        (255, 257, 1, 1, 5, 30, 1),  # 65,535 cells
+        (256, 256, 1, 1, 5, 30, 1),  # 65,536 cells, the most 16-bit chain indices hold
+        (96, 385, 10, 10, 5, 17, 1),  # a 21 x 21 footprint, 441 cells
+        (96, 385, 1, 73, 5, 4, 2),  # 3 x 147, 441 cells
+        (257, 256, 1, 1, 5, 0, 0),  # 65,792 cells: past the 16-bit indices
+        (1, 65_537, 0, 0, 5, 0, 0),
+        (4, 16_000, 1, 1, 5, 0, 0),  # one band row and its halo past the opt-in limit
+        (96, 385, 1, 74, 5, 0, 0),  # 3 x 149, 447 cells: the plain sorted tie scan's regime
+        (24, 97, 1, 4, 0, 0, 0),  # no label slot
+    ],
+)
+def test_ws2d_layout(layout_host, H, N, ry, rx, P, band, blocks):
+    """The 2-D watershed's shared memory (csrc/watershed2d.cu): a block
+    holds its state's chain table (16 bits a cell), a bit a cell each of
+    the valid mask and the peak candidates, the ranked peaks and 256 bytes
+    of scratch, and a band of rows with a halo of ry rows and rx columns of
+    f64, with each cell's winner along its row; the rule takes a footprint
+    of at most 441 cells and at most 65,536 cells a state where a band of
+    one row fits the 232,448 bytes a block may opt into.  The band is the
+    tallest that keeps the blocks an SM (at most 2, by the launch bounds)
+    a band of one row allows, or the whole state."""
+    lib = layout_host
+    sm, optin = lib.mb_smem_sm(), lib.ws2d_smem_optin()
+    assert lib.ws2d_max_cells() == 2**16 and optin == 232_448
+    fits = bool(lib.ws2d_fits(H, N, ry, rx, P))
+    assert fits == (band > 0)
+    assert lib.ws2d_band_rows(H, N, ry, rx, P) == band and lib.ws2d_blocks_per_sm(H, N, ry, rx, P) == blocks
+    smem = lib.ws2d_smem_bytes(H, N, ry, rx, P)
+    if not fits:
+        assert smem == 0
+        return
+    row = (N + 2 * rx) * 8 + -(-N // 2) * 4  # the staged doubles and each cell's row winner (int16, N counted even)
+    fixed = 256 + _a16(2 * H * N) + 2 * _a16(4 * -(-H * N // 32)) + _a16(4 * P)
+    assert smem == fixed + (band + 2 * ry) * row <= optin
+    assert blocks * (smem + 1_024) <= sm
+    assert band == H or blocks * (smem + row + 1_024) > sm or smem + row > optin  # one more row would cost a block
+    assert (blocks + 1) * (fixed + (1 + 2 * ry) * row + 1_024) > sm or blocks == 2
+
+
+def test_ws2d_pore96_bytes(layout_host):
+    """pore96 (96 x 385, footprint 3 x 9, P = 5): 73,920 bytes of chain
+    table, 4,624 each of valid and candidate bits, 8 staged rows of 393
+    doubles and 386 row winners; 114,784 bytes a block, two blocks an SM."""
+    assert layout_host.ws2d_smem_bytes(96, 385, 1, 4, 5) == 256 + 73_920 + 2 * 4_624 + 32 + 8 * (393 * 8 + 386 * 2) == 114_784
 
 
 def test_mb_xarea_argument_checked_first():

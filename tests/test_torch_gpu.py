@@ -8,10 +8,11 @@ Imports no JAX, so it runs on the GPU machine:
 
 (--noconftest: tests/conftest.py imports JAX, which that machine lacks.)
 The 2-D surface path (plain PyTorch on the card, but for its boundary
-integrals, one hand-written kernel) is held here against the host flood,
-the class numpy engine and its own CPU run, and the boundary integrals'
-kernel against the plain one-hot on the card (max_val bit for bit) and on
-the CPU.
+integrals and its watershed, each one hand-written kernel) is held here
+against the host flood, the class numpy engine and its own CPU run, the
+boundary integrals' kernel against the plain one-hot on the card (max_val
+bit for bit) and on the CPU, and the watershed's kernel against the plain
+function on the card and on the CPU (all six outputs bit for bit).
 
 Segmentation fields (for K3: ok and fail_code) must be equal; fe and the
 properties agree to 1e-10 absolute on valid masked slots (the JAX
@@ -1371,6 +1372,206 @@ def test_b2d_launches_per_sweep(cuda):
         n0 = counters().get("launches.b2d", 0)
         call()
         assert counters().get("launches.b2d", 0) == n0 + want
+
+
+# The 2-D watershed kernel (core/cuda_ws2d.py, csrc/watershed2d.cu): what
+# hillclimb_segment_batch launches on CUDA tensors whose shape the library's
+# rule takes.  Its six outputs equal the plain function's bit for bit, on
+# the card and on the CPU: pore96 states at S = 1, 64 and 1,024; random
+# surfaces with ragged masks, valid -inf runs, NaN cells and garbage
+# outside the mask; planted exact ties; more maxima than slots; footprints
+# from 1 x 1 to 21 x 21 (441 cells); and 65,535 and 65,536 cells a state,
+# the most the 16-bit chain indices hold.  Past the rule (a footprint of
+# more than 441 cells, more than 65,536 cells, a band row past the shared
+# memory a block may opt into) and for a mask of each state the plain
+# function runs and launches.ws2d stays unchanged.
+
+WS2D_OUTPUTS = ("labels", "n_labels", "peak_lnpi", "peak_sat", "peak_rc", "elev_tie")
+
+
+def _ws2d_random(seed, S, H, N, nb=4, ties=False, noise=0.0, nan=False):
+    """(lnpi [S, H, N], valid [H, N]) numpy: rand_surface states (noise
+    adds maxima), a ragged mask with garbage outside it, a run of valid
+    -inf cells in some rows, planted exact ties (a cell copied onto its
+    right neighbour) or NaN cells where asked."""
+    from torch_composites import rand_surface
+
+    rng = np.random.RandomState(seed)
+    valid = np.arange(N)[None, :] <= rng.randint(max(1, N // 2), N, size=H)[:, None]
+    lnpi = np.stack([rand_surface(rng, H, N, nb) + noise * rng.randn(H, N) for _ in range(S)])
+    lnpi = np.where(valid, lnpi, 1e3 * rng.randn(S, H, N))
+    for s in range(S):
+        r = rng.randint(H)
+        lnpi[s, r, : max(1, N // 8)] = -np.inf
+        if ties:
+            rr, cc = rng.randint(H), rng.randint(N // 2 - 1)
+            lnpi[s, rr, cc + 1] = lnpi[s, rr, cc]
+        if nan and s % 2:
+            lnpi[s, rng.randint(H), rng.randint(N // 2)] = np.nan
+    return lnpi, valid
+
+
+def _ws2d_pore96(S, dev):
+    """(lnpi [S, 96, 385], valid) of the pore96 states of a sqrt(S)-square
+    (p, beta) grid, built on dev."""
+    import fhmcanalysis_torch.core.segment2d as S2
+    from torch_composites import joint, pore_grid_prod, pore_prod_entries
+
+    jh = joint(pore_prod_entries())
+    jh.make()
+    raw = torch.as_tensor(np.asarray(jh.data["ln(PI)"], dtype=np.float64), device=dev)
+    H, N = raw.shape
+    valid = torch.as_tensor(np.arange(N)[None, :] <= np.asarray(jh.data["bounds_idx"][:, 1])[:, None], device=dev)
+    p, beta = pore_grid_prod(int(round(S**0.5)))
+    h = torch.arange(1, H + 1, dtype=torch.float64, device=dev)
+    ln, _ = S2.pore_surface_batch(raw, h, 0.1 * h, torch.as_tensor(p, device=dev), 1.0, torch.as_tensor(beta, device=dev), valid)
+    return ln, valid
+
+
+# name: (maker of (lnpi, valid) on a device, footprint, P)
+WS2D_CASES = {
+    "pore96-S1": (lambda dev: _ws2d_pore96(1, dev), (3, 9), 5),
+    "pore96-S64": (lambda dev: _ws2d_pore96(64, dev), (3, 9), 5),
+    "pore96-S1024": (lambda dev: _ws2d_pore96(1024, dev), (3, 9), 5),
+    "random13x21": (lambda dev: _ws2d_random(1, 16, 13, 21), (3, 5), 6),
+    "random24x97": (lambda dev: _ws2d_random(2, 16, 24, 97), (3, 9), 6),
+    "ties24x97": (lambda dev: _ws2d_random(3, 16, 24, 97, ties=True), (3, 9), 6),
+    "nan24x97": (lambda dev: _ws2d_random(4, 16, 24, 97, nan=True), (3, 9), 6),
+    "saturated40x80": (lambda dev: _ws2d_random(5, 8, 40, 80, nb=5, noise=0.5), (3, 5), 3),
+    "fp1x1": (lambda dev: _ws2d_random(6, 4, 24, 97), (1, 1), 4),
+    "fp3x9": (lambda dev: _ws2d_random(7, 8, 40, 120, nb=6), (3, 9), 6),
+    "fp9x3": (lambda dev: _ws2d_random(8, 8, 40, 120, nb=6), (9, 3), 6),
+    "fp5x15": (lambda dev: _ws2d_random(9, 8, 40, 120, nb=6), (5, 15), 6),
+    "fp21x21": (lambda dev: _ws2d_random(10, 4, 96, 385, nb=8), (21, 21), 6),
+    "cells65535": (lambda dev: _ws2d_random(11, 2, 255, 257, nb=8), (3, 3), 8),
+    "cells65536": (lambda dev: _ws2d_random(12, 2, 256, 256, nb=8), (3, 3), 8),
+}
+# name: (maker, footprint, P) of shapes the rule refuses
+WS2D_PLAIN_CASES = {
+    "fp3x149": (lambda dev: _ws2d_random(13, 4, 24, 200), (3, 149), 6),
+    "cells65792": (lambda dev: _ws2d_random(14, 2, 257, 256, nb=8), (3, 3), 8),
+    "band4x16000": (lambda dev: _ws2d_random(15, 2, 4, 16000), (3, 3), 6),
+}
+
+
+def _ws2d_inputs(case, cuda):
+    build, fp, P = case
+    lnpi, valid = build(cuda)
+    return torch.as_tensor(lnpi, device=cuda), torch.as_tensor(valid, device=cuda), fp, P
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(WS2D_CASES))
+def test_ws2d_kernel_matches_plain(cuda, name):
+    import fhmcanalysis_torch.core.cuda_ws2d as CW
+    import fhmcanalysis_torch.core.segment2d as S2
+
+    lnpi, valid, fp, P = _ws2d_inputs(WS2D_CASES[name], cuda)
+    S, H, N = lnpi.shape
+    assert CW.takes(H, N, fp, P), name
+    n0 = counters().get("launches.ws2d", 0)
+    got = S2.hillclimb_segment_batch(lnpi, valid, fp, P)
+    again = CW.watershed(lnpi, valid, fp, P)
+    torch.cuda.synchronize()
+    assert counters()["launches.ws2d"] == n0 + 2
+    plain = S2._hillclimb_plain(lnpi, valid, fp, P)
+    sub = slice(None, None, 16) if S > 64 else slice(None)  # the CPU's plain run on every 16th state of S = 1,024
+    cpu = S2._hillclimb_plain(lnpi[sub].cpu(), valid.cpu(), fp, P)
+    assert set(got) == set(WS2D_OUTPUTS)
+    for k in WS2D_OUTPUTS:
+        assert got[k].is_cuda and got[k].dtype == plain[k].dtype, k
+        assert torch.equal(got[k], again[k]), f"{name} {k}: two launches differ"
+        assert torch.equal(got[k], plain[k]), f"{name} {k}: differs from the plain function on the card"
+        assert torch.equal(got[k][sub].cpu(), cpu[k]), f"{name} {k}: differs from the plain function on the CPU"
+    if name.startswith("ties"):
+        assert got["elev_tie"].any()
+    if name.startswith("saturated"):
+        assert got["peak_sat"].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(WS2D_PLAIN_CASES))
+def test_ws2d_plain_route_past_the_rule(cuda, name):
+    """Past the library's rule the plain function runs on the card: no
+    launch, the plain function's outputs."""
+    import fhmcanalysis_torch.core.cuda_ws2d as CW
+    import fhmcanalysis_torch.core.segment2d as S2
+
+    lnpi, valid, fp, P = _ws2d_inputs(WS2D_PLAIN_CASES[name], cuda)
+    S, H, N = lnpi.shape
+    assert not CW.takes(H, N, fp, P), name
+    n0 = counters().get("launches.ws2d", 0)
+    got = S2.hillclimb_segment_batch(lnpi, valid, fp, P)
+    torch.cuda.synchronize()
+    assert counters().get("launches.ws2d", 0) == n0
+    plain = S2._hillclimb_plain(lnpi, valid, fp, P)
+    for k in WS2D_OUTPUTS:
+        assert got[k].is_cuda and torch.equal(got[k], plain[k]), k
+    with pytest.raises(RuntimeError, match="watershed kernel launch failed"):
+        CW.watershed(lnpi, valid, fp, P)
+
+
+@pytest.mark.gpu
+def test_ws2d_per_state_masks_run_plain(cuda):
+    """A mask for each state ([S, H, N]) runs the plain function on the
+    card, which broadcasts it; the wrapper takes one [H, N] mask only."""
+    import fhmcanalysis_torch.core.cuda_ws2d as CW
+    import fhmcanalysis_torch.core.segment2d as S2
+
+    lnpi, valid = (torch.as_tensor(a, device=cuda) for a in _ws2d_random(16, 4, 24, 97))
+    masks = torch.stack([valid, valid.roll(1, 0), valid.roll(2, 0), valid])
+    n0 = counters().get("launches.ws2d", 0)
+    got = S2.hillclimb_segment_batch(lnpi, masks, (3, 9), 6)
+    torch.cuda.synchronize()
+    assert counters().get("launches.ws2d", 0) == n0
+    plain = S2._hillclimb_plain(lnpi, masks, (3, 9), 6)
+    for k in WS2D_OUTPUTS:
+        assert torch.equal(got[k], plain[k]), k
+    with pytest.raises(ValueError, match=r"valid \[H, N\]"):
+        CW.watershed(lnpi, masks, (3, 9), 6)
+
+
+@pytest.mark.gpu
+def test_ws2d_rule_edges(cuda):
+    """The loaded library's rule at its edges: 441 footprint cells taken,
+    442 and more not; 65,536 cells a state taken, 65,537 not; P >= 1."""
+    import fhmcanalysis_torch.core.cuda_ws2d as CW
+
+    assert CW.takes(96, 385, (21, 21), 5) and CW.takes(96, 385, (3, 147), 5) and not CW.takes(96, 385, (3, 149), 5)
+    assert CW.takes(256, 256, (3, 3), 5) and not CW.takes(1, 65_537, (1, 1), 5) and not CW.takes(257, 256, (3, 3), 5)
+    assert not CW.takes(24, 97, (3, 9), 0)
+
+
+@pytest.mark.gpu
+def test_ws2d_launches_per_sweep(cuda, tmp_path):
+    """launches.ws2d: one launch a device-route pore_state_sweep and
+    joint_state_sweep call (the tie fallback's flood adds none), none with
+    segment_engine="host"; the launch's span nests in fhmc.launch.sweep2d."""
+    from fhmcanalysis_torch import two_dim
+    from fhmcanalysis_torch.utils import profiling as TPr
+    from torch_composites import FH_COEFFS, JOINT_BETA, JOINT_MU_REF, joint, joint_prod_entries, joint_states, pore13_entries, pore_states, tie_joint
+
+    jh, fh = joint(pore13_entries()), two_dim.free_energy_profile.polynomial(FH_COEFFS)
+    ps, bs = pore_states(8)
+    jj = joint(joint_prod_entries(24, 97))
+    jt = tie_joint(joint(pore13_entries()))
+    calls = [
+        (1, lambda: two_dim.pore_state_sweep(jh, fh, ps, bs, 1.0, nnebr=1, max_peaks=4, device=cuda)),
+        (1, lambda: two_dim.pore_state_sweep(jh, fh, ps, bs, 1.0, nnebr=1, max_peaks=4, device=cuda, return_surfaces=False)),
+        (1, lambda: two_dim.joint_state_sweep(jj, JOINT_BETA, JOINT_MU_REF, joint_states(8), nnebr=1, max_peaks=4, device=cuda)),
+        (0, lambda: two_dim.pore_state_sweep(jh, fh, ps, bs, 1.0, nnebr=1, max_peaks=4, device=cuda, segment_engine="host")),
+        (0, lambda: two_dim.joint_state_sweep(jj, JOINT_BETA, JOINT_MU_REF, joint_states(8), nnebr=1, max_peaks=4, device=cuda, segment_engine="host")),
+        (1, lambda: two_dim.pore_state_sweep(jt, fh, ps, bs, 1.0, nnebr=1, max_peaks=4, device=cuda, tie_fallback=True)),
+    ]
+    for want, call in calls:
+        n0 = counters().get("launches.ws2d", 0)
+        call()
+        assert counters().get("launches.ws2d", 0) == n0 + want
+    with TPr.trace(str(tmp_path)) as prof:
+        calls[0][1]()
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events() if e.name in ("fhmc.launch.ws2d", "fhmc.launch.sweep2d")]
+    (ws,) = [(a, b) for n, a, b in spans if n == "fhmc.launch.ws2d"]
+    assert any(a <= ws[0] and ws[1] <= b for n, a, b in spans if n == "fhmc.launch.sweep2d")
 
 
 # ---------------------------------------------------------------------------

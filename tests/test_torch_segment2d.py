@@ -216,6 +216,30 @@ def test_sweeps_on_cpu_launch_no_kernel():
     assert counters().get("launches.b2d", 0) == 0
 
 
+def test_watershed_cpu_route_is_plain():
+    """CPU tensors take the plain watershed: hillclimb_segment_batch returns
+    _hillclimb_plain's tensors bit for bit, on a shared and on a per-state
+    mask, and the kernel of core/cuda_ws2d.py is never launched
+    (launches.ws2d stays 0, through the sweeps too); its wrapper refuses
+    CPU tensors before any launch."""
+    from fhmcanalysis_torch import two_dim
+    from fhmcanalysis_torch.core import cuda_ws2d
+    from fhmcanalysis_torch.utils.profiling import counters
+    from torch_composites import FH_COEFFS, pore_states
+
+    rng = np.random.RandomState(5)
+    lnpi = torch.as_tensor(np.stack([rand_surface(rng, 13, 21, 3) for _ in range(3)]))
+    for valid in (torch.as_tensor(_ragged(rng, 13, 21)[1]), torch.as_tensor(np.stack([_ragged(rng, 13, 21)[1] for _ in range(3)]))):
+        got, want = T.hillclimb_segment_batch(lnpi, valid, (3, 5), 4), T._hillclimb_plain(lnpi, valid, (3, 5), 4)
+        for k in want:
+            assert got[k].device.type == "cpu" and torch.equal(got[k], want[k]), k
+    jh, fh = joint(pore13_entries()), two_dim.free_energy_profile.polynomial(FH_COEFFS)
+    two_dim.pore_state_sweep(jh, fh, *pore_states(4), 1.0, nnebr=1, max_peaks=4, segment_engine="device", device="cpu")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_ws2d.watershed(lnpi, valid[0], (3, 5), 4)
+    assert counters().get("launches.ws2d", 0) == 0
+
+
 # ------------------------------------------------------------- watershed
 
 
